@@ -1,0 +1,106 @@
+"""Architecture configuration for the PyTorch port.
+
+An own copy of ``ArchConfig``/``CLIPConfig`` and the registry: the port
+imports nothing of the JAX package.  Only the CLIP two-tower configs are
+registered here; ``reduced()`` gives the same small shapes as the JAX
+package's ``reduced()``, which is what lets the tests load one set of
+params into both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Two-tower CLIP settings (paper Table 2)."""
+    vision_arch: str = "vit"       # only "vit" is ported
+    image_size: int = 224
+    patch_size: int = 32
+    vision_layers: int = 12
+    vision_width: int = 768
+    vision_heads: int = 12
+    embed_dim: int = 512           # joint embedding dim
+    context_length: int = 77       # text tower context
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # only "clip" is ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-6
+    sliding_window: int = 0        # 0 = full attention
+    clip: Optional[CLIPConfig] = None
+    # activation policy of the towers ("f32" | "bf16", models.precision)
+    precision: str = "f32"
+    source: str = ""
+    notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: the JAX package's ``reduced()`` for the
+        fields a CLIP config has."""
+        kw = dict(
+            n_layers=2,
+            d_model=min(self.d_model, 256),
+            n_heads=min(self.n_heads, 4),
+            n_kv_heads=min(self.n_kv_heads, 2),
+            head_dim=64 if self.head_dim else 0,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+        )
+        if self.clip is not None:
+            kw["clip"] = dataclasses.replace(
+                self.clip, image_size=32, patch_size=8, vision_layers=2,
+                vision_width=128, vision_heads=4, embed_dim=64,
+                context_length=16)
+        return self.replace(**kw)
+
+
+_REGISTRY: dict[str, ArchConfig] = {}
+
+_ARCH_MODULES = ["clip_vitb32_cc12m"]
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def load_all() -> None:
+    for mod in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_arch(name: str) -> ArchConfig:
+    if not _REGISTRY:
+        load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    if not _REGISTRY:
+        load_all()
+    return sorted(_REGISTRY)

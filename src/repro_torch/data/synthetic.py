@@ -1,0 +1,77 @@
+"""Synthetic datasets (port of ``repro.data.synthetic``; the eval split
+so far).  Numpy only: batches equal the JAX package's bit for bit."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class ZeroShotEvalDataset:
+    """Planted-structure eval split.
+
+      * ``n_classes`` orthonormal class prototypes: one-hot vectors in the
+        8x8x3 = 192-dim image latent, rendered to images by constant-block
+        upsampling with zero noise;
+      * items grouped by class, ``n_per_class`` each (item i has class
+        ``i // n_per_class``); captions carry the class token n-gram at
+        position 0;
+      * ``labels`` equal the planted classes except for an optional
+        deterministic fraction of label-only flips (``label_flip_frac``).
+    """
+    n_classes: int = 8
+    n_per_class: int = 8
+    image_size: int = 32
+    context_length: int = 16
+    vocab_size: int = 512
+    token_len: int = 4
+    label_flip_frac: float = 0.0
+    seed: int = 0
+
+    LATENT = 8 * 8 * 3
+
+    def __post_init__(self):
+        if self.n_classes > self.LATENT:
+            raise ValueError("one-hot latent exhausted")
+        if self.image_size % 8 or self.token_len > self.context_length:
+            raise ValueError("image_size must be a multiple of 8 and "
+                             "token_len <= context_length")
+        self.n = self.n_classes * self.n_per_class
+        self.classes = np.repeat(np.arange(self.n_classes),
+                                 self.n_per_class)
+        eye = np.eye(self.LATENT, dtype=np.float32)[:self.n_classes]
+        self.protos = eye.reshape(self.n_classes, 8, 8, 3)
+        rng = np.random.RandomState(self.seed)
+        # unique class n-grams (class identity is the contiguous n-gram)
+        seen = set()
+        rows = []
+        while len(rows) < self.n_classes:
+            cand = tuple(rng.randint(1, self.vocab_size,
+                                     size=self.token_len))
+            if cand not in seen:
+                seen.add(cand)
+                rows.append(cand)
+        self.tok_base = np.asarray(rows, np.int32)
+        self.labels = self.classes.copy()
+        n_flip = int(round(self.label_flip_frac * self.n))
+        if n_flip:
+            flip_idx = rng.choice(self.n, n_flip, replace=False)
+            shift = 1 + rng.randint(0, self.n_classes - 1, n_flip)
+            self.labels[flip_idx] = (self.labels[flip_idx] + shift) \
+                % self.n_classes
+
+    def images(self, idx):
+        base = self.protos[self.classes[idx]]             # (b, 8, 8, 3)
+        r = self.image_size // 8
+        return np.repeat(np.repeat(base, r, axis=1), r, axis=2)
+
+    def texts(self, idx):
+        b = len(idx)
+        toks = np.zeros((b, self.context_length), np.int32)
+        toks[:, :self.token_len] = self.tok_base[self.classes[idx]]
+        return toks
+
+    def batch(self, idx):
+        idx = np.asarray(idx)
+        return {"images": self.images(idx), "texts": self.texts(idx)}

@@ -1,0 +1,132 @@
+"""Flash-attention forward: a CUDA kernel written by hand for Hopper.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
+(``flash_attention``, body ``_flash_kernel``).  Same public functions and
+layouts: ``flash_attention`` on ``(B, H, S, hd)`` and ``flash_mha`` on
+``(B, S, H, hd)``; any ``Sq``/``Sk``, causal and sliding-window masks, f32
+or bf16 inputs, f32 softmax statistics and accumulation, output in the q
+dtype.
+
+What bounds it on the H100: at the serving shapes (ViT ``B x 12 x 50 x
+64`` non-causal, text ``B x 8 x 77 x 64`` causal) it moves q, k, v and o
+once and does a few hundred kFLOP per (batch, head), so it is memory- and
+launch-bound.  The design (``csrc/flash_attention.cu``) sizes its work to S
+instead of the TPU's 256-row tiles: one block per (batch*head, 64 query
+rows), key tiles of 32 rows staged in shared memory, its own masking of
+the ragged edge, and fully masked key tiles skipped.
+
+Dispatch: a tensor on the CPU takes the plain version
+(``flash_attention_ref``); a CUDA tensor launches the kernel or raises.
+``flash_attention.launches`` counts kernel launches (both entry points).
+This is the forward only; serving runs under ``torch.inference_mode``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+NEG = -1e30
+HEAD_DIMS = (32, 64)   # full-width towers: 64; the reduced ViT tower: 32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """Plain PyTorch version: naive masked f32 softmax, ``p`` rounded to
+    the v dtype before the PV product, ``l`` clamped at 1e-30 (a fully
+    masked row gives 0), output in the q dtype.  (B, H, S, hd) layout."""
+    Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(hd))
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return (o / l).to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").flash_attention_fwd
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32]
+                   + [i64] * 12 + [ctypes.c_float, i32, i32, ptr])
+    fn.restype = i32
+    return fn
+
+
+def _launch(q, k, v, out, causal, window):
+    """Launch on (B, H, S, hd) views of one CUDA device: any strides for
+    B, H and S, contiguous hd."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
+    for name, t in (("k", k), ("v", v), ("out", out)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32 or bfloat16, "
+                        f"not {q.dtype}")
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    if (tuple(k.shape) != (B, H, Sk, hd) or v.shape != k.shape
+            or out.shape != q.shape):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} out "
+                         f"{tuple(out.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v, out)):
+        raise ValueError("the head dim must be contiguous (stride 1)")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    fn = _kernel()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, Sq, Sk, hd,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
+             int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches += 1
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B, H, Sq, hd), k/v: (B, H, Sk, hd) -> (B, H, Sq, hd)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, causal, window)
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_mha(q, k, v, *, causal=True, window=0):
+    """q: (B, Sq, H, hd), k/v: (B, Sk, H, hd) (GQA heads already
+    repeated) -> (B, Sq, H, hd) in the q dtype.  On the card the kernel
+    reads and writes this layout in place, with no transposing copy."""
+    if q.device.type == "cpu":
+        o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window)
+        return o.transpose(1, 2)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            out.transpose(1, 2), causal, window)
+    return out

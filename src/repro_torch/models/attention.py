@@ -1,0 +1,154 @@
+"""Self-attention with GQA and RoPE (port of ``repro.models.attention``).
+
+Shapes: x (B, S, d); q (B, S, H, hd); k/v (B, S, Hkv, hd).  ``impl``
+selects the attention core: "flash", the default (the hand-written kernel
+for CUDA tensors, its plain version for CPU tensors), or one of the plain
+PyTorch references the tests hold it to: "chunked" (online softmax over q
+and kv blocks, the JAX package's default) and "naive" (the
+O(S^2)-memory oracle).
+Cross-attention and the KV-cache decode path are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_mha
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 1e6
+    causal: bool = True
+    sliding_window: int = 0     # 0 = full
+    q_chunk: Optional[int] = None   # chunked impl block sizes (512 / 1024)
+    kv_chunk: Optional[int] = None
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    B, S, Hk, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, Hk, n_rep, hd).reshape(
+        B, S, Hk * n_rep, hd)
+
+
+def _block_mask(q_pos, k_pos, causal, window):
+    """(qc, kc) boolean mask of allowed positions."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
+                      kv_chunk=1024):
+    """Online-softmax attention over (q_chunk, kv_chunk) blocks.
+    q: (B, Sq, H, hd), k/v: (B, Sk, H, hd)."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs = []
+    for q0 in range(0, Sq, qc):
+        qblk = q[:, q0:q0 + qc] * scale
+        n = qblk.shape[1]
+        q_pos = q0 + torch.arange(n, device=dev)
+        acc = torch.zeros((B, n, H, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, H, n), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, n), dtype=torch.float32, device=dev)
+        for k0 in range(0, Sk, kc):
+            kblk, vblk = k[:, k0:k0 + kc], v[:, k0:k0 + kc]
+            k_pos = k0 + torch.arange(kblk.shape[1], device=dev)
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk.float(), kblk.float())
+            mask = _block_mask(q_pos, k_pos, causal, window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # mask again: a fully masked block keeps m_new at NEG_INF and
+            # exp(s - m_new) would be 1, not 0
+            p = torch.exp(s - m_new[..., None]) * mask
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bhqk,bkhd->bqhd", p.to(vblk.dtype).float(),
+                              vblk.float())
+            acc = acc * alpha.transpose(1, 2)[..., None] + pv
+            m = m_new
+        l = l.clamp_min(1e-30)
+        outs.append(acc / l.transpose(1, 2)[..., None])
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def naive_attention(q, k, v, *, causal=True, window=0):
+    """Reference O(S^2)-memory attention (oracle for tests)."""
+    Sq, hd = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    s = torch.where(_block_mask(q_pos, k_pos, causal, window), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+    return out.to(q.dtype)
+
+
+class Attention(nn.Module):
+    """Projections ``wq``/``wk``/``wv`` of shape (d, heads*hd) and ``wo``
+    of (H*hd, d), in the JAX package's (in, out) layout."""
+
+    def __init__(self, spec: AttnSpec):
+        super().__init__()
+        self.spec = spec
+        H, Hk, hd, d = (spec.n_heads, spec.n_kv_heads, spec.head_dim,
+                        spec.d_model)
+        self.wq = L.param(d, H * hd)
+        self.wk = L.param(d, Hk * hd)
+        self.wv = L.param(d, Hk * hd)
+        self.wo = L.param(H * hd, d)
+
+    def reset_parameters(self, gen):
+        for w in (self.wq, self.wk, self.wv):
+            L.dense_init_(w, gen)
+        L.dense_init_(self.wo, gen, scale=1.0 / math.sqrt(self.wo.shape[0]))
+
+    def forward(self, x, *, impl="flash"):
+        spec = self.spec
+        B, S, _ = x.shape
+        dt = x.dtype
+        q = (x @ self.wq.to(dt)).reshape(B, S, spec.n_heads, spec.head_dim)
+        k = (x @ self.wk.to(dt)).reshape(B, S, spec.n_kv_heads,
+                                         spec.head_dim)
+        v = (x @ self.wv.to(dt)).reshape(B, S, spec.n_kv_heads,
+                                         spec.head_dim)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        q = L.apply_rope(q, positions, spec.rope_theta)
+        k = L.apply_rope(k, positions, spec.rope_theta)
+        n_rep = spec.n_heads // spec.n_kv_heads
+        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        causal, window = spec.causal, spec.sliding_window
+        if impl == "chunked":
+            out = chunked_attention(q, k, v, causal=causal, window=window,
+                                    q_chunk=spec.q_chunk or 512,
+                                    kv_chunk=spec.kv_chunk or 1024)
+        elif impl == "flash":
+            out = flash_mha(q, k, v, causal=causal, window=window)
+        elif impl == "naive":
+            out = naive_attention(q, k, v, causal=causal, window=window)
+        else:
+            raise ValueError(f"unknown attention impl {impl!r}")
+        out = out.reshape(B, S, spec.n_heads * spec.head_dim)
+        return out @ self.wo.to(dt)

@@ -1,0 +1,143 @@
+"""Shared building blocks (port of ``repro.models.layers``).
+
+Weights keep the JAX package's layout, ``(in, out)`` for a dense layer
+used as ``x @ w``, so the params bridge copies arrays without
+transposes.  Modules allocate with ``torch.empty`` (so they can be built
+on the ``meta`` device for shapes) and fill in ``reset_parameters``
+from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense_init_(w: torch.Tensor, gen: torch.Generator, scale=None):
+    """N(0, 1) * scale, scale defaulting to 1/sqrt(fan_in); w is (in, out)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(w.shape[0])
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=gen) * scale)
+
+
+def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float):
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=gen) * std)
+
+
+def param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape))
+
+
+# ---------------------------------------------------------------------------
+# Norms (f32 inside, output in the input dtype)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps=1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale).to(dt)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps=1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale + bias).to(dt)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = param(dim)
+
+    def reset_parameters(self, gen=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+    def forward(self, x):
+        return rmsnorm(self.scale, x)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = param(dim)
+        self.bias = param(dim)
+
+    def reset_parameters(self, gen=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class GeluMLP(nn.Module):
+    """``gelu(x @ w_in + b_in) @ w_out + b_out`` with the tanh
+    approximation of gelu, which is ``jax.nn.gelu``'s default (torch's
+    default is the exact erf form)."""
+
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_in = param(d_model, d_ff)
+        self.b_in = param(d_ff)
+        self.w_out = param(d_ff, d_model)
+        self.b_out = param(d_model)
+
+    def reset_parameters(self, gen):
+        dense_init_(self.w_in, gen)
+        dense_init_(self.w_out, gen)
+        with torch.no_grad():
+            self.b_in.zero_()
+            self.b_out.zero_()
+
+    def forward(self, x):
+        dt = x.dtype
+        h = x @ self.w_in.to(dt)
+        h = F.gelu(h + self.b_in.to(dt), approximate="tanh")
+        return h @ self.w_out.to(dt) + self.b_out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (halves concatenated, not interleaved; f32 inside)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    exponent = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim//2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(
+        rope_frequencies(hd, theta).astype(np.float32)).to(x.device)
+    angles = positions[..., None].float() * freqs   # (..., S, hd//2)
+    cos = torch.cos(angles)[..., None, :]            # (..., S, 1, hd//2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype=None) -> torch.Tensor:
+    """Token lookup; ``dtype`` is the activation dtype of the result (the
+    table stays in its f32 storage dtype)."""
+    x = F.embedding(tokens.long(), table)
+    return x if dtype is None else x.to(dtype)

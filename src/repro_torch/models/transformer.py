@@ -1,0 +1,60 @@
+"""Pre-norm transformer blocks and stacks (port of
+``repro.models.transformer``, the CLIP text tower's part).
+
+A block is ``x += attn(rmsnorm(x)); x += gelu_mlp(rmsnorm(x))``.  The
+JAX package scans a stacked layer axis; here a stack is an
+``nn.ModuleList`` walked in a Python loop, and the params bridge adds or
+removes the leading layer axis.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import precision as PR
+
+
+def attn_spec(cfg: ArchConfig) -> A.AttnSpec:
+    """The text tower's attention: causal, with the config's RoPE theta."""
+    if cfg.qk_norm or cfg.qkv_bias:
+        raise NotImplementedError(
+            "qk_norm / qkv_bias attention is not ported (no CLIP config "
+            "uses it)")
+    return A.AttnSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                      n_kv_heads=cfg.n_kv_heads,
+                      head_dim=cfg.resolved_head_dim,
+                      rope_theta=cfg.rope_theta, causal=True,
+                      sliding_window=cfg.sliding_window)
+
+
+class Block(nn.Module):
+    """Pre-norm block with rmsnorm and the gelu MLP (``mlp="gelu"`` of
+    the JAX package's ``init_block``)."""
+
+    def __init__(self, cfg: ArchConfig, spec: A.AttnSpec):
+        super().__init__()
+        self.n1 = L.RMSNorm(cfg.d_model)
+        self.attn = A.Attention(spec)
+        self.n2 = L.RMSNorm(cfg.d_model)
+        self.mlp = L.GeluMLP(cfg.d_model, cfg.d_ff)
+
+    def forward(self, x, *, impl="flash"):
+        x = x + self.attn(self.n1(x), impl=impl)
+        return x + self.mlp(self.n2(x))
+
+
+def make_stack(cfg: ArchConfig, n_layers: int) -> nn.ModuleList:
+    spec = attn_spec(cfg)
+    return nn.ModuleList(Block(cfg, spec) for _ in range(n_layers))
+
+
+def apply_stack(blocks: nn.ModuleList, x, *, impl="flash",
+                precision=PR.F32):
+    """The input is cast to the policy's compute dtype once here and
+    every block follows (params are cast at their use sites)."""
+    x = PR.cast_compute(precision, x)
+    for blk in blocks:
+        x = blk(x, impl=impl)
+    return x

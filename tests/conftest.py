@@ -10,3 +10,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; the test skips itself "
+        "when torch.cuda.is_available() is False")
