@@ -7,21 +7,34 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 
 1. device  -- requires CUDA, prints the card's name and power limit
    (``nvidia-smi``), turns TF32 off for matmuls and convolutions;
-2. build   -- builds the port's kernel from ``src/repro_torch/kernels/
-   csrc/flash_attention.cu`` with nvcc for sm_90a;
+2. build   -- builds the port's kernels from ``src/repro_torch/kernels/
+   csrc/*.cu`` with nvcc for sm_90a, one nvcc per source, in parallel;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card at the serving shapes (f32 and bf16) and at edge
    cases, and times kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
    port) with CUDA events;
-4. slice   -- builds full-width ``clip-vitb32-cc12m`` params from a seeded
+4. attn_grad -- gradients of q, k, v through the kernel's autograd
+   Function against autograd of the naive attention, at the training
+   shapes of both towers;
+5. gcl     -- holds K1 (``gcl_pair_stats``) and K2 (``gcl_pair_grads``)
+   against their plain versions at the training shape (256 x 512, f32
+   and bf16) and at edge cases, and times both at the training shape;
+6. slice   -- builds full-width ``clip-vitb32-cc12m`` params from a seeded
    generator, saves them in the checkpoint format, and runs
    ``repro_torch.launch.serve_embed.main`` with ``--impl flash`` for the
    image tower and the text tower; holds every response against the same
    payload's solo forward through the plain attention, every cache hit
    against the computed bytes, and the kernel's launch count against 12
    per computed batch;
-5. report  -- the kernels JSON line, the card line, and the last line
+7. train   -- three full-width FastCLIP v3 steps at global batch 256
+   through ``repro_torch.launch.train.main`` (defaults ``--impl flash
+   --loss-impl fused``): launch counts (3 of K1, 3 of K2, 72 of the
+   attention kernel), finite losses, f32 masters; step-1 gradients and
+   the loss / tau / log-u trajectory against the same steps through the
+   plain path (``--impl naive --loss-impl dense``); one bf16 step; ms per
+   step and peak device memory;
+8. report  -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -51,6 +64,17 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # attention and served bucket vs solo forward: the same bounds end to end.
 TOL_EMBED = {"float32": 1e-5, "bfloat16": 1e-2}
 SERVE_REQUESTS = 64
+# K1 / K2 vs their plain versions: those of tests/test_kernels.py (K1 f32
+# rtol/atol 1e-5, bf16 1e-2 in log domain; K2 rtol 1e-4, atol 1e-5)
+TOL_K1, TOL_K1_LOG_BF16, TOL_K2 = 1e-5, 1e-2, (1e-4, 1e-5)
+# attention gradients, flash Function vs autograd of the naive attention
+TOL_ATTN_GRAD = 1e-5
+# the training step, kernel path vs plain path: step-1 gradients (relative
+# L2 error per leaf) and the loss / tau / log-u trajectory (rtol)
+TOL_TRAIN_GRAD, TOL_TRAIN_TRAJ = 1e-4, 1e-4
+TRAIN_ARGS = ["--arch", ARCH, "--version", "v3", "--optimizer", "adamw",
+              "--global-batch", "256", "--n-samples", "2048",
+              "--log-every", "1", "--device", "cuda", "--seed", "0"]
 
 
 def emit(phase, **kw):
@@ -153,13 +177,15 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.monotonic()
-    build.load("flash_attention")
+    build.build(build.SOURCES)       # one nvcc per source, in parallel
     seconds = time.monotonic() - t0
-    log = build.build_log("flash_attention")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    emit("build", kernel="flash_attention", seconds=seconds,
-         library=str(build.lib_path("flash_attention")), ptxas=ptxas)
+    for name in build.SOURCES:
+        build.load(name)
+        log = build.build_log(name)
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        emit("build", kernel=name, seconds_all_parallel=seconds,
+             library=str(build.lib_path(name)), ptxas=ptxas)
 
 
 KERNEL_CASES = [
@@ -360,12 +386,386 @@ def phase_slice(checks):
     return launches
 
 
+def phase_attn_grad(checks):
+    """dq, dk, dv through ``flash_mha`` (the kernel forward, the chunked
+    recompute backward) vs autograd of the naive attention, f32."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import naive_attention
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for tower, B, S, H, hd, causal in (("vit", 8, 50, 12, 64, False),
+                                       ("text", 8, 77, 8, 64, True)):
+        q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                               requires_grad=True) for _ in range(3))
+        ct = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+        before = FA.flash_attention.launches
+        got = torch.autograd.grad(FA.flash_mha(q, k, v, causal=causal),
+                                  (q, k, v), ct)
+        launched = FA.flash_attention.launches - before
+        want = torch.autograd.grad(naive_attention(q, k, v, causal=causal),
+                                   (q, k, v), ct)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        ok = checks.check(
+            launched == 1 and all(math.isfinite(e) and e <= TOL_ATTN_GRAD
+                                  for e in errs),
+            f"attn grad {tower}: max abs err dq/dk/dv {errs}, "
+            f"{launched} launches")
+        emit("attn_grad", tower=tower, shape=[B, S, H, hd], causal=causal,
+             max_abs_err_dq_dk_dv=errs, tol=TOL_ATTN_GRAD,
+             forward_launches=launched, ok=ok)
+    checks.end_phase("attn_grad")
+
+
+# name, b (anchor rows), B (columns), d, row_offset, dtype, tau, clamp row
+GCL_CASES = [
+    ("main", 256, 256, 512, 0, "float32", 0.07, False),
+    ("main_bf16", 256, 256, 512, 0, "bfloat16", 0.07, False),
+    ("ragged", 200, 200, 128, 0, "float32", 0.05, False),
+    ("rect", 64, 256, 512, 128, "float32", 0.07, False),
+    ("d3072", 256, 256, 3072, 0, "float32", 0.07, False),
+    ("tau_rows_0.01", 256, 256, 512, 0, "float32", None, False),
+    ("clamp_row", 256, 256, 512, 0, "float32", 0.07, True),
+]
+
+
+def gcl_bound(kernel, b, B, d, item, square):
+    """(ms, "bytes" | "operations") for one call at this shape: each
+    input read once (the columns are the rows in the square case), each
+    output written once, against the products' FLOPs at the f32 peak
+    (the kernels run f32 FMA on the CUDA cores for any input dtype)."""
+    feats = item * d * (2 * b + (0 if square else 2 * B))
+    if kernel == "stats":
+        nbytes = feats + 4 * 3 * b + 4 * 6 * b     # sd, t1, t2 -> 6 stats
+        flops = 2 * 2 * b * B * d                  # s1, s2
+    else:
+        vec_in = 4 * (5 * b + (0 if square else 5 * B))
+        nbytes = feats + vec_in + 4 * (2 * b * d + 2 * b)
+        flops = 4 * 2 * b * B * d                  # s1, s2, de1, de2
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_gcl(checks):
+    """K1 / K2 vs their plain versions; returns {kernel: timing dict} at
+    the training shape (f32, the main path's type)."""
+    import torch
+    from repro_torch.kernels import gcl_loss as GL
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    timings = {}
+    for name, b, B, d, off, dt_name, tau, clamp in GCL_CASES:
+        dt = getattr(torch, dt_name)
+
+        def norm(x):
+            return (x / x.norm(dim=-1, keepdim=True)).to(dt).contiguous()
+        e1a, e2a = (norm(torch.randn((B, d), generator=gen, device="cuda"))
+                    for _ in range(2))
+        if tau is None:
+            ta = 0.01 + 0.06 * torch.rand((2, B), generator=gen,
+                                          device="cuda")
+            ta[:, ::3] = 0.01
+        else:
+            ta = torch.full((2, B), tau, device="cuda")
+        # lwt = -log(eps + u) with u tracking g (as in the loss op), times
+        # a random factor in [0.2, 1.2): the backward exponents stay below
+        # log(B / 0.2), as on the training path
+        g1, g2, _, _, m1, m2 = GL.gcl_pair_stats_plain(e1a, e2a, ta[0],
+                                                        ta[1])
+        lwta = torch.stack([-(m1 + torch.log(g1)), -(m2 + torch.log(g2))]) \
+            + torch.log(torch.rand((2, B), generator=gen, device="cuda")
+                        + 0.2)
+        if clamp:
+            lwta[0, off] = 80.0      # exp(min(z + lwt, 60)) clamps here
+        sl = slice(off, off + b)
+        e1, e2 = e1a[sl].contiguous(), e2a[sl].contiguous()
+        t1, t2, l1, l2 = ta[0, sl], ta[1, sl], lwta[0, sl], lwta[1, sl]
+        kw1, kw2 = {}, {}
+        if b < B:
+            sda = torch.sum(e1a.float() * e2a.float(), dim=-1)
+            kw1 = dict(e1_all=e1a, e2_all=e2a, row_offset=off)
+            kw2 = dict(kw1, sd_all=sda, lwt1_all=lwta[0], lwt2_all=lwta[1],
+                       tau1_all=ta[0], tau2_all=ta[1])
+
+        def k1():
+            return GL.gcl_pair_stats(e1, e2, t1, t2, **kw1)
+
+        def p1():
+            return GL.gcl_pair_stats_plain(e1, e2, t1, t2, **kw1)
+
+        def k2():
+            return GL.gcl_pair_grads(e1, e2, l1, l2, t1, t2, **kw2)
+
+        def p2():
+            return GL.gcl_pair_grads_plain(e1, e2, l1, l2, t1, t2, **kw2)
+
+        s_k, s_p, g_k, g_p = k1(), p1(), k2(), p2()
+        torch.cuda.synchronize()
+        if dt_name == "float32":
+            err1 = max((a - w).abs().max().item() for a, w in zip(s_k, s_p))
+            ok1 = all(torch.allclose(a, w, rtol=TOL_K1, atol=TOL_K1)
+                      for a, w in zip(s_k, s_p))
+        else:      # bf16: log g = m + log(g), as tests/test_kernels.py
+            err1 = max((s_k[4 + i] + torch.log(s_k[i]) - s_p[4 + i]
+                        - torch.log(s_p[i])).abs().max().item()
+                       for i in (0, 1))
+            ok1 = err1 <= TOL_K1_LOG_BF16
+        err2 = max((a - w).abs().max().item() for a, w in zip(g_k, g_p))
+        ok2 = all(bool(torch.isfinite(a).all())
+                  and torch.allclose(a, w, rtol=TOL_K2[0], atol=TOL_K2[1])
+                  for a, w in zip(g_k, g_p))
+        checks.check(ok1 and math.isfinite(err1),
+                     f"gcl_pair_stats {name}: max abs err {err1}")
+        checks.check(ok2, f"gcl_pair_grads {name}: max abs err {err2}")
+        rec = dict(case=name, b=b, B=B, d=d, row_offset=off, dtype=dt_name,
+                   tau=tau if tau is not None else "rows 0.01..0.07",
+                   clamp_row=clamp, stats_max_abs_err=err1, stats_ok=ok1,
+                   grads_max_abs_err=err2, grads_ok=ok2)
+        if name == "main":
+            item = 4
+            # the launches alone, without the wrapper's torch ops around
+            # them (s_ii, tau vectors, the (B - 1) division, K2's finish)
+            sd = torch.sum(e1.float() * e2.float(), dim=-1)
+            kernel_only = {
+                "stats": device_ms(lambda: GL._launch_stats(
+                    e1, e2, e1, e2, sd, t1, t2, 0)),
+                "grads": device_ms(lambda: GL._launch_grads(
+                    e1, e2, e1, e2, sd, sd, l1, l2, l1, l2, t1, t2, t1, t2,
+                    0))}
+            for kernel, kfn, pfn, err in (("stats", k1, p1, err1),
+                                          ("grads", k2, p2, err2)):
+                ms, plain_ms = device_ms(kfn), device_ms(pfn)
+                b_ms, b_by = gcl_bound(kernel, b, B, d, item, True)
+                timings[kernel] = dict(shape=[b, B, d], dtype=dt_name,
+                                       max_abs_err=err, ms=ms,
+                                       kernel_only_ms=kernel_only[kernel],
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+                rec.update({f"{kernel}_ms": ms,
+                            f"{kernel}_kernel_only_ms": kernel_only[kernel],
+                            f"{kernel}_plain_ms": plain_ms,
+                            f"{kernel}_bound_ms": b_ms,
+                            f"{kernel}_bound_by": b_by})
+        emit("gcl", **rec)
+    checks.end_phase("gcl")
+    return timings
+
+
+def _first_batch(cfg):
+    """The launcher's first (idx, batch) at TRAIN_ARGS, on the card, and
+    the host seconds that assembling the numpy batch took."""
+    import numpy as np
+    import torch
+    from repro_torch.data import ContrastiveDataset, ShardedLoader
+    ds = ContrastiveDataset(n=2048, image_size=cfg.clip.image_size,
+                            context_length=cfg.clip.context_length,
+                            vocab_size=cfg.vocab_size, n_classes=64)
+    t0 = time.monotonic()
+    _, _, idx, batch = next(ShardedLoader(ds, global_batch=256,
+                                          seed=0).steps(1))
+    host_s = time.monotonic() - t0
+    return (torch.from_numpy(np.asarray(idx)).cuda(),
+            {k: torch.from_numpy(v).cuda() for k, v in batch.items()},
+            host_s)
+
+
+def _train_config(cfg, impl, loss_impl):
+    """The launcher's v3 step configuration at TRAIN_ARGS."""
+    from repro_torch.core import fastclip as FC
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    from repro_torch.optim import adamw
+    fc = FC.FastCLIPConfig(version="v3", n_samples=2048, rho=6.5,
+                           steps_per_epoch=8, gamma_decay_epochs=1)
+    return TS.TrainStepConfig(arch=cfg, fc=fc, optimizer=adamw(),
+                              lr_fn=lr_warmup_cosine(1e-3, 1, 3), impl=impl,
+                              loss_impl=loss_impl)
+
+
+def _device_steps(cfg, state, idx, batch):
+    """Steps on a batch already on the card (no host data pipeline): ms
+    per step of the kernel path and of the plain path, in turns, and a
+    torch.profiler breakdown of one kernel-path step."""
+    import torch
+    from repro_torch.core import train_step as TS
+    steps = {impl: TS.make_train_step(_train_config(cfg, impl, loss_impl))
+             for impl, loss_impl in (("flash", "fused"), ("naive", "dense"))}
+    ms = {k: [] for k in steps}
+    for impl in ("flash", "naive", "naive", "flash"):
+        state, _ = steps[impl](state, batch, idx)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(2):
+            state, m = steps[impl](state, batch, idx)
+        torch.cuda.synchronize()
+        ms[impl].append((time.monotonic() - t0) / 2 * 1e3)
+    emit("train_device_steps", batch_on_device=True,
+         ms_per_step_kernel_path=ms["flash"],
+         ms_per_step_plain_path=ms["naive"])
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = steps["flash"](state, batch, idx)
+            torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+        # device-side events only (the kernels), so no time counts twice
+        kernels = [e for e in events
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in (kernels or events)]
+        rows.sort(key=lambda r: -r[1])
+        device_ms_total = sum(r[1] for r in rows)
+        emit("train_profile", wall_ms=wall_ms,
+             device_busy_ms=device_ms_total,
+             idle_share=max(0.0, 1.0 - device_ms_total / wall_ms),
+             kernels=len(rows), launches=sum(r[2] for r in rows),
+             device_events_only=bool(kernels),
+             top=[[k[:80], t, c] for k, t, c in rows[:15]])
+    except Exception as e:   # a measurement only; checks do not depend on it
+        emit("train_profile", error=repr(e))
+    return state
+
+
+def _step1_grads(cfg, impl, loss_impl, state, idx, batch):
+    from repro_torch.core import train_step as TS
+    tc = _train_config(cfg, impl, loss_impl)
+    core = TS.make_loss_core(tc.fc, loss_impl)
+    _, _, grads, _ = TS.step_grads(tc, core, state, batch, idx,
+                                   tc.fc.gamma_fn()(state["step"]))
+    return grads
+
+
+def phase_train(checks):
+    """Full-width v3 training steps through the port's launcher; returns
+    the kernels' launch counts in the kernel path's run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gcl_loss as GL
+    from repro_torch.launch import train
+
+    cfg = get_arch(ARCH)
+    # step-1 gradients from one init, kernel path vs plain path
+    state = TS.init_train_state(torch.Generator().manual_seed(0),
+                                _train_config(cfg, "flash", "fused"))
+    idx, batch, host_s = _first_batch(cfg)
+    emit("train_host_batch", global_batch=256, host_seconds=host_s)
+    g_kernel = _step1_grads(cfg, "flash", "fused", state, idx, batch)
+    g_plain = _step1_grads(cfg, "naive", "dense", state, idx, batch)
+    rel = {k: ((g_kernel[k] - g_plain[k]).norm()
+               / g_plain[k].norm().clamp_min(1e-30)).item()
+           for k in g_plain}
+    worst = max(rel, key=rel.get)
+    checks.check(all(math.isfinite(v) and v <= TOL_TRAIN_GRAD
+                     for v in rel.values()),
+                 f"train: step-1 grads, worst leaf {worst} rel L2 "
+                 f"{rel[worst]}")
+    emit("train_grads", leaves=len(rel), worst_leaf=worst,
+         worst_rel_l2=rel[worst], tol=TOL_TRAIN_GRAD)
+    del g_kernel, g_plain
+    state = _device_steps(cfg, state, idx, batch)
+    del state, batch
+
+    def run(extra, counted=False):
+        record = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if counted:
+            FA.flash_attention.launches = 0
+            GL.gcl_pair_stats.launches = 0
+            GL.gcl_pair_grads.launches = 0
+        t0 = time.monotonic()
+        st = train.main(TRAIN_ARGS + extra, record=record)
+        wall = time.monotonic() - t0
+        counts = (dict(flash_attention=FA.flash_attention.launches,
+                       gcl_pair_stats=GL.gcl_pair_stats.launches,
+                       gcl_pair_grads=GL.gcl_pair_grads.launches)
+                  if counted else None)
+        return st, record, counts, wall, torch.cuda.max_memory_allocated()
+
+    steps = 3
+    st_k, rec_k, counts, wall_k, mem_k = run(
+        ["--steps", str(steps), "--precision", "f32"], counted=True)
+    n_layers = cfg.n_layers + cfg.clip.vision_layers
+    want = dict(flash_attention=n_layers * steps, gcl_pair_stats=steps,
+                gcl_pair_grads=steps)
+    checks.check(counts == want, f"train: launches {counts}, want {want}")
+    checks.check(len(rec_k) == steps and all(
+        math.isfinite(r["loss"]) for r in rec_k),
+        f"train: losses {[r['loss'] for r in rec_k]}")
+    try:
+        TS.check_state_dtypes(st_k)
+        dtypes_ok = True
+    except AssertionError as e:
+        dtypes_ok = checks.check(False, f"train: dtypes {e}")
+    ms_step = (rec_k[-1]["time"] - rec_k[0]["time"]) / (steps - 1) * 1e3
+    emit("train_kernel_path", steps=steps, launches=counts,
+         launches_want=want, losses=[r["loss"] for r in rec_k],
+         taus=[r["tau"] for r in rec_k], sat_rate=[r["sat_rate"]
+                                                   for r in rec_k],
+         ms_per_step_after_warmup=ms_step, wall_seconds=wall_k,
+         max_memory_allocated=mem_k, f32_masters=dtypes_ok)
+    u_k = [st_k["fc"][u].clone() for u in ("u1", "u2")]
+    del st_k
+
+    st_p, rec_p, _, wall_p, mem_p = run(
+        ["--steps", str(steps), "--precision", "f32", "--impl", "naive",
+         "--loss-impl", "dense"])
+    worst_traj = 0.0
+    for rk, rp in zip(rec_k, rec_p):
+        for key in ("loss", "tau", "loss_value", "u_mean"):
+            worst_traj = max(worst_traj, abs(rk[key] - rp[key])
+                             / max(abs(rp[key]), 1e-30))
+    u_err = 0.0
+    for uk, up in zip(u_k, (st_p["fc"]["u1"], st_p["fc"]["u2"])):
+        fin = torch.isfinite(up)
+        checks.check(bool((torch.isfinite(uk) == fin).all()),
+                     "train: touched log-u rows differ between the paths")
+        u_err = max(u_err, ((uk[fin] - up[fin]).abs()
+                            / up[fin].abs().clamp_min(1e-1)).max().item())
+    checks.check(len(rec_p) == steps and worst_traj <= TOL_TRAIN_TRAJ
+                 and u_err <= TOL_TRAIN_TRAJ,
+                 f"train: kernel vs plain trajectory rel {worst_traj}, "
+                 f"log-u rel {u_err}")
+    emit("train_plain_path", losses=[r["loss"] for r in rec_p],
+         taus=[r["tau"] for r in rec_p], worst_rel_traj=worst_traj,
+         log_u_rel_err=u_err, tol=TOL_TRAIN_TRAJ,
+         ms_per_step_after_warmup=(rec_p[-1]["time"] - rec_p[0]["time"])
+         / (steps - 1) * 1e3, wall_seconds=wall_p,
+         max_memory_allocated=mem_p)
+    del st_p
+
+    st_b, rec_b, _, wall_b, mem_b = run(["--steps", "1", "--precision",
+                                         "bf16"])
+    try:
+        TS.check_state_dtypes(st_b)
+        bf16_masters = True
+    except AssertionError as e:
+        bf16_masters = checks.check(False, f"train bf16: dtypes {e}")
+    checks.check(len(rec_b) == 1 and math.isfinite(rec_b[0]["loss"]),
+                 f"train bf16: loss {rec_b}")
+    emit("train_bf16", loss=rec_b[0]["loss"], f32_masters=bf16_masters,
+         wall_seconds=wall_b, max_memory_allocated=mem_b)
+    del st_b
+    checks.end_phase("train")
+    return counts
+
+
 def main():
     checks = Checks()
     phase_device()
     phase_build()
     timings = phase_kernel(checks)
+    phase_attn_grad(checks)
+    gcl_timings = phase_gcl(checks)
     launches = phase_slice(checks)
+    train_launches = phase_train(checks)
     import torch
     kernels = []
     for tower in ("vit", "text"):
@@ -377,10 +777,26 @@ def main():
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "shape": t["shape"], "causal": t["causal"], "dtype": t["dtype"],
             "launches": launches[tower],
+            # the training run's launches, both towers together
+            "train_launches": train_launches["flash_attention"],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    for name, kernel, line in (("gcl_pair_stats", "stats", 169),
+                               ("gcl_pair_grads", "grads", 362)):
+        t = gcl_timings[kernel]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gcl_loss.cu",
+            "replaces": f"src/repro/kernels/gcl_loss.py:{line}",
+            "shape": t["shape"], "dtype": t["dtype"],
+            "launches": train_launches[name],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "kernel_only_ms": t["kernel_only_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

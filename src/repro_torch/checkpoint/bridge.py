@@ -7,7 +7,10 @@ stack holds one array with a leading layer axis.  The port's modules
 name their parameters the same way, with a stack as an ``nn.ModuleList``
 (``vision.blocks.3.attn.wq``).  ``model_to_tree`` stacks the layers back
 into the JAX form and ``load_tree`` splits them; both copy values bit for
-bit (weights keep the JAX (in, out) layout).
+bit (weights keep the JAX (in, out) layout).  ``state_to_tree`` /
+``state_from_tree`` do the same for a whole train state, optimizer
+moments included, so a train state saved by either package restores in
+the other.
 """
 from __future__ import annotations
 
@@ -25,31 +28,33 @@ def _stacks(model: nn.Module):
             if isinstance(m, nn.ModuleList)]
 
 
-def model_to_tree(model: nn.Module) -> Dict[str, Any]:
-    """Nested dict of tensors in the JAX params layout (layer stacks
-    stacked along a new leading axis).  Tensors stay on the model's
-    device; stacks are new tensors, other leaves are the parameters."""
+def named_to_tree(model: nn.Module, named: Dict[str, Any]) -> Dict[str, Any]:
+    """Tensors keyed by ``model``'s parameter names (its parameters, or
+    optimizer moments of them) -> nested dict in the JAX params layout,
+    layer stacks stacked along a new leading axis."""
     stacks = _stacks(model)
     flat: Dict[str, Any] = {}
     per_stack: Dict[str, Dict[str, list]] = {s: {} for s in stacks}
-    for name, p in model.named_parameters():
+    for name, _ in model.named_parameters():
+        t = named[name]
         stack = next((s for s in stacks if name.startswith(s + ".")), None)
         if stack is None:
-            flat[name.replace(".", "/")] = p.detach()
+            flat[name.replace(".", "/")] = t
             continue
         _, rest = name[len(stack) + 1:].split(".", 1)   # drop layer index
-        per_stack[stack].setdefault(rest, []).append(p.detach())
+        per_stack[stack].setdefault(rest, []).append(t)
     for stack, leaves in per_stack.items():
         for rest, layers in leaves.items():
             flat[f"{stack}.{rest}".replace(".", "/")] = torch.stack(layers)
     return unflatten(flat)
 
 
-def load_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
-    """Copy a JAX-layout params tree (numpy arrays or tensors) into
-    ``model`` in place; every parameter must be covered exactly once."""
+def tree_to_named(model: nn.Module, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``named_to_tree``: a JAX-layout tree (numpy arrays
+    or tensors) -> tensors keyed by ``model``'s parameter names (views of
+    the tree's stacked leaves, on their own device)."""
     stacks = _stacks(model)
-    state: Dict[str, Any] = {}
+    named: Dict[str, Any] = {}
     for path, arr in flatten(tree).items():
         dotted = path.replace("/", ".")
         stack = next((s for s in stacks if dotted.startswith(s + ".")), None)
@@ -59,10 +64,70 @@ def load_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
             a = np.asarray(arr)
             t = torch.from_numpy(a if a.flags.writeable else a.copy())
         if stack is None:
-            state[dotted] = t
+            named[dotted] = t
             continue
         rest = dotted[len(stack) + 1:]
         for i in range(t.shape[0]):
-            state[f"{stack}.{i}.{rest}"] = t[i]
-    model.load_state_dict(state, strict=True)
+            named[f"{stack}.{i}.{rest}"] = t[i]
+    return named
+
+
+def model_to_tree(model: nn.Module) -> Dict[str, Any]:
+    """Nested dict of tensors in the JAX params layout.  Tensors stay on
+    the model's device; stacks are new tensors, other leaves are the
+    parameters (detached)."""
+    return named_to_tree(model, {n: p.detach()
+                                 for n, p in model.named_parameters()})
+
+
+def load_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Copy a JAX-layout params tree (numpy arrays or tensors) into
+    ``model`` in place; every parameter must be covered exactly once."""
+    model.load_state_dict(tree_to_named(model, tree), strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The whole train state
+# ---------------------------------------------------------------------------
+
+def state_to_tree(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A train state (``core.train_step``: ``params`` the model, ``opt``
+    with per-parameter moments and ``t``, ``fc``, ``step``) -> the JAX
+    train state's tree: ``params/...``, ``opt/m/...``, ``opt/v/...``,
+    ``opt/t``, ``fc/u1``, ``fc/tau``, ``fc/tau_opt/...``, ``step``."""
+    model = state["params"]
+    opt = {k: (v if k == "t" else named_to_tree(model, v))
+           for k, v in state["opt"].items()}
+    return {"params": model_to_tree(model), "opt": opt, "fc": state["fc"],
+            "step": state["step"]}
+
+
+def state_from_tree(state: Dict[str, Any], tree: Dict[str, Any]
+                    ) -> Dict[str, Any]:
+    """Load a JAX-layout train-state tree (e.g. a restored checkpoint of
+    either package) into ``state``'s structure: the params go into its
+    model in place, every other leaf becomes a tensor on the model's
+    device with the dtype of the leaf it replaces.  Returns the new
+    state dict."""
+    model = state["params"]
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        load_tree(model, tree["params"])
+
+    def like(old, new):
+        if isinstance(old, dict):
+            return {k: like(old[k], new[k]) for k in old}
+        t = (new if isinstance(new, torch.Tensor)
+             else torch.from_numpy(np.array(new)))
+        return t.to(device=dev, dtype=old.dtype)
+
+    opt = {}
+    for k, v in state["opt"].items():
+        if k == "t":
+            opt[k] = like(v, tree["opt"][k])
+        else:
+            named = tree_to_named(model, tree["opt"][k])
+            opt[k] = {n: like(v[n], named[n]).contiguous() for n in v}
+    return {"params": model, "opt": opt, "fc": like(state["fc"], tree["fc"]),
+            "step": like(state["step"], tree["step"])}

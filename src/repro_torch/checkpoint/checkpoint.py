@@ -192,6 +192,17 @@ def _load_verified(directory: str, step: int):
     return data, meta
 
 
+def read_metadata(directory: str, step: int) -> Dict:
+    """The user metadata dict of one step's sidecar, without reading any
+    array bytes; raises ``FileNotFoundError`` when the sidecar is absent
+    or unparseable."""
+    meta = _read_meta(directory, step)
+    if meta is None:
+        raise FileNotFoundError(
+            f"no readable sidecar for step {step} in {directory}")
+    return dict(meta.get("metadata", {}))
+
+
 def verify_step(directory: str, step: int) -> bool:
     try:
         _load_verified(directory, step)

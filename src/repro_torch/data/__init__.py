@@ -1,1 +1,6 @@
-from repro_torch.data.synthetic import ZeroShotEvalDataset  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DevicePrefetcher, ShardedLoader,
+)
+from repro_torch.data.synthetic import (  # noqa: F401
+    ContrastiveDataset, ZeroShotEvalDataset,
+)

@@ -1,10 +1,64 @@
-"""Synthetic datasets (port of ``repro.data.synthetic``; the eval split
-so far).  Numpy only: batches equal the JAX package's bit for bit."""
+"""Synthetic datasets (port of ``repro.data.synthetic``: the contrastive
+training pairs and the eval split).  Numpy only: batches equal the JAX
+package's bit for bit.
+
+Index-addressable: sample i's bytes are a pure function of (dataset
+config, i), since all randomness goes through the per-sample
+counter-based generators of ``repro_torch.data.rng``.
+"""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+from repro_torch.data import rng as R
+
+
+@dataclasses.dataclass
+class ContrastiveDataset:
+    """n synthetic image-text pairs over ``n_classes`` latent concepts:
+    image i renders its class prototype (plus per-sample noise) and its
+    caption spells the class in tokens, so the modalities can align."""
+    n: int
+    image_size: int
+    context_length: int
+    vocab_size: int
+    n_classes: int = 64
+    noise: float = 0.3
+    seed: int = 0
+
+    IMAGE_STREAM = "contrastive/images"
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self.classes = rng.randint(0, self.n_classes, size=self.n)
+        self.protos = rng.randn(self.n_classes, 8, 8, 3).astype(np.float32)
+        # caption template: class id spelled in tokens (0 reserved)
+        self.tok_base = rng.randint(1, self.vocab_size,
+                                    size=(self.n_classes, 4))
+        self._img_key = R.stream_key(self.seed, self.IMAGE_STREAM)
+
+    def clean_images(self, idx):
+        base = self.protos[self.classes[idx]]             # (b, 8, 8, 3)
+        return np.repeat(np.repeat(base, self.image_size // 8, axis=1),
+                         self.image_size // 8, axis=2)
+
+    def images(self, idx):
+        return R.add_gaussian_noise(self.clean_images(idx), self.noise,
+                                    self._img_key, idx)
+
+    def texts(self, idx):
+        b = len(idx)
+        toks = np.zeros((b, self.context_length), np.int32)
+        cls_toks = self.tok_base[self.classes[idx]]       # (b, 4)
+        for r in range(min(self.context_length // 4, 4)):
+            toks[:, r * 4:(r + 1) * 4] = cls_toks
+        return toks
+
+    def batch(self, idx):
+        idx = np.asarray(idx)
+        return {"images": self.images(idx), "texts": self.texts(idx)}
 
 
 @dataclasses.dataclass

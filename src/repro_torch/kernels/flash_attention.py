@@ -18,7 +18,13 @@ the ragged edge, and fully masked key tiles skipped.
 Dispatch: a tensor on the CPU takes the plain version
 (``flash_attention_ref``); a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts kernel launches (both entry points).
-This is the forward only; serving runs under ``torch.inference_mode``.
+
+Gradients: on the card both entry points are a ``torch.autograd.Function``
+whose forward is the kernel (saving q, k, v) and whose backward
+recomputes the attention through the plain ``models.attention.
+chunked_attention`` and differentiates that, as the JAX package's
+``jax.custom_vjp`` does (``_flash_mha_bwd``): the TPU version has no
+backward kernel either, so the backward launches no kernel.
 """
 from __future__ import annotations
 
@@ -105,13 +111,37 @@ def _launch(q, k, v, out, causal, window):
     flash_attention.launches += 1
 
 
+class _FlashMHA(torch.autograd.Function):
+    """(B, S, H, hd) layout: the kernel forward, the chunked recompute
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                out.transpose(1, 2), causal, window)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        from repro_torch.models.attention import chunked_attention
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = chunked_attention(q, k, v, causal=ctx.causal,
+                                  window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), ct)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: (B, H, Sq, hd), k/v: (B, H, Sk, hd) -> (B, H, Sq, hd)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, causal, window)
-    return out
+    return _FlashMHA.apply(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal, window).transpose(1, 2)
 
 
 flash_attention.launches = 0
@@ -126,7 +156,4 @@ def flash_mha(q, k, v, *, causal=True, window=0):
                                 v.transpose(1, 2), causal=causal,
                                 window=window)
         return o.transpose(1, 2)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            out.transpose(1, 2), causal, window)
-    return out
+    return _FlashMHA.apply(q, k, v, causal, window)

@@ -1,0 +1,305 @@
+"""Training launcher (port of ``repro.launch.train``, the single-device
+contrastive trainer): FastCLIP on the synthetic contrastive pairs, with
+checkpoints, resume and the non-finite step guard.  It runs on the card
+unless ``--device cpu`` is given.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch clip-vitb32-cc12m --version v3 --steps 200 \\
+        [--reduced] [--ckpt-dir ckpts] [--resume] [--device cpu]
+
+The defaults reach the hand-written kernels: ``--impl flash`` (the
+attention in both towers) and ``--loss-impl fused`` (K1 and K2, the FCCO
+loss forward and backward); on CPU tensors both take their plain
+versions.  ``--impl chunked|naive`` and ``--loss-impl dense`` are the
+plain PyTorch paths.  The log lines are the JAX launcher's.
+
+Checkpoints use the JAX package's format and train-state paths, so a
+state saved by ``repro.launch.train --ckpt-dir`` resumes here and the
+reverse.  ``--guard`` makes a step with a non-finite loss or gradient
+norm a bitwise no-op (metrics ``skipped``/``nonfinite_rate``).  SIGTERM
+or SIGINT: the loop finishes the step in flight, writes a final
+synchronous checkpoint and returns.  ``--heartbeat-file`` /
+``--hang-timeout``: liveness file and stack-dump watchdog.
+
+Not ported yet, and refused with exit code 2: ``--objective lm``,
+``--mesh``, ``--microbatch`` > 1, the multi-process flags, ``--data
+streaming:*``, the curricula, ``--chaos``, ``--rollback-after``,
+``--ckpt-async``, ``--ckpt-keep*`` and ``--eval-every``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint as CK
+from repro_torch import device as D
+from repro_torch import resilience as RS
+from repro_torch.checkpoint import bridge
+from repro_torch.configs import get_arch
+from repro_torch.core import fastclip as FC
+from repro_torch.core import train_step as TS
+from repro_torch.core.schedules import lr_warmup_cosine
+from repro_torch.data import ContrastiveDataset, DevicePrefetcher, ShardedLoader
+from repro_torch.models.precision import POLICIES
+from repro_torch.optim import OPTIMIZERS, get_optimizer
+
+# flag -> (value that means "unset", what it belongs to)
+_NOT_PORTED = {
+    "objective": ("contrastive", "the LM objective"),
+    "mesh": (None, "the (data, fsdp) mesh"),
+    "microbatch": (1, "the fsdp step's microbatch pipeline"),
+    "coordinator": (None, "multi-process runs"),
+    "num_processes": (1, "multi-process runs"),
+    "process_id": (0, "multi-process runs"),
+    "local_devices": (None, "multi-process runs"),
+    "data": ("synthetic", "the streaming data pipeline"),
+    "image_size_schedule": (None, "the curricula"),
+    "context_schedule": (None, "the curricula"),
+    "chaos": (None, "fault injection"),
+    "rollback_after": (0, "rollback"),
+    "ckpt_async": (False, "async checkpoints"),
+    "ckpt_keep": (0, "checkpoint retention"),
+    "ckpt_keep_every": (0, "checkpoint retention"),
+    "eval_every": (0, "the periodic eval"),
+}
+
+
+def check_resume_metadata(meta, arch: str, version: str) -> None:
+    """Refuse a checkpoint written by another run shape (arch or
+    version); checkpoints without the keys pass."""
+    for key, want in (("arch", arch), ("version", version)):
+        got = meta.get(key)
+        if got is not None and got != want:
+            raise SystemExit(
+                f"--resume: checkpoint metadata has {key}={got!r} but "
+                f"this run was launched with --{key} {want}; restoring "
+                "would mismatch the state layout.  Relaunch with "
+                f"--{key} {got} or point --ckpt-dir at a fresh "
+                "directory.")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="clip-vitb32-cc12m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--version", default="v3", choices=FC.VERSIONS)
+    ap.add_argument("--optimizer", default="adamw", choices=sorted(OPTIMIZERS))
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--global-batch", type=int, default=64)
+    ap.add_argument("--n-samples", type=int, default=2048)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--wd", type=float, default=0.1)
+    ap.add_argument("--rho", type=float, default=6.5)
+    ap.add_argument("--eps", type=float, default=1e-14)
+    ap.add_argument("--gamma-min", type=float, default=0.2)
+    ap.add_argument("--loss-impl", default="fused", choices=["dense", "fused"],
+                    help="loss-layer math: the K1/K2 kernels (fused, the "
+                         "default) or dense torch")
+    ap.add_argument("--precision", default=None, choices=sorted(POLICIES),
+                    help="tower precision policy (bf16 compute, f32 masters "
+                         "and f32 loss layer); unset defers to the arch (f32)")
+    ap.add_argument("--impl", default="flash",
+                    choices=["chunked", "flash", "naive"],
+                    help="attention: the flash kernel (default) or the plain "
+                         "chunked / naive references")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="host->device prefetch depth (0 disables)")
+    ap.add_argument("--device", default=D.DEFAULT,
+                    help="torch device (default: the card)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--guard", action="store_true",
+                    help="non-finite step guard: a bad step becomes a "
+                         "bitwise no-op update")
+    ap.add_argument("--heartbeat-file", default=None,
+                    help="liveness file (default: <ckpt-dir>/heartbeat.json "
+                         "when --ckpt-dir is set)")
+    ap.add_argument("--hang-timeout", type=float, default=0.0,
+                    help="dump all thread stacks when no step completes for "
+                         "this many seconds (0 disables)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    # flags of the JAX launcher that are not ported yet (refused)
+    ap.add_argument("--objective", default="contrastive")
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--local-devices", type=int, default=None)
+    ap.add_argument("--data", default="synthetic")
+    ap.add_argument("--image-size-schedule", default=None)
+    ap.add_argument("--context-schedule", default=None)
+    ap.add_argument("--chaos", default=None)
+    ap.add_argument("--rollback-after", type=int, default=0)
+    ap.add_argument("--ckpt-async", action="store_true")
+    ap.add_argument("--ckpt-keep", type=int, default=0)
+    ap.add_argument("--ckpt-keep-every", type=int, default=0)
+    ap.add_argument("--eval-every", type=int, default=0)
+    args = ap.parse_args(argv)
+    for key, (unset, what) in _NOT_PORTED.items():
+        if getattr(args, key) != unset:
+            flag = "--" + key.replace("_", "-")
+            ap.error(f"{flag} ({what}) is not ported to repro_torch yet; "
+                     "use repro.launch.train")
+    return args
+
+
+def _to_device(item, device):
+    """(epoch, step, idx, numpy batch) -> the same on ``device``; to the
+    card through pinned host memory with non-blocking copies."""
+    epoch, step, idx, batch = item
+    if device.type == "cuda":
+        def put(a):
+            return torch.from_numpy(a).pin_memory().to(device,
+                                                       non_blocking=True)
+    else:
+        def put(a):
+            return torch.from_numpy(a).to(device)
+    return (epoch, step, put(np.asarray(idx, np.int64)),
+            {k: put(np.ascontiguousarray(v)) for k, v in batch.items()})
+
+
+def main(argv=None, record=None):
+    """CLI entry point; returns the final train state.  ``record``:
+    optional list that receives one dict per step (``step``, ``epoch``,
+    the host clock ``time`` after the step's metrics were read, and every
+    metric as a float)."""
+    args = parse_args(argv)
+    device = D.resolve(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    ds = ContrastiveDataset(n=args.n_samples, image_size=cfg.clip.image_size,
+                            context_length=cfg.clip.context_length,
+                            vocab_size=cfg.vocab_size, n_classes=64)
+    loader = ShardedLoader(ds, global_batch=args.global_batch,
+                           seed=args.seed)
+    fc = FC.FastCLIPConfig(
+        version=args.version, n_samples=args.n_samples, rho=args.rho,
+        eps=args.eps, gamma_min=args.gamma_min,
+        tau_init=0.07 if args.version == "v3" else 0.03,
+        lr_tau=2e-4 if args.version == "v3" else 1e-2,
+        steps_per_epoch=loader.steps_per_epoch,
+        gamma_decay_epochs=max(
+            1, args.steps // (2 * loader.steps_per_epoch)))
+    tc = TS.TrainStepConfig(
+        arch=cfg, fc=fc, optimizer=get_optimizer(args.optimizer),
+        lr_fn=lr_warmup_cosine(args.lr, min(500, args.steps // 10 + 1),
+                               args.steps),
+        wd=args.wd, loss_impl=args.loss_impl, impl=args.impl,
+        precision=args.precision, guard=args.guard)
+    state = TS.init_train_state(torch.Generator().manual_seed(args.seed), tc,
+                                device)
+    step_fn = TS.make_train_step(tc, device)
+
+    start = 0
+    latest = CK.latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if args.resume and latest:
+        # the run shape first: a v2 state does not fit a v3 run
+        check_resume_metadata(CK.read_metadata(args.ckpt_dir, latest),
+                              args.arch, args.version)
+        tree, start, _ = CK.restore(args.ckpt_dir,
+                                    bridge.state_to_tree(state), step=latest)
+        state = bridge.state_from_tree(state, tree)
+        print(f"resumed from step {start}")
+
+    def make_stream(from_step):
+        it = loader.steps(args.steps, start=from_step)
+        if args.prefetch > 0:
+            return DevicePrefetcher(it, depth=args.prefetch,
+                                    transform=lambda x: _to_device(x, device))
+        return (_to_device(x, device) for x in it)
+
+    meta = {"arch": args.arch, "version": args.version}
+
+    def save_ckpt(step_no):
+        CK.save(args.ckpt_dir, bridge.state_to_tree(state), step_no,
+                metadata=meta)
+
+    hb_path = args.heartbeat_file or (
+        f"{args.ckpt_dir}/heartbeat.json" if args.ckpt_dir else None)
+    hb = RS.Heartbeat(hb_path) if hb_path else None
+    wd = (RS.StepWatchdog(args.hang_timeout)
+          if args.hang_timeout > 0 else None)
+    received = {"sig": None}
+
+    def on_signal(signum, frame):
+        received["sig"] = signum    # honoured between steps: clean exit
+
+    prev_handlers = {}
+    for s in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[s] = signal.signal(s, on_signal)
+        except ValueError:          # not the main thread (embedded call)
+            pass
+
+    t0 = time.time()
+    first = True
+    done = start
+    preempted = False
+    stream = make_stream(start)
+    try:
+        for epoch, step, idx, batch in stream:
+            if received["sig"] is not None:
+                preempted = True
+                break
+            state, m = step_fn(state, batch, idx)
+            done = step + 1
+            if first:
+                # params, moments and FCCO state stay f32 masters
+                TS.check_state_dtypes(state)
+                first = False
+            if hb is not None:
+                hb.beat(step)
+            if wd is not None:
+                wd.beat()
+            if step % args.log_every == 0 or step == args.steps - 1:
+                # sorted keys: the JAX launcher's jitted metrics dict
+                msg = {k: round(float(m[k]), 5) for k in sorted(m)}
+                print(f"step {step:5d} epoch {epoch} {json.dumps(msg)}",
+                      flush=True)
+            if record is not None:
+                vals = {k: float(v) for k, v in m.items()}
+                record.append({"step": step, "epoch": epoch,
+                               "time": time.monotonic(), **vals})
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                save_ckpt(step + 1)
+    finally:
+        if isinstance(stream, DevicePrefetcher):
+            stream.close()
+        if wd is not None:
+            wd.close()
+        if hb is not None:
+            hb.close()
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+
+    if preempted:
+        if args.ckpt_dir:
+            save_ckpt(done)
+        print(f"preempted (signal {received['sig']}): saved synchronous "
+              f"checkpoint at step {done}, exiting cleanly", flush=True)
+        return state
+
+    dt = time.time() - t0
+    print(f"trained {args.steps - start} steps in {dt:.1f}s "
+          f"({(args.steps - start) / max(dt, 1e-9):.2f} steps/s)")
+    eval_batch = {k: torch.from_numpy(v).to(device)
+                  for k, v in ds.batch(np.arange(
+                      min(128, args.n_samples))).items()}
+    acc = float(TS.retrieval_accuracy(state["params"], cfg, eval_batch))
+    print(f"retrieval accuracy: {acc:.4f}")
+    if args.ckpt_dir:
+        save_ckpt(args.steps)
+    return state
+
+
+if __name__ == "__main__":
+    main()

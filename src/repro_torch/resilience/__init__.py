@@ -1,4 +1,6 @@
-from repro_torch.resilience.guard import all_finite  # noqa: F401
+from repro_torch.resilience.guard import (  # noqa: F401
+    all_finite, grad_nonfinite_rate, select_state, step_ok,
+)
 from repro_torch.resilience.watchdog import (  # noqa: F401
     Heartbeat, StepWatchdog,
 )

@@ -95,3 +95,159 @@ def test_reduced_towers_flash_match_plain_on_card(cuda):
     for a, b in zip(flash, naive):
         assert (a - b).abs().max().item() <= 1e-5 * max(
             1.0, b.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# Attention gradients through the kernel's autograd Function
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,causal", [
+    (8, 50, 12, 64, False),             # ViT training shape at batch 8
+    (8, 77, 8, 64, True),               # text
+])
+def test_flash_mha_gradients_match_naive(cuda, B, S, H, hd, causal):
+    """The (B, S, H, hd) entry point carries gradients on the card: its
+    backward (the chunked recompute) equals autograd through the naive
+    attention within 1e-5 (f32), and launches no kernel."""
+    from repro_torch.models.attention import naive_attention
+    q, k, v = (torch.randn((B, S, H, hd), generator=cuda, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    ct = torch.randn((B, S, H, hd), generator=cuda, device="cuda")
+    before = FA.flash_attention.launches
+    out = FA.flash_mha(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    assert FA.flash_attention.launches == before + 1
+    want = torch.autograd.grad(naive_attention(q, k, v, causal=causal),
+                               (q, k, v), ct)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2 (the FCCO loss kernels) vs their plain versions on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import gcl_loss as GL  # noqa: E402
+
+# name, b (anchor rows), B (columns), d, row_offset, dtype, tau
+GCL_CASES = [
+    ("main", 256, 256, 512, 0, torch.float32, 0.07),
+    ("main_bf16", 256, 256, 512, 0, torch.bfloat16, 0.07),
+    ("ragged", 200, 200, 128, 0, torch.float32, 0.05),
+    ("rect", 64, 256, 512, 128, torch.float32, 0.07),
+    ("wide_d", 48, 48, 3072, 0, torch.float32, 0.06),
+    ("tau_min_rows", 130, 130, 64, 0, torch.float32, None),
+]
+
+
+def _gcl_inputs(gen, b, B, d, off, dtype, tau):
+    def norm(x):
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
+    e1a = norm(torch.randn((B, d), generator=gen, device="cuda"))
+    e2a = norm(torch.randn((B, d), generator=gen, device="cuda"))
+    if tau is None:         # per-row taus down to tau_min = 0.01
+        ta = 0.01 + 0.06 * torch.rand((2, B), generator=gen, device="cuda")
+        ta[:, ::3] = 0.01
+    else:
+        ta = torch.full((2, B), tau, device="cuda")
+    return e1a, e2a, ta
+
+
+def _log_weights(gen, e1a, e2a, ta):
+    """lwt = log w - log tau as the loss op makes them: u tracks g, so
+    lwt = -log(eps + u) ~ -(m + log g), here times a random factor in
+    [0.2, 1.2); every backward exponent then stays below log(B / 0.2)."""
+    g1, g2, _, _, m1, m2 = GL.gcl_pair_stats_plain(e1a, e2a, ta[0], ta[1])
+    jitter = torch.log(torch.rand((2, e1a.shape[0]), generator=gen,
+                                  device="cuda") + 0.2)
+    return torch.stack([-(m1 + torch.log(g1)), -(m2 + torch.log(g2))]) \
+        + jitter
+
+
+def _rect(e1a, e2a, ta, b, B, off):
+    if b == B:
+        return e1a, e2a, ta, {}
+    sl = slice(off, off + b)
+    kw = dict(e1_all=e1a, e2_all=e2a, row_offset=off)
+    return e1a[sl].contiguous(), e2a[sl].contiguous(), ta[:, sl], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GCL_CASES, ids=[c[0] for c in GCL_CASES])
+def test_gcl_pair_stats_kernel_matches_plain(cuda, case):
+    _, b, B, d, off, dtype, tau = case
+    e1a, e2a, ta = _gcl_inputs(cuda, b, B, d, off, dtype, tau)
+    e1, e2, t, kw = _rect(e1a, e2a, ta, b, B, off)
+    before = GL.gcl_pair_stats.launches
+    got = GL.gcl_pair_stats(e1, e2, t[0], t[1], **kw)
+    want = GL.gcl_pair_stats_plain(e1, e2, t[0], t[1], **kw)
+    torch.cuda.synchronize()
+    assert GL.gcl_pair_stats.launches == before + 1
+    if dtype == torch.float32:
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    else:   # bf16: in log domain, m + log g
+        for i in (0, 1):
+            lg = got[4 + i] + torch.log(got[i])
+            lw = want[4 + i] + torch.log(want[i])
+            assert (lg - lw).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GCL_CASES, ids=[c[0] for c in GCL_CASES])
+def test_gcl_pair_grads_kernel_matches_plain(cuda, case):
+    _, b, B, d, off, dtype, tau = case
+    e1a, e2a, ta = _gcl_inputs(cuda, b, B, d, off, dtype, tau)
+    lwa = _log_weights(cuda, e1a, e2a, ta)
+    if dtype == torch.float32 and tau is not None:
+        lwa[0, off] = 80.0  # the clamp at 60 fires on this row (sat = 1)
+    e1, e2, t, kw = _rect(e1a, e2a, ta, b, B, off)
+    lw = lwa[:, off:off + b] if kw else lwa
+    if kw:
+        sda = torch.sum(e1a.float() * e2a.float(), dim=-1)
+        kw.update(sd_all=sda, lwt1_all=lwa[0], lwt2_all=lwa[1],
+                  tau1_all=ta[0], tau2_all=ta[1])
+    before = GL.gcl_pair_grads.launches
+    got = GL.gcl_pair_grads(e1, e2, lw[0], lw[1], t[0], t[1], **kw)
+    want = GL.gcl_pair_grads_plain(e1, e2, lw[0], lw[1], t[0], t[1], **kw)
+    torch.cuda.synchronize()
+    assert GL.gcl_pair_grads.launches == before + 1
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gcl_kernels_refuse_what_they_do_not_take(cuda):
+    e = torch.randn((8, 16), generator=cuda, device="cuda")
+    t = torch.full((8,), 0.07, device="cuda")
+    with pytest.raises(TypeError):
+        GL.gcl_pair_stats(e.half(), e.half(), t, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        GL.gcl_pair_stats(e.T.contiguous().T, e, t, t)
+    with pytest.raises(ValueError, match="is on"):
+        GL.gcl_pair_stats(e, e, t, t, e1_all=e.cpu(), e2_all=e)
+
+
+@pytest.mark.cuda
+def test_fcco_op_fused_matches_dense_on_card(cuda):
+    """The loss op end to end on the card: K1 forward / K2 backward
+    against the dense path (values 1e-5, gradients 1e-4 / 1e-5)."""
+    from repro_torch.core import distributed as DI
+    B, d = 256, 512
+    e1a, e2a, ta = _gcl_inputs(cuda, B, B, d, 0, torch.float32, 0.07)
+    lu = torch.log(torch.rand((2, B), generator=cuda, device="cuda") + 0.1)
+    res = {}
+    for impl in ("dense", "fused"):
+        e1 = e1a.clone().requires_grad_(True)
+        e2 = e2a.clone().requires_grad_(True)
+        op = DI.make_fcco_loss_op(None, 1e-14, loss_impl=impl)
+        loss, (lu1, lu2, stats, sat) = op(e1, e2, lu[0], lu[1], ta[0],
+                                          ta[1], 0.5)
+        res[impl] = (loss, lu1, lu2, *stats, sat,
+                     *torch.autograd.grad(loss, (e1, e2)))
+    for i, (a, w) in enumerate(zip(res["fused"], res["dense"])):
+        tol = (1e-4, 1e-5) if i >= 10 else (1e-5, 1e-5)
+        torch.testing.assert_close(a, w, rtol=tol[0], atol=tol[1])
