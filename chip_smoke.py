@@ -27,14 +27,28 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    payload's solo forward through the plain attention, every cache hit
    against the computed bytes, and the kernel's launch count against 12
    per computed batch;
-7. train   -- three full-width FastCLIP v3 steps at global batch 256
+7. ssd     -- holds K4 (``ssd_chunk``, the Mamba2 SSD chunk scan) against
+   its plain version at the zamba2-1.2b prefill shape (B/C f32 and bf16)
+   and at edge cases (ragged T, T < chunk, chunk 64, large decay, the
+   reduced shapes), and times kernel and plain version at the prefill
+   shape;
+8. hybrid  -- full-width ``zamba2-1.2b`` (38 Mamba2 layers, one shared
+   attention block called 6 times; seeded random weights, f32) through
+   ``repro_torch.launch.steps.make_prefill_step(impl="flash")`` at batch
+   2 x 4096 tokens: exactly 38 K4 and 6 K3 launches per prefill, finite
+   logits, last-position logits against the plain path (``impl=
+   "chunked"``); prefill vs ``decode_step`` scanned over the same 256
+   tokens; ``repro_torch.launch.serve.main`` generating on the card
+   (no kernel launches: decode runs none, as in JAX); ms per prefill,
+   a torch.profiler breakdown, decode tokens/s, peak device memory;
+9. train   -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
    --loss-impl fused``): launch counts (3 of K1, 3 of K2, 72 of the
    attention kernel), finite losses, f32 masters; step-1 gradients and
    the loss / tau / log-u trajectory against the same steps through the
    plain path (``--impl naive --loss-impl dense``); one bf16 step; ms per
    step and peak device memory;
-8. report  -- the kernels JSON line, the card line, and the last line
+10. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -64,6 +78,15 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # attention and served bucket vs solo forward: the same bounds end to end.
 TOL_EMBED = {"float32": 1e-5, "bfloat16": 1e-2}
 SERVE_REQUESTS = 64
+HYBRID_ARCH = "zamba2-1.2b"
+# K4 vs its plain version: max abs error relative to max(1, max |y|)
+# (the kernel's warp-scan cumsum and torch.cumsum round F differently;
+# every decay carries eps * |F|); tests/test_torch_cuda.py holds the same
+TOL_SSD = 5e-5
+# hybrid prefill, kernel path vs plain path: relative L2 of the
+# last-position logits; prefill vs stepwise decode: max abs error, as
+# tests/test_decode_equivalence.py
+TOL_HYBRID_REL, TOL_PREFILL_DECODE = 1e-4, 5e-3
 # K1 / K2 vs their plain versions: those of tests/test_kernels.py (K1 f32
 # rtol/atol 1e-5, bf16 1e-2 in log domain; K2 rtol 1e-4, atol 1e-5)
 TOL_K1, TOL_K1_LOG_BF16, TOL_K2 = 1e-5, 1e-2, (1e-4, 1e-5)
@@ -195,6 +218,8 @@ KERNEL_CASES = [
     ("vit", 8, 12, 50, 50, 64, False, 0, "bfloat16", True),
     ("text", 8, 8, 77, 77, 64, True, 0, "float32", True),
     ("text", 8, 8, 77, 77, 64, True, 0, "bfloat16", True),
+    # zamba2-1.2b's shared block at the hybrid prefill shape (B 2, 4096)
+    ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "float32", True),
     ("sq_ne_sk", 2, 4, 64, 300, 64, False, 0, "float32", False),
     ("sq_ne_sk_causal", 2, 4, 200, 70, 64, True, 0, "bfloat16", False),
     ("window", 2, 4, 130, 130, 64, True, 17, "float32", False),
@@ -237,12 +262,13 @@ def phase_kernel(checks):
                    window=window, dtype=dt_name, max_abs_err=err,
                    max_abs_err_mha=err_mha, tol=TOL[dt_name], ok=ok)
         if serve:
+            iters = 5 if Sq > 1000 else 50
             ms = device_ms(lambda: FA.flash_attention(
-                q, k, v, causal=causal, window=window))
+                q, k, v, causal=causal, window=window), iters)
             plain_ms = device_ms(lambda: FA.flash_attention_ref(
-                q, k, v, causal=causal, window=window))
+                q, k, v, causal=causal, window=window), iters)
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal))
+                q, k, v, is_causal=causal), iters)
             b_ms, b_by = bound(B, H, Sq, Sk, hd, causal, window, dt_name)
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
@@ -551,6 +577,260 @@ def phase_gcl(checks):
     return timings
 
 
+# name, B, T, H, P, N, chunk, B/C dtype, dt bias (dt = softplus(z + bias));
+# "main" marks the zamba2-1.2b prefill shape (timed)
+SSD_CASES = [
+    ("prefill", 2, 4096, 64, 64, 64, 256, "float32", -2.0, True),
+    ("prefill_bf16", 2, 4096, 64, 64, 64, 256, "bfloat16", -2.0, True),
+    ("ragged", 2, 4000, 64, 64, 64, 256, "float32", -2.0, False),
+    ("short", 2, 100, 64, 64, 64, 256, "float32", -2.0, False),
+    ("chunk64", 2, 4096, 64, 64, 64, 64, "float32", -2.0, False),
+    # dt ~ 8..10: F reaches ~ -2500 over a chunk, where the ratio form
+    # exp(F_i) / exp(F_j) would be 0/0
+    ("large_decay", 2, 1024, 64, 64, 64, 256, "float32", 8.0, False),
+    ("reduced", 2, 50, 16, 32, 16, 16, "float32", -2.0, False),
+    ("reduced_bf16", 2, 50, 16, 32, 16, 16, "bfloat16", -2.0, False),
+    ("jax_test", 2, 60, 3, 8, 4, 16, "float32", 0.0, False),
+]
+
+
+def ssd_bound(B, T, H, P, N, Lc, bc_item):
+    """(ms, "bytes" | "operations") for one K4 call: x, log_a, B, C read
+    once and y written once, against the FLOPs the chunked algorithm
+    needs for these T rows at the f32 peak (the kernel computes in f32
+    for any B/C type): per chunk of r rows, C B^T over the r(r+1)/2
+    causal pairs once per (batch, chunk), and per (batch, head) the
+    masked M x product, the inter-chunk C S and the state update."""
+    flops = 0
+    for t0 in range(0, T, Lc):
+        r = min(Lc, T - t0)
+        pairs = r * (r + 1) // 2
+        flops += B * pairs * N * 2
+        flops += B * H * (pairs * P * 2 + 2 * r * N * P * 2)
+    nbytes = 4 * (2 * B * T * H * P + B * T * H) + 2 * B * T * N * bc_item
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ssd(checks):
+    """K4 vs its plain version; returns {case: timing dict} for the
+    prefill shape (f32 and bf16 B/C)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_chunk as K4
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timings = {}
+    for name, B, T, H, P, N, chunk, dt_name, dt_bias, main in SSD_CASES:
+        dt_bc = getattr(torch, dt_name)
+        dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda")
+                        + dt_bias)
+        x = torch.randn((B, T, H, P), generator=gen,
+                        device="cuda") * dt[..., None]
+        la = -dt
+        # B and C as strided views of one buffer, as the model passes them
+        bc = (torch.randn((B, T, 2 * N), generator=gen, device="cuda")
+              * 0.5).to(dt_bc)
+        Bm, Cm = bc[..., :N], bc[..., N:]
+        y = K4.ssd_chunk(x, la, Bm, Cm, chunk=chunk)
+        ref = K4.ssd_chunk_plain(x, la, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        ok = checks.check(
+            y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+            and math.isfinite(err) and err <= TOL_SSD * scale,
+            f"ssd_chunk {name}: max abs err {err} (tol {TOL_SSD} x {scale})")
+        rec = dict(case=name, shape=[B, T, H, P], N=N, chunk=chunk,
+                   bc_dtype=dt_name, dt_bias=dt_bias,
+                   log_a_min=la.min().item(), max_abs_err=err,
+                   max_abs_y=scale, tol=TOL_SSD * scale, ok=ok)
+        if main:
+            # a measurement only: kernel and plain version against the
+            # same scan in f64, to tell which rounds closer to exact
+            ref64 = K4.ssd_chunk_plain(x.double(), la.double(), Bm.double(),
+                                       Cm.double(), chunk=chunk)
+            rec.update(kernel_vs_f64_max_abs=(y.double() - ref64).abs().max(
+            ).item(), plain_vs_f64_max_abs=(ref.double() - ref64).abs().max(
+            ).item())
+            del ref64
+            ms = device_ms(lambda: K4.ssd_chunk(x, la, Bm, Cm, chunk=chunk),
+                           10)
+            plain_ms = device_ms(lambda: K4.ssd_chunk_plain(
+                x, la, Bm, Cm, chunk=chunk), 10)
+            b_ms, b_by = ssd_bound(B, T, H, P, N, min(chunk, T),
+                                   bc.element_size())
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+            timings[name] = dict(rec)
+        emit("ssd", **rec)
+        del x, la, bc, Bm, Cm, y, ref
+    checks.end_phase("ssd")
+    return timings
+
+
+def _profile(fn):
+    """torch.profiler over one call: device time by kernel, launches and
+    the device's idle share of the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # device-side events only (the kernels), so no time counts twice
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in (kernels or events)]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall_ms), kernels=len(rows),
+                launches=sum(r[2] for r in rows),
+                device_events_only=bool(kernels),
+                top=[[k[:80], t, c] for k, t, c in rows[:15]])
+
+
+def phase_hybrid(checks):
+    """Full-width zamba2-1.2b prefill and decode through the port's entry
+    points; returns the kernels' launch counts in one prefill."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_chunk as K4
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import backbones as BB
+
+    cfg = get_arch(HYBRID_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model = BB.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("hybrid_params", arch=HYBRID_ARCH, n_params=n_params,
+         n_layers=cfg.n_layers, init_seconds=time.monotonic() - t0,
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()))
+    B, S = 2, 4096
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    prefill = {impl: steps.make_prefill_step(cfg, impl=impl)
+               for impl in ("flash", "chunked", "naive")}
+    prefill["flash"](model, batch)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K4.ssd_chunk.launches = 0
+    FA.flash_attention.launches = 0
+    t0 = time.monotonic()
+    logits = prefill["flash"](model, batch)
+    torch.cuda.synchronize()
+    ms_flash = (time.monotonic() - t0) * 1e3
+    counts = dict(ssd_chunk=K4.ssd_chunk.launches,
+                  flash_attention=FA.flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_super = cfg.n_layers // cfg.hybrid_attn_every
+    want = dict(ssd_chunk=cfg.n_layers, flash_attention=n_super)
+    checks.check(counts == want,
+                 f"hybrid prefill: launches {counts}, want {want}")
+    checks.check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+                 and bool(torch.isfinite(logits).all()),
+                 f"hybrid prefill: logits {tuple(logits.shape)} not finite")
+    # the plain path, then the kernel path again (turns: k, p, p, k)
+    ms = {"flash": [ms_flash], "chunked": []}
+    plain = None
+    for impl in ("chunked", "chunked", "flash"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = prefill[impl](model, batch)
+        torch.cuda.synchronize()
+        ms[impl].append((time.monotonic() - t0) * 1e3)
+        if impl == "chunked":
+            plain = out
+    rel = ((logits - plain).norm() / plain.norm()).item()
+    checks.check(math.isfinite(rel) and rel <= TOL_HYBRID_REL,
+                 f"hybrid prefill: kernel vs plain rel L2 {rel}")
+    # a measurement only: how far two plain paths (chunked vs naive
+    # attention, the same plain SSD) drift apart through 38 layers of
+    # random weights, the yardstick of the kernel path's rel L2
+    naive = prefill["naive"](model, batch)
+    rel_plain = ((naive - plain).norm() / plain.norm()).item()
+    emit("hybrid_prefill", batch=B, seq=S, launches=counts,
+         launches_want=want, ms_per_prefill_kernel_path=ms["flash"],
+         ms_per_prefill_plain_path=ms["chunked"],
+         tokens_per_s_kernel_path=B * S / (min(ms["flash"]) / 1e3),
+         kernel_vs_plain_rel_l2=rel, tol=TOL_HYBRID_REL,
+         chunked_vs_naive_plain_rel_l2=rel_plain,
+         max_memory_allocated=peak)
+    try:       # a measurement only; no check depends on it
+        prof = _profile(lambda: prefill["flash"](model, batch))
+        # the profiler's own cost inflates its wall time; the device's
+        # idle share of an unprofiled prefill uses the timed one
+        prof["idle_share_of_unprofiled_prefill"] = max(
+            0.0, 1.0 - prof["device_busy_ms"] / min(ms["flash"]))
+        emit("hybrid_profile", **prof)
+    except Exception as e:
+        emit("hybrid_profile", error=repr(e))
+    del logits, plain, out, naive
+
+    # prefill vs stepwise decode on the same 256 tokens
+    T = 256
+    short = {"tokens": tokens[:1, :T]}
+    last = prefill["flash"](model, short)[:, 0]
+    state = BB.prepare_decode_state(model, cfg, {}, 1, T)
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        for t in range(T):
+            lg, state = BB.decode_step(model, cfg, state,
+                                       short["tokens"][:, t:t + 1], t)
+    torch.cuda.synchronize()
+    dec_s = time.monotonic() - t0
+    d = (lg - last).abs().max().item()
+    checks.check(math.isfinite(d) and d <= TOL_PREFILL_DECODE,
+                 f"hybrid: prefill vs decode max abs {d}")
+    emit("hybrid_prefill_vs_decode", tokens=T, max_abs_err=d,
+         tol=TOL_PREFILL_DECODE, decode_ms_per_token_batch1=dec_s / T * 1e3)
+    del model, state, lg, last
+    torch.cuda.empty_cache()
+
+    # the decode launcher on the card
+    argv = ["--arch", HYBRID_ARCH, "--batch", "4", "--prompt-len", "64",
+            "--gen", "32"]
+    K4.ssd_chunk.launches = 0
+    FA.flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main(argv)
+    wall = time.monotonic() - t0
+    serve_counts = dict(ssd_chunk=K4.ssd_chunk.launches,
+                        flash_attention=FA.flash_attention.launches)
+    lines = buf.getvalue().splitlines()
+    tps = float(lines[0].split(" at ")[1].split(" tok/s")[0])
+    checks.check(tuple(toks.shape) == (4, 96) and toks.device.type == "cuda"
+                 and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+                 f"serve: tokens {tuple(toks.shape)} on {toks.device}")
+    checks.check(serve_counts == dict(ssd_chunk=0, flash_attention=0),
+                 f"serve: decode launched kernels {serve_counts}")
+    emit("hybrid_serve", argv=argv, lines=lines, launches=serve_counts,
+         decode_tokens_per_s=tps, wall_seconds=wall,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del toks
+    torch.cuda.empty_cache()
+    checks.end_phase("hybrid")
+    return counts
+
+
 def _first_batch(cfg):
     """The launcher's first (idx, batch) at TRAIN_ARGS, on the card, and
     the host seconds that assembling the numpy batch took."""
@@ -602,33 +882,15 @@ def _device_steps(cfg, state, idx, batch):
     emit("train_device_steps", batch_on_device=True,
          ms_per_step_kernel_path=ms["flash"],
          ms_per_step_plain_path=ms["naive"])
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, _ = steps["flash"](state, batch, idx)
-            torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.self_device_time_total > 0]
-        # device-side events only (the kernels), so no time counts twice
-        kernels = [e for e in events
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in (kernels or events)]
-        rows.sort(key=lambda r: -r[1])
-        device_ms_total = sum(r[1] for r in rows)
-        emit("train_profile", wall_ms=wall_ms,
-             device_busy_ms=device_ms_total,
-             idle_share=max(0.0, 1.0 - device_ms_total / wall_ms),
-             kernels=len(rows), launches=sum(r[2] for r in rows),
-             device_events_only=bool(kernels),
-             top=[[k[:80], t, c] for k, t, c in rows[:15]])
-    except Exception as e:   # a measurement only; checks do not depend on it
+    held = [state]
+
+    def one():
+        held[0], _ = steps["flash"](held[0], batch, idx)
+    try:       # a measurement only; checks do not depend on it
+        emit("train_profile", **_profile(one))
+    except Exception as e:
         emit("train_profile", error=repr(e))
-    return state
+    return held[0]
 
 
 def _step1_grads(cfg, impl, loss_impl, state, idx, batch):
@@ -764,11 +1026,13 @@ def main():
     timings = phase_kernel(checks)
     phase_attn_grad(checks)
     gcl_timings = phase_gcl(checks)
+    ssd_timings = phase_ssd(checks)
+    hybrid_launches = phase_hybrid(checks)
     launches = phase_slice(checks)
     train_launches = phase_train(checks)
     import torch
     kernels = []
-    for tower in ("vit", "text"):
+    for tower in ("vit", "text", "hybrid"):
         t = timings[tower]
         kernels.append({
             "name": f"flash_attention/{tower}",
@@ -776,9 +1040,12 @@ def main():
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "shape": t["shape"], "causal": t["causal"], "dtype": t["dtype"],
-            "launches": launches[tower],
+            # serving: per tower; hybrid: one full-width zamba2 prefill
+            "launches": (hybrid_launches["flash_attention"]
+                         if tower == "hybrid" else launches[tower]),
             # the training run's launches, both towers together
-            "train_launches": train_launches["flash_attention"],
+            "train_launches": (None if tower == "hybrid"
+                               else train_launches["flash_attention"]),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -797,6 +1064,20 @@ def main():
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    t = ssd_timings["prefill"]
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk.py:58",
+        "shape": t["shape"], "N": t["N"], "chunk": t["chunk"],
+        "dtype": "float32", "bc_dtype": t["bc_dtype"],
+        "launches": hybrid_launches["ssd_chunk"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "ms_bf16_bc": ssd_timings["prefill_bf16"]["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        # no single PyTorch call computes the SSD scan
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

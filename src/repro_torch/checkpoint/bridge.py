@@ -5,7 +5,9 @@ The JAX params are a nested dict keyed by the checkpoint paths
 (``vision/blocks/attn/wq``, ``text_blocks/n1/scale``, ...), and each layer
 stack holds one array with a leading layer axis.  The port's modules
 name their parameters the same way, with a stack as an ``nn.ModuleList``
-(``vision.blocks.3.attn.wq``).  ``model_to_tree`` stacks the layers back
+(``vision.blocks.3.attn.wq``); a stack of stacks, such as the hybrid
+LM's ``supers.2.mambas.4.w_in``, is one JAX array with two leading axes
+(``supers/mambas/w_in``).  ``model_to_tree`` stacks the layers back
 into the JAX form and ``load_tree`` splits them; both copy values bit for
 bit (weights keep the JAX (in, out) layout).  ``state_to_tree`` /
 ``state_from_tree`` do the same for a whole train state, optimizer
@@ -23,29 +25,52 @@ from torch import nn
 from repro_torch.checkpoint.checkpoint import flatten, unflatten
 
 
-def _stacks(model: nn.Module):
-    return [name for name, m in model.named_modules()
-            if isinstance(m, nn.ModuleList)]
+def _stacks(model: nn.Module) -> set:
+    return {name for name, m in model.named_modules()
+            if isinstance(m, nn.ModuleList)}
+
+
+def _split_name(stacks: set, name: str):
+    """A parameter name -> (its JAX path with the layer indices dropped,
+    the tuple of those indices, outermost first).  A stack may hold
+    stacks (``supers.2.mambas.4.w_in`` -> ``supers.mambas.w_in``, (2,
+    4))."""
+    parts = name.split(".")
+    path, idx, prefix = [], [], ""
+    k = 0
+    while k < len(parts):
+        prefix = f"{prefix}.{parts[k]}" if prefix else parts[k]
+        path.append(parts[k])
+        if prefix in stacks:
+            k += 1
+            prefix = f"{prefix}.{parts[k]}"
+            idx.append(int(parts[k]))
+        k += 1
+    return ".".join(path), tuple(idx)
 
 
 def named_to_tree(model: nn.Module, named: Dict[str, Any]) -> Dict[str, Any]:
     """Tensors keyed by ``model``'s parameter names (its parameters, or
     optimizer moments of them) -> nested dict in the JAX params layout,
-    layer stacks stacked along a new leading axis."""
+    each layer stack stacked along a new leading axis (a stack of stacks
+    along two)."""
     stacks = _stacks(model)
-    flat: Dict[str, Any] = {}
-    per_stack: Dict[str, Dict[str, list]] = {s: {} for s in stacks}
+    per_path: Dict[str, Dict[tuple, Any]] = {}
     for name, _ in model.named_parameters():
-        t = named[name]
-        stack = next((s for s in stacks if name.startswith(s + ".")), None)
-        if stack is None:
-            flat[name.replace(".", "/")] = t
+        path, idx = _split_name(stacks, name)
+        per_path.setdefault(path, {})[idx] = named[name]
+    flat: Dict[str, Any] = {}
+    for path, layers in per_path.items():
+        if list(layers) == [()]:
+            flat[path.replace(".", "/")] = layers[()]
             continue
-        _, rest = name[len(stack) + 1:].split(".", 1)   # drop layer index
-        per_stack[stack].setdefault(rest, []).append(t)
-    for stack, leaves in per_stack.items():
-        for rest, layers in leaves.items():
-            flat[f"{stack}.{rest}".replace(".", "/")] = torch.stack(layers)
+        dims = tuple(max(i[a] for i in layers) + 1
+                     for a in range(len(next(iter(layers)))))
+        if len(layers) != int(np.prod(dims)):
+            raise ValueError(f"{path}: ragged stack {sorted(layers)}")
+        leaves = [layers[i] for i in sorted(layers)]
+        flat[path.replace(".", "/")] = torch.stack(leaves).reshape(
+            *dims, *leaves[0].shape)
     return unflatten(flat)
 
 
@@ -55,20 +80,25 @@ def tree_to_named(model: nn.Module, tree: Dict[str, Any]) -> Dict[str, Any]:
     the tree's stacked leaves, on their own device)."""
     stacks = _stacks(model)
     named: Dict[str, Any] = {}
+
+    def split(prefix, parts, t):
+        if not parts:
+            named[prefix] = t
+            return
+        name = f"{prefix}.{parts[0]}" if prefix else parts[0]
+        if name in stacks:      # one leading axis per stack level
+            for i in range(t.shape[0]):
+                split(f"{name}.{i}", parts[1:], t[i])
+        else:
+            split(name, parts[1:], t)
+
     for path, arr in flatten(tree).items():
-        dotted = path.replace("/", ".")
-        stack = next((s for s in stacks if dotted.startswith(s + ".")), None)
         if isinstance(arr, torch.Tensor):
             t = arr
         else:
             a = np.asarray(arr)
             t = torch.from_numpy(a if a.flags.writeable else a.copy())
-        if stack is None:
-            named[dotted] = t
-            continue
-        rest = dotted[len(stack) + 1:]
-        for i in range(t.shape[0]):
-            named[f"{stack}.{i}.{rest}"] = t[i]
+        split("", path.split("/"), t)
     return named
 
 

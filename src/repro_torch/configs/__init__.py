@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, CLIPConfig, get_arch, list_archs,
+    INPUT_SHAPES, ArchConfig, CLIPConfig, InputShape, SSMConfig, get_arch,
+    list_archs,
 )

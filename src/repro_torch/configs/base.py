@@ -1,16 +1,46 @@
 """Architecture configuration for the PyTorch port.
 
-An own copy of ``ArchConfig``/``CLIPConfig`` and the registry: the port
-imports nothing of the JAX package.  Only the CLIP two-tower configs are
-registered here; ``reduced()`` gives the same small shapes as the JAX
-package's ``reduced()``, which is what lets the tests load one set of
-params into both packages.
+An own copy of ``ArchConfig``/``CLIPConfig``/``SSMConfig``, the input
+shapes and the registry: the port imports nothing of the JAX package.
+The CLIP two-tower config and the hybrid ``zamba2-1.2b`` are registered
+here; ``reduced()`` gives the same small shapes as the JAX package's
+``reduced()``, which is what lets the tests load one set of params into
+both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_size: int = 0            # N (per-channel state)
+    head_dim: int = 64             # P
+    expand: int = 2                # d_inner = expand * d_model
+    chunk: int = 256               # chunkwise SSD chunk length
+    conv_width: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +59,7 @@ class CLIPConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # only "clip" is ported
+    family: str                    # "clip" and "hybrid" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,7 +71,11 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     sliding_window: int = 0        # 0 = full attention
+    ssm: SSMConfig = SSMConfig()
+    # hybrid: one shared attention block applied every this many layers
+    hybrid_attn_every: int = 0
     clip: Optional[CLIPConfig] = None
     # activation policy of the towers ("f32" | "bf16", models.precision)
     precision: str = "f32"
@@ -52,12 +86,16 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def padded_vocab(self) -> int:
+        return round_up(self.vocab_size, 256)
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: the JAX package's ``reduced()`` for the
-        fields a CLIP config has."""
+        fields a CLIP or hybrid config has."""
         kw = dict(
             n_layers=2,
             d_model=min(self.d_model, 256),
@@ -69,6 +107,13 @@ class ArchConfig:
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
         )
+        if self.ssm.state_size:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_size=min(self.ssm.state_size, 16),
+                head_dim=32, chunk=16)
+        if self.hybrid_attn_every:
+            kw["hybrid_attn_every"] = 2
+            kw["n_layers"] = 2
         if self.clip is not None:
             kw["clip"] = dataclasses.replace(
                 self.clip, image_size=32, patch_size=8, vision_layers=2,
@@ -79,7 +124,7 @@ class ArchConfig:
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
-_ARCH_MODULES = ["clip_vitb32_cc12m"]
+_ARCH_MODULES = ["clip_vitb32_cc12m", "zamba2_1p2b"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

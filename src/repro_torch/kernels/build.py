@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "gcl_loss")
+SOURCES = ("flash_attention", "gcl_loss", "ssd_chunk")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

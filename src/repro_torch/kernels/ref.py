@@ -1,8 +1,8 @@
-"""Plain oracles of the loss kernels (port of ``repro.kernels.ref``): the
-square-case torch references of K1 and K2, and a numpy float64 oracle of
-the whole FCCO step in the linear domain (exp(200) is representable in
-f64, so it needs no shift), a copy of the JAX package's, which the tests
-hold to it bitwise."""
+"""Plain oracles of the kernels (port of ``repro.kernels.ref``): the
+square-case torch references of K1 and K2, a numpy float64 oracle of the
+whole FCCO step in the linear domain (exp(200) is representable in f64,
+so it needs no shift), a copy of the JAX package's, which the tests hold
+to it bitwise, and the SSD scan's oracle (the sequential recurrence)."""
 from __future__ import annotations
 
 import numpy as np
@@ -102,3 +102,9 @@ def fcco_step_f64(e1n, e2n, lu1, lu2, tau1, tau2, gamma, eps, *,
     return {"loss": loss, "lu1_new": lu1n, "lu2_new": lu2n,
             "g1": g1, "g2": g2, "dg1_dtau": dg1, "dg2_dtau": dg2,
             "de1": de1, "de2": de2, "w1": w1, "w2": w2}
+
+
+def ssd_chunk_ref(x, log_a, Bm, Cm):
+    """Oracle for the Mamba2 SSD kernel: defer to the sequential scan."""
+    from repro_torch.models.ssm import ssd_sequential
+    return ssd_sequential(x, log_a, Bm, Cm)[0]

@@ -5,8 +5,9 @@ selects the attention core: "flash", the default (the hand-written kernel
 for CUDA tensors, its plain version for CPU tensors), or one of the plain
 PyTorch references the tests hold it to: "chunked" (online softmax over q
 and kv blocks, the JAX package's default) and "naive" (the
-O(S^2)-memory oracle).
-Cross-attention and the KV-cache decode path are not ported yet.
+O(S^2)-memory oracle).  ``Attention.decode`` is the one-token KV-cache
+path (plain PyTorch, as in the JAX package, which runs it in jnp with no
+kernel).  Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -125,7 +126,9 @@ class Attention(nn.Module):
             L.dense_init_(w, gen)
         L.dense_init_(self.wo, gen, scale=1.0 / math.sqrt(self.wo.shape[0]))
 
-    def forward(self, x, *, impl="flash"):
+    def _qkv(self, x, positions):
+        """Projections with RoPE at ``positions`` (broadcastable to
+        (B, S)): q (B, S, H, hd), k/v (B, S, Hkv, hd)."""
         spec = self.spec
         B, S, _ = x.shape
         dt = x.dtype
@@ -134,9 +137,14 @@ class Attention(nn.Module):
                                          spec.head_dim)
         v = (x @ self.wv.to(dt)).reshape(B, S, spec.n_kv_heads,
                                          spec.head_dim)
-        positions = torch.arange(S, device=x.device).expand(B, S)
         q = L.apply_rope(q, positions, spec.rope_theta)
         k = L.apply_rope(k, positions, spec.rope_theta)
+        return q, k, v
+
+    def forward(self, x, *, impl="flash"):
+        spec = self.spec
+        B, S, _ = x.shape
+        q, k, v = self._qkv(x, torch.arange(S, device=x.device).expand(B, S))
         n_rep = spec.n_heads // spec.n_kv_heads
         k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
         causal, window = spec.causal, spec.sliding_window
@@ -151,4 +159,49 @@ class Attention(nn.Module):
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
         out = out.reshape(B, S, spec.n_heads * spec.head_dim)
-        return out @ self.wo.to(dt)
+        return out @ self.wo.to(x.dtype)
+
+    def decode(self, cache, x, pos: int, window=None):
+        """One-token decode.  x: (B, 1, d); ``pos`` the absolute position.
+        The cache (``init_kv_cache``) is a ring buffer of W slots holding
+        k/v with RoPE applied at write time and ``slot_pos``, the absolute
+        position in each slot (-1 = empty).  Writes the new k/v into
+        ``cache`` in place (JAX returns a new cache) and returns
+        ``(out (B, 1, d), cache)``.  ``window`` overrides the spec's
+        sliding window."""
+        spec = self.spec
+        B = x.shape[0]
+        posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+        q, k_new, v_new = self._qkv(x, posb)
+        W = cache["k"].shape[1]
+        slot = pos % W
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        cache["slot_pos"][slot] = pos
+        slot_pos = cache["slot_pos"]
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        window = spec.sliding_window if window is None else window
+        if window:
+            valid &= slot_pos > pos - window
+        n_rep = spec.n_heads // spec.n_kv_heads
+        kr = _repeat_kv(cache["k"], n_rep)
+        vr = _repeat_kv(cache["v"], n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) / \
+            math.sqrt(spec.head_dim)
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype), vr)
+        out = out.reshape(B, 1, spec.n_heads * spec.head_dim).to(x.dtype)
+        return out @ self.wo.to(x.dtype), cache
+
+
+def init_kv_cache(spec: AttnSpec, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None, lead=()):
+    """Zero KV cache of ``min(window or max_len, max_len)`` slots, with
+    optional leading (layer) axes ``lead``."""
+    W = min(spec.sliding_window or max_len, max_len)
+    shape = (*lead, batch, W, spec.n_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "slot_pos": torch.full((*lead, W), -1, dtype=torch.int32,
+                                   device=device)}

@@ -1,53 +1,130 @@
-"""Backbone assembly (port of the CLIP branch of
-``repro.models.backbones``): ``init_params``, ``param_shapes``,
-``params_from_tree`` and ``encode_pair``.  The port's "params" are the
-``CLIP`` module; the JAX-layout tree is its checkpoint form (see
-``checkpoint.bridge``)."""
+"""Backbone assembly (port of the CLIP and hybrid branches of
+``repro.models.backbones``).
+
+The port's "params" are an ``nn.Module`` (``CLIP`` or ``HybridLM``); the
+JAX-layout tree is its checkpoint form (see ``checkpoint.bridge``).
+
+    init_params(cfg, gen, device)                -> model
+    param_shapes(cfg) / params_from_tree(cfg, tree, device)
+    encode_pair(model, cfg, batch)               -> (e1, e2)     [clip]
+    forward_hidden(model, cfg, batch)            -> ((B, S, d), aux) [hybrid]
+    prefill_logits(model, cfg, batch)            -> (B, 1, V)
+    init_decode_state(cfg, batch, max_len)       -> decode caches (zeros)
+    decode_step(model, cfg, state, token, pos)   -> (logits (B, V), state)
+
+The hybrid depth pattern is ``[mamba x every + shared-attn(tied)] x
+(L // every) + remainder``: ``supers`` is a ModuleList of super-blocks,
+each with a ModuleList ``mambas``, and ``shared_attn`` is one ``Block``
+called after every super-block (its weights are tied; each call has its
+own KV cache in decode).  The JAX package scans stacked layer axes; here
+stacks are walked in Python loops.  Other families raise
+``NotImplementedError`` (ROADMAP, queue P7).
+"""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch import nn
 
 from repro_torch import device as D
 from repro_torch.checkpoint import bridge
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
 from repro_torch.models import clip as C
+from repro_torch.models import layers as L
 from repro_torch.models import precision as PR
+from repro_torch.models import ssm as SSM
+from repro_torch.models import transformer as T
+
+CONTRASTIVE_DIM = 512   # joint embedding dim for the contrastive objective
+PAIR_DIM = 512          # stub paired-modality embedding dim
+FAMILIES = ("clip", "hybrid")
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "clip":
+def _check_family(cfg: ArchConfig, *families) -> None:
+    if cfg.family not in (families or FAMILIES):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (only clip)")
+            f"family {cfg.family!r} is not ported here (ported: "
+            f"{', '.join(families or FAMILIES)}; the other LM families are "
+            f"ROADMAP queue P7)")
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator,
-                device=None) -> C.CLIP:
-    """Random params from a seeded (CPU) generator, moved to ``device``
-    (default: the card; see ``repro_torch.device.resolve``)."""
+class SuperBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, every: int):
+        super().__init__()
+        self.mambas = nn.ModuleList(SSM.Mamba2(cfg) for _ in range(every))
+
+
+class HybridLM(nn.Module):
+    """Parameter names follow the JAX params tree: ``embed``,
+    ``final_norm``, ``ctr_proj``, ``pair_proj``, ``lm_head`` (untied),
+    ``supers/mambas/...``, ``shared_attn/...``, ``tail/...`` (when
+    ``n_layers`` is not a multiple of ``hybrid_attn_every``).
+    ``ctr_proj``/``pair_proj`` belong to the contrastive objective, which
+    the port does not run for this family; they are kept so the params
+    tree matches the JAX one leaf for leaf."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        every = cfg.hybrid_attn_every
+        n_super = cfg.n_layers // every
+        rem = cfg.n_layers - n_super * every
+        d, V = cfg.d_model, cfg.padded_vocab
+        self.embed = L.param(V, d)
+        self.final_norm = L.RMSNorm(d)
+        self.ctr_proj = L.param(d, CONTRASTIVE_DIM)
+        self.pair_proj = L.param(PAIR_DIM, CONTRASTIVE_DIM)
+        if not cfg.tie_embeddings:
+            self.lm_head = L.param(d, V)
+        self.supers = nn.ModuleList(SuperBlock(cfg, every)
+                                    for _ in range(n_super))
+        self.shared_attn = T.Block(cfg, T.attn_spec(cfg), mlp="swiglu")
+        if rem:
+            self.tail = nn.ModuleList(SSM.Mamba2(cfg) for _ in range(rem))
+
+    def reset_parameters(self, gen):
+        L.normal_init_(self.embed, gen, 0.02)
+        L.dense_init_(self.ctr_proj, gen)
+        L.dense_init_(self.pair_proj, gen)
+        if hasattr(self, "lm_head"):
+            L.dense_init_(self.lm_head, gen)
+
+
+def _empty(cfg: ArchConfig, device) -> nn.Module:
+    with torch.device("meta"):
+        model = C.CLIP(cfg) if cfg.family == "clip" else HybridLM(cfg)
+    return model if device == "meta" else model.to_empty(device=device)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device=None):
+    """Random params from a seeded generator (the draws are made on the
+    generator's device), on ``device`` (default: the card; see
+    ``repro_torch.device.resolve``).  The JAX package's init recipe, not
+    its random numbers."""
     _check_family(cfg)
     device = D.resolve(device)
-    return C.init_clip(cfg, gen).to(device)
+    if cfg.family == "clip":
+        return C.init_clip(cfg, gen).to(device)
+    model = _empty(cfg, device)
+    for m in model.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    return model
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     """The JAX-layout params tree as ``meta`` tensors (shapes only, no
     allocation), the ``tree_like`` of a checkpoint restore."""
     _check_family(cfg)
-    with torch.device("meta"):
-        return bridge.model_to_tree(C.CLIP(cfg))
+    return bridge.model_to_tree(_empty(cfg, "meta"))
 
 
-def params_from_tree(cfg: ArchConfig, tree: Dict[str, Any],
-                     device=None) -> C.CLIP:
-    """A model on ``device`` (default: the card) holding a restored
-    JAX-layout params tree."""
+def params_from_tree(cfg: ArchConfig, tree: Dict[str, Any], device=None):
+    """A model on ``device`` (default: the card) holding a JAX-layout
+    params tree (numpy arrays or tensors), bit for bit."""
     _check_family(cfg)
-    device = D.resolve(device)
-    with torch.device("meta"):
-        model = C.CLIP(cfg)
-    model = model.to_empty(device=device)
+    model = _empty(cfg, D.resolve(device))
     with torch.no_grad():
         bridge.load_tree(model, tree)
     return model
@@ -55,5 +132,94 @@ def params_from_tree(cfg: ArchConfig, tree: Dict[str, Any],
 
 def encode_pair(model: C.CLIP, cfg: ArchConfig, batch, *, impl="flash",
                 precision=PR.F32):
-    _check_family(cfg)
+    _check_family(cfg, "clip")
     return C.encode_pair(model, batch, impl=impl, precision=precision)
+
+
+# ===========================================================================
+# The hybrid LM: prefill and decode
+# ===========================================================================
+
+def forward_hidden(model: HybridLM, cfg: ArchConfig, batch, *,
+                   impl="flash", chunked=True, precision=PR.F32):
+    """Token path -> (final hidden states (B, S, d) after the final norm,
+    aux losses {}).  ``impl`` reaches the shared block's attention (K3
+    for "flash") and every Mamba2 layer (K4 for "flash"; see
+    ``models.ssm``); ``chunked=False`` runs the sequential SSD."""
+    _check_family(cfg, "hybrid")
+    x = L.embed_tokens(model.embed, batch["tokens"],
+                       dtype=precision.compute_dtype)
+    for sup in model.supers:
+        for m in sup.mambas:
+            x = SSM.apply_mamba2(m, cfg, x, impl=impl, chunked=chunked)
+        x = model.shared_attn(x, impl=impl)
+    for m in getattr(model, "tail", ()):
+        x = SSM.apply_mamba2(m, cfg, x, impl=impl, chunked=chunked)
+    return model.final_norm(x), {}
+
+
+def logits_from_hidden(model: HybridLM, cfg: ArchConfig, x):
+    if cfg.tie_embeddings:
+        return L.unembed(model.embed, x, transpose=True)
+    return L.unembed(model.lm_head, x)
+
+
+def prefill_logits(model: HybridLM, cfg: ArchConfig, batch, *,
+                   impl="flash"):
+    """Inference prefill: logits for the last position, (B, 1, V)."""
+    x, _ = forward_hidden(model, cfg, batch, impl=impl)
+    return logits_from_hidden(model, cfg, x[:, -1:])
+
+
+def init_decode_state(cfg: ArchConfig, batch_size, max_len,
+                      dtype=torch.bfloat16, *, window_override=None,
+                      device=None):
+    """Zero decode caches: ``mambas`` (conv and SSD state with leading
+    axes (n_super, every)), ``shared_kv`` (one KV cache per call of the
+    shared block, leading axis n_super) and ``tail``."""
+    _check_family(cfg, "hybrid")
+    device = D.resolve(device)
+    every = cfg.hybrid_attn_every
+    n_super = cfg.n_layers // every
+    rem = cfg.n_layers - n_super * every
+    spec = T.attn_spec(cfg, window_override=window_override)
+    st = {"mambas": SSM.init_mamba2_cache(cfg, batch_size, (n_super, every),
+                                          device),
+          "shared_kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
+                                       device, lead=(n_super,))}
+    if rem:
+        st["tail"] = SSM.init_mamba2_cache(cfg, batch_size, (rem,), device)
+    return st
+
+
+def prepare_decode_state(model: HybridLM, cfg: ArchConfig, batch,
+                         batch_size, max_len, dtype=torch.float32, *,
+                         window_override=None):
+    """Decode state on the model's device.  The hybrid family has no
+    cross-attention caches to fill; feed the prompt through
+    ``decode_step`` to fill the self caches."""
+    return init_decode_state(cfg, batch_size, max_len, dtype,
+                             window_override=window_override,
+                             device=next(model.parameters()).device)
+
+
+def decode_step(model: HybridLM, cfg: ArchConfig, state, token, pos: int,
+                *, window_override=None):
+    """One-token decode.  token: (B, 1) int; ``pos`` the absolute
+    position.  Updates ``state`` in place (JAX returns a new state) and
+    returns ``(logits (B, padded_vocab), state)``."""
+    _check_family(cfg, "hybrid")
+    x = L.embed_tokens(model.embed, token)
+    pos = int(pos)
+    def at(caches, *idx):            # one layer's cache: views, in place
+        return {k: v[idx] for k, v in caches.items()}
+
+    for s, sup in enumerate(model.supers):
+        for i, m in enumerate(sup.mambas):
+            x, _ = SSM.decode_mamba2(m, cfg, at(state["mambas"], s, i), x)
+        x, _ = model.shared_attn.decode(at(state["shared_kv"], s), x, pos,
+                                        window_override)
+    for i, m in enumerate(getattr(model, "tail", ())):
+        x, _ = SSM.decode_mamba2(m, cfg, at(state["tail"], i), x)
+    x = model.final_norm(x)
+    return logits_from_hidden(model, cfg, x)[:, 0], state

@@ -19,13 +19,13 @@ from torch import nn
 def dense_init_(w: torch.Tensor, gen: torch.Generator, scale=None):
     """N(0, 1) * scale, scale defaulting to 1/sqrt(fan_in); w is (in, out)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(w.shape[0])
-    with torch.no_grad():
-        w.copy_(torch.randn(w.shape, generator=gen) * scale)
+    normal_init_(w, gen, scale)
 
 
 def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float):
     with torch.no_grad():
-        w.copy_(torch.randn(w.shape, generator=gen) * std)
+        w.copy_(torch.randn(w.shape, generator=gen, device=gen.device)
+                * std)
 
 
 def param(*shape) -> nn.Parameter:
@@ -112,6 +112,25 @@ class GeluMLP(nn.Module):
         return h @ self.w_out.to(dt) + self.b_out.to(dt)
 
 
+class SwiGLU(nn.Module):
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down``, weights (in, out)."""
+
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_gate = param(d_model, d_ff)
+        self.w_up = param(d_model, d_ff)
+        self.w_down = param(d_ff, d_model)
+
+    def reset_parameters(self, gen):
+        for w in (self.w_gate, self.w_up, self.w_down):
+            dense_init_(w, gen)
+
+    def forward(self, x):
+        dt = x.dtype
+        h = F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))
+        return h @ self.w_down.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (halves concatenated, not interleaved; f32 inside)
 # ---------------------------------------------------------------------------
@@ -141,3 +160,11 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
     table stays in its f32 storage dtype)."""
     x = F.embedding(tokens.long(), table)
     return x if dtype is None else x.to(dtype)
+
+
+def unembed(table_or_w: torch.Tensor, x: torch.Tensor,
+            transpose=False) -> torch.Tensor:
+    """Logits.  ``transpose=True``: the argument is the (V, d) embedding
+    table (tied embeddings); else a (d, V) head."""
+    w = table_or_w.to(x.dtype)
+    return x @ (w.T if transpose else w)

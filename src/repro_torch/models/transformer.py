@@ -1,7 +1,8 @@
 """Pre-norm transformer blocks and stacks (port of
-``repro.models.transformer``, the CLIP text tower's part).
+``repro.models.transformer``: the CLIP text tower's gelu block and the
+swiglu block of the hybrid LM, with its one-token decode).
 
-A block is ``x += attn(rmsnorm(x)); x += gelu_mlp(rmsnorm(x))``.  The
+A block is ``x += attn(rmsnorm(x)); x += mlp(rmsnorm(x))``.  The
 JAX package scans a stacked layer axis; here a stack is an
 ``nn.ModuleList`` walked in a Python loop, and the params bridge adds or
 removes the leading layer axis.
@@ -16,8 +17,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import precision as PR
 
 
-def attn_spec(cfg: ArchConfig) -> A.AttnSpec:
-    """The text tower's attention: causal, with the config's RoPE theta."""
+def attn_spec(cfg: ArchConfig, *, window_override=None) -> A.AttnSpec:
+    """Causal self-attention with the config's RoPE theta;
+    ``window_override`` replaces the config's sliding window."""
     if cfg.qk_norm or cfg.qkv_bias:
         raise NotImplementedError(
             "qk_norm / qkv_bias attention is not ported (no CLIP config "
@@ -26,23 +28,36 @@ def attn_spec(cfg: ArchConfig) -> A.AttnSpec:
                       n_kv_heads=cfg.n_kv_heads,
                       head_dim=cfg.resolved_head_dim,
                       rope_theta=cfg.rope_theta, causal=True,
-                      sliding_window=cfg.sliding_window)
+                      sliding_window=(cfg.sliding_window
+                                      if window_override is None
+                                      else window_override))
+
+
+_MLPS = {"gelu": L.GeluMLP, "swiglu": L.SwiGLU}
 
 
 class Block(nn.Module):
-    """Pre-norm block with rmsnorm and the gelu MLP (``mlp="gelu"`` of
-    the JAX package's ``init_block``)."""
+    """Pre-norm block with rmsnorm and an MLP: ``mlp="gelu"`` (the CLIP
+    text tower) or ``"swiglu"`` (the JAX ``init_block`` default, the
+    hybrid LM's shared block)."""
 
-    def __init__(self, cfg: ArchConfig, spec: A.AttnSpec):
+    def __init__(self, cfg: ArchConfig, spec: A.AttnSpec, mlp="gelu"):
         super().__init__()
         self.n1 = L.RMSNorm(cfg.d_model)
         self.attn = A.Attention(spec)
         self.n2 = L.RMSNorm(cfg.d_model)
-        self.mlp = L.GeluMLP(cfg.d_model, cfg.d_ff)
+        self.mlp = _MLPS[mlp](cfg.d_model, cfg.d_ff)
 
     def forward(self, x, *, impl="flash"):
         x = x + self.attn(self.n1(x), impl=impl)
         return x + self.mlp(self.n2(x))
+
+    def decode(self, cache, x, pos: int, window=None):
+        """One-token decode (``decode_block``); ``cache`` is the block's
+        KV cache, updated in place.  Returns ``(x, cache)``."""
+        h, cache = self.attn.decode(cache, self.n1(x), pos, window)
+        x = x + h
+        return x + self.mlp(self.n2(x)), cache
 
 
 def make_stack(cfg: ArchConfig, n_layers: int) -> nn.ModuleList:

@@ -6,7 +6,8 @@ marker and skips itself without one.  The file imports neither jax nor
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports jax).  Tolerances:
-f32 1e-5, bf16 1e-2, as tests/test_precision_flash.py."""
+attention f32 1e-5, bf16 1e-2, as tests/test_precision_flash.py; the loss
+kernels those of tests/test_kernels.py; K4 ``TOL_SSD`` below."""
 import os
 import sys
 
@@ -251,3 +252,104 @@ def test_fcco_op_fused_matches_dense_on_card(cuda):
     for i, (a, w) in enumerate(zip(res["fused"], res["dense"])):
         tol = (1e-4, 1e-5) if i >= 10 else (1e-5, 1e-5)
         torch.testing.assert_close(a, w, rtol=tol[0], atol=tol[1])
+
+
+# ---------------------------------------------------------------------------
+# K4 (the Mamba2 SSD chunk scan) vs its plain version on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ssd_chunk as K4  # noqa: E402
+
+# name, B, T, H, P, N, chunk, B/C dtype, dt bias (dt = softplus(z + bias)):
+# the zamba2-1.2b prefill shape, ragged T, T < chunk, chunk 64, large
+# decay (dt up to ~10: the ratio form exp(F_i) / exp(F_j) would be 0/0),
+# the reduced config's shapes and tests/test_kernels.py's
+SSD_CASES = [
+    ("prefill", 2, 4096, 64, 64, 64, 256, torch.float32, -2.0),
+    ("prefill_bf16", 2, 4096, 64, 64, 64, 256, torch.bfloat16, -2.0),
+    ("ragged", 1, 4000, 8, 64, 64, 256, torch.float32, -2.0),
+    ("short", 2, 100, 8, 64, 64, 256, torch.float32, -2.0),
+    ("chunk64", 1, 1000, 8, 64, 64, 64, torch.float32, -2.0),
+    ("large_decay", 1, 1024, 8, 64, 64, 256, torch.float32, 8.0),
+    ("reduced", 2, 50, 16, 32, 16, 16, torch.float32, -2.0),
+    ("jax_test", 2, 60, 3, 8, 4, 16, torch.float32, 0.0),
+]
+# max abs error relative to max(1, max |y|): the kernel's cumsum (a warp
+# scan) and torch.cumsum round F differently, and every decay carries
+# that rounding (eps * |F|, |F| up to ~35 over a 256-row chunk here)
+TOL_SSD = 5e-5
+
+
+def ssd_inputs(gen, B, T, H, P, N, dtype, dt_bias):
+    """Inputs shaped as ``models.ssm._ssm_inputs`` makes them."""
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device="cuda") + dt_bias)
+    x = torch.randn((B, T, H, P), generator=gen, device="cuda") * dt[..., None]
+    bc = torch.randn((B, T, 2 * N), generator=gen, device="cuda") * 0.5
+    # B and C as strided views of one buffer, as the model passes them
+    bc = bc.to(dtype)
+    return x, -dt, bc[..., :N], bc[..., N:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=[c[0] for c in SSD_CASES])
+def test_ssd_chunk_kernel_matches_plain(cuda, case):
+    _, B, T, H, P, N, chunk, dtype, dt_bias = case
+    x, la, Bm, Cm = ssd_inputs(cuda, B, T, H, P, N, dtype, dt_bias)
+    before = K4.ssd_chunk.launches
+    got = K4.ssd_chunk(x, la, Bm, Cm, chunk=chunk)
+    want = K4.ssd_chunk_plain(x, la, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K4.ssd_chunk.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= TOL_SSD * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_refuses_what_it_does_not_take(cuda):
+    x, la, Bm, Cm = ssd_inputs(cuda, 1, 600, 2, 64, 64, torch.float32, -2.0)
+    with pytest.raises(ValueError, match="chunks of"):
+        K4.ssd_chunk(x, la, Bm, Cm, chunk=512)
+    x, la, Bm, Cm = (t[:, :32] for t in (x, la, Bm, Cm))
+    wide = torch.zeros((1, 32, 2, 128), device="cuda")
+    with pytest.raises(ValueError, match="head dim P"):
+        K4.ssd_chunk(wide, la, Bm, Cm)
+    with pytest.raises(TypeError):
+        K4.ssd_chunk(x.half(), la, Bm, Cm)
+    with pytest.raises(TypeError):
+        K4.ssd_chunk(x, la, Bm, Cm.bfloat16())
+    with pytest.raises(ValueError, match="is on"):
+        K4.ssd_chunk(x, la.cpu(), Bm, Cm)
+
+
+@pytest.mark.cuda
+def test_reduced_hybrid_prefill_launches_and_matches_plain(cuda):
+    """One reduced-width zamba2 prefill: one K4 launch per Mamba2 layer,
+    one K3 launch per shared-block call; logits within 1e-4 of the plain
+    path (plain SSD, chunked attention) and of the sequential decode
+    within 5e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    cfg = get_arch("zamba2-1.2b").reduced().replace(n_layers=3)
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=cuda,
+                           device="cuda")
+    k4, k3 = K4.ssd_chunk.launches, FA.flash_attention.launches
+    got = steps.make_prefill_step(cfg, impl="flash")(model,
+                                                     {"tokens": tokens})
+    assert K4.ssd_chunk.launches - k4 == cfg.n_layers
+    assert FA.flash_attention.launches - k3 == 1
+    want = steps.make_prefill_step(cfg, impl="chunked")(model,
+                                                        {"tokens": tokens})
+    assert (got - want).abs().max().item() <= 1e-4
+    state = BB.prepare_decode_state(model, cfg, {}, 2, 40)
+    k4 = K4.ssd_chunk.launches
+    with torch.inference_mode():
+        for t in range(40):
+            lg, state = BB.decode_step(model, cfg, state, tokens[:, t:t + 1],
+                                       t)
+    assert K4.ssd_chunk.launches == k4
+    assert (lg - got[:, 0]).abs().max().item() <= 5e-3
