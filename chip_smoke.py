@@ -9,11 +9,15 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    (``nvidia-smi``), turns TF32 off for matmuls and convolutions;
 2. build   -- builds the port's kernels from ``src/repro_torch/kernels/
    csrc/*.cu`` with nvcc for sm_90a, one nvcc per source, in parallel;
+   prints ptxas's registers / spills and counts the tensor-core
+   instructions (HMMA, HGMMA) in the flash-attention library's SASS
+   (``cuobjdump -sass``): none, or a spill, fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
-   version on the card at the serving shapes (f32 and bf16) and at edge
-   cases, and times kernel, plain version and one library call
+   version on the card through both entry points at the serving,
+   training and hybrid shapes (f32 and bf16) and at edge cases, and
+   times kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
-   port) with CUDA events;
+   port) with CUDA events at the serving, training and hybrid shapes;
 4. attn_grad -- gradients of q, k, v through the kernel's autograd
    Function against autograd of the naive attention, at the training
    shapes of both towers;
@@ -59,6 +63,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -197,7 +202,22 @@ def phase_device():
          nvidia_smi=card, tf32_matmul=False, tf32_cudnn=False)
 
 
-def phase_build():
+def tensor_core_ops(lib):
+    """{SASS opcode: count} of the tensor-core instructions (HMMA,
+    HGMMA) in a built library, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts = {}
+    for ln in sass.splitlines():
+        for op in ("HGMMA", "HMMA"):
+            if f" {op}." in ln or f" {op} " in ln:
+                counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def phase_build(checks):
     from repro_torch.kernels import build
     t0 = time.monotonic()
     build.build(build.SOURCES)       # one nvcc per source, in parallel
@@ -206,41 +226,59 @@ def phase_build():
         build.load(name)
         log = build.build_log(name)
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
-        emit("build", kernel=name, seconds_all_parallel=seconds,
-             library=str(build.lib_path(name)), ptxas=ptxas)
+                 if "registers" in ln or "spill" in ln or "smem" in ln
+                 or "Compiling entry" in ln]
+        rec = dict(kernel=name, seconds_all_parallel=seconds,
+                   library=str(build.lib_path(name)), ptxas=ptxas)
+        if name == "flash_attention":
+            ops = tensor_core_ops(build.lib_path(name))
+            spills = [ln for ln in ptxas if re.search(
+                r"[1-9]\d* bytes spill (stores|loads)", ln)]
+            checks.check(sum(ops.values()) > 0,
+                         f"build: no tensor-core instruction in {name}")
+            checks.check(not spills, f"build: {name} spills: {spills}")
+            rec.update(tensor_core_sass=ops, spills=spills)
+        emit("build", **rec)
+    checks.end_phase("build")
 
 
 KERNEL_CASES = [
-    # name, B, H, Sq, Sk, hd, causal, window, dtype; "serve" marks the
-    # main path's shapes at bucket 8
+    # name, B, H, Sq, Sk, hd, causal, window, dtype, timed; the timed
+    # cases are the main paths' shapes: serving at bucket 8, training at
+    # global batch 256, zamba2-1.2b's shared block at the prefill (2 x 4096)
     ("vit", 8, 12, 50, 50, 64, False, 0, "float32", True),
     ("vit", 8, 12, 50, 50, 64, False, 0, "bfloat16", True),
     ("text", 8, 8, 77, 77, 64, True, 0, "float32", True),
     ("text", 8, 8, 77, 77, 64, True, 0, "bfloat16", True),
-    # zamba2-1.2b's shared block at the hybrid prefill shape (B 2, 4096)
+    ("vit_train", 256, 12, 50, 50, 64, False, 0, "float32", True),
+    ("vit_train", 256, 12, 50, 50, 64, False, 0, "bfloat16", True),
+    ("text_train", 256, 8, 77, 77, 64, True, 0, "float32", True),
+    ("text_train", 256, 8, 77, 77, 64, True, 0, "bfloat16", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "float32", True),
+    ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "bfloat16", True),
     ("sq_ne_sk", 2, 4, 64, 300, 64, False, 0, "float32", False),
     ("sq_ne_sk_causal", 2, 4, 200, 70, 64, True, 0, "bfloat16", False),
     ("window", 2, 4, 130, 130, 64, True, 17, "float32", False),
     ("window_noncausal", 2, 4, 130, 130, 64, False, 40, "bfloat16", False),
     ("long_ragged", 1, 4, 1000, 1000, 64, True, 0, "float32", False),
     ("long_ragged", 1, 4, 1000, 1000, 64, False, 0, "bfloat16", False),
+    ("below_one_tile", 3, 2, 10, 10, 64, True, 0, "float32", False),
+    ("below_one_tile", 3, 2, 10, 10, 64, False, 0, "bfloat16", False),
     ("hd32", 2, 4, 77, 77, 32, True, 0, "float32", False),
     ("hd32", 2, 4, 130, 130, 32, False, 0, "bfloat16", False),
 ]
 
 
 def phase_kernel(checks):
-    """Kernel vs plain version; returns {tower: timing dict} for the f32
-    serving shapes (the main path runs the f32 policy)."""
+    """Kernel vs plain version; returns {(case, dtype): timing dict} for
+    every timed case, f32 and bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(0)
     timings = {}
     for (name, B, H, Sq, Sk, hd, causal, window, dt_name,
-         serve) in KERNEL_CASES:
+         timed) in KERNEL_CASES:
         dt = getattr(torch, dt_name)
         q, k, v = (torch.randn((B, H, S, hd), generator=gen, device="cuda",
                                dtype=torch.float32).to(dt)
@@ -261,7 +299,7 @@ def phase_kernel(checks):
         rec = dict(case=name, shape=[B, H, Sq, Sk, hd], causal=causal,
                    window=window, dtype=dt_name, max_abs_err=err,
                    max_abs_err_mha=err_mha, tol=TOL[dt_name], ok=ok)
-        if serve:
+        if timed:
             iters = 5 if Sq > 1000 else 50
             ms = device_ms(lambda: FA.flash_attention(
                 q, k, v, causal=causal, window=window), iters)
@@ -272,8 +310,7 @@ def phase_kernel(checks):
             b_ms, b_by = bound(B, H, Sq, Sk, hd, causal, window, dt_name)
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
-            if dt_name == "float32":
-                timings[name] = dict(rec)
+            timings[name, dt_name] = dict(rec)
         emit("kernel", **rec)
     checks.end_phase("kernel")
     return timings
@@ -1022,7 +1059,7 @@ def phase_train(checks):
 def main():
     checks = Checks()
     phase_device()
-    phase_build()
+    phase_build(checks)
     timings = phase_kernel(checks)
     phase_attn_grad(checks)
     gcl_timings = phase_gcl(checks)
@@ -1032,21 +1069,23 @@ def main():
     train_launches = phase_train(checks)
     import torch
     kernels = []
-    for tower in ("vit", "text", "hybrid"):
-        t = timings[tower]
+    for (case, dt_name), t in timings.items():
+        # launches: the serving run of the tower, the training run (both
+        # towers, 3 steps) or one full-width zamba2 prefill
+        if case == "hybrid":
+            n_launch = hybrid_launches["flash_attention"]
+        elif case.endswith("_train"):
+            n_launch = train_launches["flash_attention"]
+        else:
+            n_launch = launches[case]
         kernels.append({
-            "name": f"flash_attention/{tower}",
+            "name": f"flash_attention/{case}/{dt_name}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
-            "shape": t["shape"], "causal": t["causal"], "dtype": t["dtype"],
-            # serving: per tower; hybrid: one full-width zamba2 prefill
-            "launches": (hybrid_launches["flash_attention"]
-                         if tower == "hybrid" else launches[tower]),
-            # the training run's launches, both towers together
-            "train_launches": (None if tower == "hybrid"
-                               else train_launches["flash_attention"]),
-            "max_abs_err": t["max_abs_err"],
+            "shape": t["shape"], "causal": t["causal"], "dtype": dt_name,
+            "launches": n_launch,
+            "max_abs_err": max(t["max_abs_err"], t["max_abs_err_mha"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -7,164 +7,627 @@
 // and accumulator, `p` rounded to the value dtype before the PV product,
 // `l` clamped at 1e-30, output in the input dtype.
 //
-// What bounds it: at the serving shapes (S = 50 and 77, hd = 64) the work
-// per (batch, head) is a few hundred kFLOP on ~40 KB of q/k/v/o, so the
-// least time is set by moving those bytes, and in practice by launch
-// latency.  The TPU kernel's 256x256 tiles padded S = 50 to 256 (about 26x
-// the score work); here a block takes 64 query rows and walks the keys in
-// 32-row tiles staged in shared memory, masks its own ragged edge, and
-// skips key tiles that the causal or window mask removes entirely, so the
-// work follows S and not a tile size.  Scores and the PV product run in
-// f32 on the CUDA cores; tensor cores (wgmma) and TMA are left for later.
+// What bounds it: at the hybrid prefill shape (2 x 32 heads x 4096 x 64,
+// causal) the two products are 137 GFLOP against 67 MB of q/k/v/o, so
+// the tensor cores set the pace; at the serving and training shapes
+// (S = 50 and 77) the bytes and the launch do.
 //
+// Design:
+// - Both products run on the tensor cores.  bf16 inputs use `wgmma`
+//   (m64n64k16, bf16 in, f32 accumulate), one warpgroup per block: Q and
+//   K from shared memory in the 128-byte (hd 64) or 64-byte (hd 32)
+//   swizzled layout the descriptors name, p from registers, V N-major
+//   from shared memory.  f32 inputs keep f32 accuracy through split TF32
+//   on warp-level `mma.sync` m16n8k8: each operand is x = hi + lo with
+//   hi = tf32(x), lo = tf32(x - hi), and each product is hi*hi + hi*lo +
+//   lo*hi accumulated in f32 (the dropped lo*lo is ~2^-22 relative).
+//   wgmma's TF32 form takes K-major operands only, and V is N-major in
+//   memory; with mma.sync every thread loads its own f32 fragments, so
+//   the contraction index inside an 8-wide step is permuted freely: the
+//   score accumulator of one key tile is then, register for register,
+//   the A fragment of the PV product, and no shuffle moves p.
+// - A warp owns 16 query rows (in the warpgroup's accumulator, or its
+//   own); the online softmax runs on the accumulator registers (a row's
+//   max and sum once per 64-key tile, a quad shuffle for the max, the
+//   sum reduced once at the end; the scale folds into the exponent).
+// - Q is copied once, and K/V tiles of 64 keys go through a two-stage
+//   ring in shared memory, by 16-byte `cp.async` copies (zero-filled past
+//   Sq and Sk), so the next tile's load overlaps this tile's products.
+//   bf16 stays bf16 in shared memory; f32 rows are padded so that the
+//   fragment loads hit 32 distinct banks.
+// - Grid: (B*H, query tiles) with the last query tiles first, so under
+//   a causal mask the heaviest blocks start first and leave no tail.
+//   Key tiles that the causal or window mask removes for a whole block
+//   are not loaded, and on the f32 route for a whole warp not computed.
+//   A block is 4 warps (64 rows) at every shape: at the serving shapes,
+//   blocks of 1 or 2 warps (more blocks on the card) measured slower, as
+//   each warp's chain of dependent products sets the time there.
+
 // Layout: q/k/v/o are (B, H, S, hd) index spaces with arbitrary element
 // strides for B, H and S and a contiguous hd, so (B, S, H, hd) tensors go
-// in without a transposing copy.
+// in without a transposing copy.  cp.async needs 16-byte aligned rows:
+// base pointers and the B, H and S strides in bytes are multiples of 16
+// (the wrapper checks it and raises).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;               // query rows per block
-constexpr int TPR = 4;               // threads per query row
-constexpr int BK = 32;               // keys per shared-memory tile (one mask word)
-constexpr int THREADS = BQ * TPR;
+constexpr int BK = 64;               // keys per shared-memory tile
+constexpr int STAGES = 2;            // K/V ring depth
+constexpr int WARPS = 4;             // 16 query rows each
+constexpr int BQ = 16 * WARPS;       // query rows per block
 constexpr float NEG = -1e30f;        // finite mask fill, as in the TPU kernel
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; `valid == false` writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x by the SFU (ex2.approx, ~2 ulp; denormal results flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma (sm_90a): D (64 x N, f32, in registers) += A (64 x 16) B (16 x N),
+// run by the 4 warps of a warpgroup together.  Warp w holds rows
+// 16w .. 16w + 15 of D in the m16n8 accumulator order, n-tile after
+// n-tile.  scale_d = 0 ignores the old D.
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1,"
+      " 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// A from registers (the m16n8k16 A fragment of the warp's 16 rows); B is
+// N-major ("transposed"), as V's (key, dim) tile with dims contiguous.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,"
+      "%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,"
+      "%19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin the accumulator registers at this point of the program: wgmma
+// writes them asynchronously, so no read may move above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// shared memory written by threads (cp.async, st.shared), then read by
+// wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, the byte strides
+// along the leading and the strided dimension; the swizzle mode is or-ed
+// into bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
+  return (static_cast<uint64_t>(smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ---------------------------------------------------------------------------
+// The two products, per dtype.  Fragment names follow the PTX ISA: in a
+// warp, lane = 4 * g + t; an m16n8 accumulator holds c0 = (g, 2t),
+// c1 = (g, 2t + 1), c2 = (g + 8, 2t), c3 = (g + 8, 2t + 1).
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+struct Mma;
+
+// f32: split TF32 on mma.m16n8k8.  In step kk of Q K^T the k slots t and
+// t + 4 hold dims 8kk + 2t and 8kk + 2t + 1 (float2 loads of q and k); in
+// step j of P V they hold keys 8j + 2t and 8j + 2t + 1, which is where the
+// score accumulator of key block j already has them.  The tensor cores do
+// not round their f32 sums to nearest (one accumulator for all three
+// products and for every tile's P V measured 5x the error of a
+// round-to-nearest emulation at S = 4096), so the hi*hi and the small
+// terms go to separate accumulators, and each tile's P V starts from zero
+// and is added to the running accumulator in f32.  The warp's 16 query
+// rows wait in shared memory and are split one k step at a time (held
+// split in registers they would take 64 of them and push the kernel past
+// 255 registers).
+template <int HD>
+struct Mma<float, HD> {
+  static constexpr bool WARPGROUP = false;   // each warp runs its own products
+  static constexpr int K_LD = HD + 8;   // float2 rows 8 banks apart
+  static constexpr int V_LD = HD + 4;   // rows 2t and 2t + 1: 8 banks apart
+  static constexpr int Q_LD = HD + 8;   // as K
+  static constexpr int K_ELEMS = BK * K_LD, V_ELEMS = BK * V_LD, Q_ELEMS = BQ * Q_LD;
+  static constexpr int KS = HD / 8;
+
+  // padded rows: 16-byte chunk `idx` of a tile is (row r, elements col ..)
+  static __device__ __forceinline__ void chunk(int idx, int& r, int& col) {
+    r = idx / (HD / 4);
+    col = 4 * (idx % (HD / 4));
+  }
+  static __device__ __forceinline__ int k_off(int r, int col) { return r * K_LD + col; }
+  static __device__ __forceinline__ int v_off(int r, int col) { return r * V_LD + col; }
+
+  struct QFrag {
+    const float* q;                     // this warp's 16 rows, zeros past Sq
+  };
+
+  static __device__ __forceinline__ int q_off(int r, int col) { return r * Q_LD + col; }
+  static __device__ __forceinline__ QFrag q_frag(const float* qsm, int warp) {
+    return QFrag{qsm + 16 * warp * Q_LD};
+  }
+
+  static __device__ __forceinline__ void scores(const QFrag& f, const float* ks,
+                                                float (&s)[BK / 8][4], int lane) {
+    const int g = lane / 4, t = lane % 4;
+    float sl[BK / 8][4];                // the small terms, summed apart
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int d = 8 * kk + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(f.q + g * Q_LD + d);
+      const float2 x1 = *reinterpret_cast<const float2*>(f.q + (g + 8) * Q_LD + d);
+      uint32_t ah[4], al[4];
+      split_tf32(x0.x, ah[0], al[0]);
+      split_tf32(x1.x, ah[1], al[1]);
+      split_tf32(x0.y, ah[2], al[2]);
+      split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 kx = *reinterpret_cast<const float2*>(ks + (8 * j + g) * K_LD + d);
+        uint32_t h0, l0, h1, l1;
+        split_tf32(kx.x, h0, l0);
+        split_tf32(kx.y, h1, l1);
+        mma_tf32(sl[j], al, h0, h1);
+        mma_tf32(sl[j], ah, l0, l1);
+        mma_tf32(s[j], ah, h0, h1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+  }
+
+  static __device__ __forceinline__ void pv(const float (&p)[BK / 8][4], const float* vs,
+                                            float (&acc)[HD / 8][4], int lane) {
+    const int g = lane / 4, t = lane % 4;
+    float big[HD / 8][4], small[HD / 8][4];   // this tile's P V: hi*hi, and the rest
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[nd][e] = small[nd][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[j][0], ah[0], al[0]);
+      split_tf32(p[j][2], ah[1], al[1]);
+      split_tf32(p[j][1], ah[2], al[2]);
+      split_tf32(p[j][3], ah[3], al[3]);
+      const float* v0 = vs + (8 * j + 2 * t) * V_LD + g;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        uint32_t h0, l0, h1, l1;
+        split_tf32(v0[8 * nd], h0, l0);
+        split_tf32(v0[V_LD + 8 * nd], h1, l1);
+        mma_tf32(small[nd], al, h0, h1);
+        mma_tf32(small[nd], ah, l0, l1);
+        mma_tf32(big[nd], ah, h0, h1);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] += big[nd][e] + small[nd][e];
+  }
+
+  static __device__ __forceinline__ void store(float* orow, int col, float x, float y) {
+    *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+  }
+};
+
+// bf16: wgmma, the warpgroup (the block's 4 warps) at once.  Q K^T reads
+// Q and K from shared memory (K-major: dims are the contraction); P V
+// takes p from registers, rounded to bf16 as it is packed into the A
+// fragment (p.astype(v.dtype)), and V from shared memory N-major (dims
+// contiguous, keys the contraction).
+template <int HD>
+struct Mma<__nv_bfloat16, HD> {
+  static constexpr bool WARPGROUP = true;   // the 4 warps run each wgmma together
+  static constexpr int K_ELEMS = BK * HD, V_ELEMS = BK * HD, Q_ELEMS = BQ * HD;
+  static constexpr int KS = HD / 16;
+  // A row of a tile is one swizzle span (128 B at hd 64, 64 B at hd 32);
+  // its 16-byte chunks are permuted by the row's index within 8 rows, so
+  // wgmma reads 8 rows without a bank conflict.  The 8-row atoms start on
+  // 1024-byte boundaries.
+  static constexpr int SPAN = 2 * HD;
+  static constexpr int ATOM = 8 * SPAN;
+  static constexpr uint64_t MODE = HD == 64 ? 1 : 2;   // 128-byte / 64-byte swizzle
+
+  // a row's chunks come from neighbouring threads
+  static __device__ __forceinline__ void chunk(int idx, int& r, int& col) {
+    r = idx / (HD / 8);
+    col = 8 * (idx % (HD / 8));
+  }
+  static __device__ __forceinline__ int tiled(int r, int col) {   // elements
+    return (r * SPAN + (((col / 8) ^ (HD == 64 ? r % 8 : (r / 2) % 4)) * 16)) / 2;
+  }
+  static __device__ __forceinline__ int k_off(int r, int col) { return tiled(r, col); }
+  static __device__ __forceinline__ int v_off(int r, int col) { return tiled(r, col); }
+  static __device__ __forceinline__ int q_off(int r, int col) { return tiled(r, col); }
+  // Descriptors.  Either stride field is the 8-row atom: along the rows
+  // for Q and K (K-major, the 16 dims of a step lie inside one span), and
+  // along the keys for V (N-major, its 64 or 32 dims are one span).
+  // Q, K at k step kk (16 dims, 32 bytes into the span):
+  static __device__ __forceinline__ uint64_t qk_desc(const __nv_bfloat16* base, int kk) {
+    return smem_desc(reinterpret_cast<const char*>(base) + 32 * kk, ATOM, ATOM) | (MODE << 62);
+  }
+  // V at k step jj (16 keys, two atoms):
+  static __device__ __forceinline__ uint64_t v_desc(const __nv_bfloat16* base, int jj) {
+    return smem_desc(reinterpret_cast<const char*>(base) + 2 * ATOM * jj, ATOM, ATOM) |
+           (MODE << 62);
+  }
+
+  struct QFrag {
+    const __nv_bfloat16* q;                 // the block's 64 rows, zeros past Sq
+  };
+  static __device__ __forceinline__ QFrag q_frag(const __nv_bfloat16* qsm, int) {
+    return QFrag{qsm};
+  }
+
+  static __device__ __forceinline__ void scores(const QFrag& f, const __nv_bfloat16* ks,
+                                                float (&s)[BK / 8][4], int) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)         // 16 dims a step
+      wgmma_n64_ss(s, qk_desc(f.q, kk), qk_desc(ks, kk), kk > 0);
+    wgmma_commit_and_wait();
+    fence_regs(s);
+  }
+
+  static __device__ __forceinline__ void pv(const float (&p)[BK / 8][4],
+                                            const __nv_bfloat16* vs, float (&acc)[HD / 8][4],
+                                            int) {
+    uint32_t a[BK / 16][4];
+#pragma unroll
+    for (int jj = 0; jj < BK / 16; ++jj) {
+      a[jj][0] = pack_bf16(p[2 * jj][0], p[2 * jj][1]);
+      a[jj][1] = pack_bf16(p[2 * jj][2], p[2 * jj][3]);
+      a[jj][2] = pack_bf16(p[2 * jj + 1][0], p[2 * jj + 1][1]);
+      a[jj][3] = pack_bf16(p[2 * jj + 1][2], p[2 * jj + 1][3]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < BK / 16; ++jj)    // 16 keys a step
+      wgmma_rs(acc, a[jj], v_desc(vs, jj));
+    wgmma_commit_and_wait();
+    fence_regs(acc);
+  }
+
+  static __device__ __forceinline__ void store(__nv_bfloat16* orow, int col, float x, float y) {
+    *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(x, y);
+  }
+};
+
+template <typename T, int HD>
+__host__ __device__ constexpr int stage_elems() {
+  return Mma<T, HD>::K_ELEMS + Mma<T, HD>::V_ELEMS;
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int smem_bytes() {
+  return (STAGES * stage_elems<T, HD>() + Mma<T, HD>::Q_ELEMS) *
+             static_cast<int>(sizeof(T)) +
+         1024;   // room to align the ring
+}
+
+// Copy keys [kt, kt + BK) of K and V into one ring stage, zeros past Sk.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(T* ks, const T* kb, const T* vb, long long kss,
+                                          long long vss, int kt, int Sk, int tid) {
+  using M = Mma<T, HD>;
+  T* vs = ks + M::K_ELEMS;
+  for (int idx = tid; idx < BK * HD * sizeof(T) / 16; idx += 32 * WARPS) {
+    int r, col;
+    M::chunk(idx, r, col);
+    const bool in = kt + r < Sk;
+    const long long pos = in ? kt + r : 0;
+    cp_async16(ks + M::k_off(r, col), kb + pos * kss + col, in);
+    cp_async16(vs + M::v_off(r, col), vb + pos * vss + col, in);
+  }
+}
+
+// Copy the block's query rows [q0, q0 + BQ), zeros past Sq.
+template <typename T, int HD>
+__device__ __forceinline__ void load_q_tile(T* qsm, const T* qb, long long qss, int q0, int Sq,
+                                            int tid) {
+  using M = Mma<T, HD>;
+  for (int idx = tid; idx < BQ * HD * sizeof(T) / 16; idx += 32 * WARPS) {
+    int r, col;
+    M::chunk(idx, r, col);
+    const bool in = q0 + r < Sq;
+    cp_async16(qsm + M::q_off(r, col), qb + (in ? q0 + r : 0) * qss + col, in);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * WARPS, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-                 Strides os, float scale, int causal, int window) {
-  constexpr int DPT = HD / TPR;      // dims per thread: d = i * TPR + part
-  __shared__ float k_tile[BK][HD];
-  __shared__ float v_tile[BK][HD];
+                 Strides os, float scale_log2, int causal, int window) {
+  using M = Mma<T, HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // swizzle atoms start on 1024-byte boundaries
+  T* ring = reinterpret_cast<T*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int part = tid % TPR;
-  const int q0 = blockIdx.y * BQ;
-  const int qpos = q0 + row;
-  const bool row_valid = qpos < Sq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;           // last tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int wq0 = q0 + 16 * warp;                             // this warp's rows
+  const int wq_last = min(wq0 + 15, Sq - 1);
+  const bool warp_live = wq0 < Sq;
+  const int r0 = wq0 + g, r1 = r0 + 8;                        // this thread's rows
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
 
-  float qr[DPT], acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = row_valid ? to_f32(qb[qpos * qs.s + i * TPR + part]) : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = NEG, l = 0.f;
+  T* qsm = ring + STAGES * stage_elems<T, HD>();
+  const typename M::QFrag qf = M::q_frag(qsm, warp);
 
-  // Key tiles that some row of this block can see; tiles outside them are
-  // fully masked and would leave m, l and acc unchanged, so they are skipped.
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};   // rows r0, r1 (l: this thread's columns)
+
+  // Key tiles that some row of this block can see; the others would leave
+  // m, l and acc unchanged, so they are not loaded.
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();                 // the previous tile is consumed
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int j = idx / HD, d = idx % HD;
-      const int kpos = kt + j;
-      float kx = 0.f, vx = 0.f;      // zero past Sk: masked p times v stays 0
-      if (kpos < Sk) {
-        kx = to_f32(kb[kpos * ks.s + d]);
-        vx = to_f32(vb[kpos * vs.s + d]);
-      }
-      k_tile[j][d] = kx;
-      v_tile[j][d] = vx;
-    }
+  if (n_tiles > 0) {
+    load_q_tile<T, HD>(qsm, qb, qs.s, q0, Sq, tid);
+    load_tile<T, HD>(ring, kb, vb, ks.s, vs.s, k_begin, Sk, tid);
+  }
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int kt = k_begin + i * BK;
+    if (i + 1 < n_tiles)
+      load_tile<T, HD>(ring + ((i + 1) % STAGES) * stage_elems<T, HD>(), kb, vb, ks.s, vs.s,
+                       kt + BK, Sk, tid);
+    cp_async_commit();
+    cp_async_wait<1>();              // tile i has landed (tile i + 1 may be in flight)
+    if constexpr (M::WARPGROUP) fence_proxy_async();
     __syncthreads();
+    const T* kst = ring + (i % STAGES) * stage_elems<T, HD>();
+    const T* vst = kst + M::K_ELEMS;
 
-    float s[BK];
-    unsigned allowed = 0u;
-    float tile_max = NEG;
+    // a warp skips a tile its rows cannot see, unless its products are
+    // the warpgroup's
+    const bool skip = !M::WARPGROUP && (!warp_live || (causal && kt > wq_last) ||
+                                        (window > 0 && kt + BK - 1 <= wq0 - window));
+    if (!skip) {
+      float s[BK / 8][4];
+      M::scores(qf, kst, s, lane);
+      // mask only where the tile crosses an edge; m is kept in raw score
+      // units and the scale folds into the exponent's FMA
+      const bool edge = kt + BK > Sk || (causal && kt + BK - 1 > wq0) ||
+                        (window > 0 && kt <= wq_last - window);
+      float tmax[2] = {NEG, NEG};
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) dot = fmaf(qr[i], k_tile[j][i * TPR + part], dot);
-      // the TPR threads of a row are neighbouring lanes of one warp
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int kpos = kt + j;
-      const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
-                      (window <= 0 || kpos > qpos - window);
-      s[j] = ok ? dot * scale : NEG;
-      allowed |= (ok ? 1u : 0u) << j;
-      tile_max = fmaxf(tile_max, s[j]);
+        for (int e = 0; e < 4; ++e) {
+          if (edge) {
+            const int qpos = e < 2 ? r0 : r1;
+            const int kpos = kt + 8 * j + 2 * t + (e & 1);
+            const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            s[j][e] = ok ? s[j][e] : NEG;
+          }
+          tmax[e / 2] = fmaxf(tmax[e / 2], s[j][e]);
+        }
+      }
+      float alpha[2], mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the four threads of a row are lanes 4g .. 4g + 3
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+        const float m_new = fmaxf(m[r], tmax[r]);
+        alpha[r] = exp2_approx((m[r] - m_new) * scale_log2);
+        mc[r] = m_new * scale_log2;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // masked scores (NEG) give 0, also in a row with no key yet
+          float p = exp2_approx(fmaf(s[j][e], scale_log2, -mc[e / 2]));
+          if (edge) p = s[j][e] > NEG ? p : 0.f;
+          psum[e / 2] += p;
+          s[j][e] = p;
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        acc[nd][0] *= alpha[0];
+        acc[nd][1] *= alpha[0];
+        acc[nd][2] *= alpha[1];
+        acc[nd][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+      M::pv(s, vst, acc, lane);
     }
-
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = ((allowed >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-      psum += p;
-      const float pv = to_f32(from_f32<T>(p));   // p.astype(v.dtype)
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(pv, v_tile[j][i * TPR + part], acc[i]);
-    }
-    l = l * alpha + psum;
-    m = m_new;
+    __syncthreads();                 // this stage is consumed before it is refilled
   }
 
-  if (row_valid) {
-    const float lc = fmaxf(l, 1e-30f);
-    T* ob = o + b * os.b + h * os.h + qpos * os.s;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) ob[i * TPR + part] = from_f32<T>(acc[i] / lc);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (!warp_live) return;
+  T* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= Sq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    T* orow = ob + row * os.s;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      M::store(orow, 8 * nd + 2 * t, acc[nd][2 * r] / lc, acc[nd][2 * r + 1] / lc);
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-                   int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                   int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+                   int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                   float scale, int causal, int window, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
+  constexpr int smem = smem_bytes<T, HD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<T, HD><<<grid, 32 * WARPS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Sq, Sk, qs, ks, vs, os, scale, causal, window);
+      static_cast<T*>(o), H, Sq, Sk, qs, ks, vs, os, scale * LOG2E, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B, int H,
-                      int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-                      float scale, int causal, int window, cudaStream_t stream) {
-  // The head dims of the ported configs: 64 at full width (both towers),
-  // 32 in the reduced ViT tower.
+cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
+                      int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                      Strides os, float scale, int causal, int window, cudaStream_t stream) {
+  // The head dims of the ported configs: 64 at full width (both towers and
+  // zamba2's shared block), 32 in the reduced ViT tower.
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal, window, stream);
+      return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
+                           window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal, window, stream);
+      return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
+                           window, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+bool aligned16(const void* p, const Strides& s, int item) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * item) % 16 == 0 &&
+         (s.h * item) % 16 == 0 && (s.s * item) % 16 == 0;
 }
 
 }  // namespace
@@ -184,12 +647,17 @@ extern "C" int flash_attention_fwd(int device, const void* q, const void* k, con
   if (B * H == 0 || Sq == 0) return 0;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
+  const int item = dtype == 0 ? 4 : 2;
+  if (!aligned16(q, qs, item) || !aligned16(k, ks, item) || !aligned16(v, vs, item) ||
+      !aligned16(o, os, item))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = launch_hd<float>(hd, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal, window, st);
+    err = launch_hd<float>(hd, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
+                           window, st);
   } else if (dtype == 1) {
-    err = launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
-                                   window, st);
+    err = launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale,
+                                   causal, window, st);
   } else {
     err = cudaErrorInvalidValue;
   }

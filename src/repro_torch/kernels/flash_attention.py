@@ -7,13 +7,22 @@ layouts: ``flash_attention`` on ``(B, H, S, hd)`` and ``flash_mha`` on
 or bf16 inputs, f32 softmax statistics and accumulation, output in the q
 dtype.
 
-What bounds it on the H100: at the serving shapes (ViT ``B x 12 x 50 x
-64`` non-causal, text ``B x 8 x 77 x 64`` causal) it moves q, k, v and o
-once and does a few hundred kFLOP per (batch, head), so it is memory- and
-launch-bound.  The design (``csrc/flash_attention.cu``) sizes its work to S
-instead of the TPU's 256-row tiles: one block per (batch*head, 64 query
-rows), key tiles of 32 rows staged in shared memory, its own masking of
-the ragged edge, and fully masked key tiles skipped.
+What bounds it on the H100: at the serving and training shapes (ViT ``B
+x 12 x 50 x 64`` non-causal, text ``B x 8 x 77 x 64`` causal) it moves q,
+k, v and o once and does a few hundred kFLOP per (batch, head), so the
+bytes and the launch bound it; at zamba2's prefill (``2 x 32 x 4096 x
+64`` causal) the two products do.  The design (``csrc/flash_attention.cu``)
+runs both products on the tensor cores (``mma.sync``: bf16 directly, f32
+through split TF32, three TF32 products per f32 product, for f32
+accuracy), the online softmax on the accumulator registers, and K/V
+tiles of 64 keys through a two-stage ``cp.async`` ring; it masks its own
+ragged edge and skips fully masked key tiles.
+
+Input conditions, checked by ``check_inputs`` before any launch: q, k, v
+and out on one device, float32 or bfloat16 alike, (B, H, S, hd) with hd
+in {32, 64} and contiguous, and 16-byte aligned rows for ``cp.async``
+(base pointers and the strides of B, H and S, in bytes, multiples of
+16).  Fresh tensors and ``flash_mha``'s (B, S, H, hd) views meet them.
 
 Dispatch: a tensor on the CPU takes the plain version
 (``flash_attention_ref``); a CUDA tensor launches the kernel or raises.
@@ -72,11 +81,16 @@ def _kernel():
     return fn
 
 
-def _launch(q, k, v, out, causal, window):
-    """Launch on (B, H, S, hd) views of one CUDA device: any strides for
-    B, H and S, contiguous hd."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
+def _strides(t):
+    """(B, H, S) element strides, 0 for a dimension of size 1 (its stride
+    is never used, and PyTorch may report any value for it)."""
+    return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def check_inputs(q, k, v, out, window=0):
+    """Raise on what the kernel does not take; (B, H, S, hd) views.
+    Runs on tensors of any device, so the CPU tests reach every
+    refusal."""
     for name, t in (("k", k), ("v", v), ("out", out)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -96,15 +110,29 @@ def _launch(q, k, v, out, causal, window):
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v, out)):
         raise ValueError("the head dim must be contiguous (stride 1)")
+    item = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % 16 or any(st * item % 16 for st in _strides(t)):
+            raise ValueError(
+                f"{name} is not 16-byte aligned (data_ptr {t.data_ptr()}, "
+                f"strides {tuple(t.stride())} of {item}-byte elements): "
+                f"the kernel copies rows with 16-byte cp.async")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _launch(q, k, v, out, causal, window):
+    """Launch on (B, H, S, hd) views of one CUDA device."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
+    check_inputs(q, k, v, out, window)
+    B, H, Sq, hd = q.shape
     fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, Sq, Sk, hd,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
-             int(window), stream)
+             out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, Sq, k.shape[2], hd,
+             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+             1.0 / math.sqrt(hd), int(bool(causal)), int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"cudaError {err}")

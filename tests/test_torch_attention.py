@@ -136,3 +136,72 @@ def test_flash_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         TFA.flash_mha(q, q, q)
     assert TFA.flash_attention.launches == before
+
+
+def _cpu_views(hd=64, dtype=torch.float32):
+    q, k, v, out = (torch.zeros((2, 3, 40, hd), dtype=dtype)
+                    for _ in range(4))
+    return q, k, v, out
+
+
+def _misaligned_ptr(t):
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("what,exc,match", [
+    ("float16", TypeError, "float32 or bfloat16"),
+    ("mixed_dtype", TypeError, "q is torch.float32"),
+    ("hd_not_contiguous", ValueError, "contiguous"),
+    ("misaligned_pointer", ValueError, "16-byte aligned"),
+    ("misaligned_s_stride", ValueError, "16-byte aligned"),
+    ("misaligned_bf16_h_stride", ValueError, "16-byte aligned"),
+    ("head_dim_48", ValueError, "head dim"),
+    ("head_dim_128", ValueError, "head dim"),
+    ("shape", ValueError, "shape mismatch"),
+    ("window", ValueError, "window"),
+])
+def test_flash_check_inputs_refuses_on_cpu(what, exc, match):
+    """Every refusal of the kernel's launcher, reached on CPU tensors
+    through ``check_inputs`` (the launcher calls it before any launch)."""
+    q, k, v, out = _cpu_views()
+    window = 0
+    if what == "float16":
+        q, k, v, out = (t.half() for t in (q, k, v, out))
+    elif what == "mixed_dtype":
+        v = v.bfloat16()
+    elif what == "hd_not_contiguous":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    elif what == "misaligned_pointer":
+        q = _misaligned_ptr(q)
+    elif what == "misaligned_s_stride":        # S stride hd + 1 elements
+        v = torch.zeros((2, 3, 40, 65))[..., :64]
+    elif what == "misaligned_bf16_h_stride":   # H stride 40*64 + 4 bf16
+        q, k, v, out = _cpu_views(dtype=torch.bfloat16)
+        out = torch.zeros((2, 3, 40 * 64 + 4), dtype=torch.bfloat16)[
+            ..., :40 * 64].view(2, 3, 40, 64)
+    elif what.startswith("head_dim"):
+        q, k, v, out = _cpu_views(hd=int(what.split("_")[-1]))
+    elif what == "shape":
+        k = torch.zeros((2, 3, 40, 32))
+    elif what == "window":
+        window = -1
+    with pytest.raises(exc, match=match):
+        TFA.check_inputs(q, k, v, out, window)
+
+
+def test_flash_check_inputs_takes_the_main_paths_layouts():
+    """Fresh (B, H, S, hd) tensors, the (B, S, H, hd) views ``flash_mha``
+    hands the launcher, both head dims and dtypes, and a size-1 dimension
+    whose stride is odd (never used) all pass."""
+    for hd in (32, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, out = _cpu_views(hd, dtype)
+            TFA.check_inputs(q, k, v, out)
+            bshd = [torch.zeros((2, 40, 3, hd), dtype=dtype)
+                    for _ in range(4)]
+            TFA.check_inputs(*(t.transpose(1, 2) for t in bshd))
+    odd = torch.zeros((1, 3, 40, 64)).as_strided((1, 3, 40, 64),
+                                                 (7, 40 * 64, 64, 1))
+    q, k, v, out = _cpu_views()
+    TFA.check_inputs(odd, k[:1], v[:1], out[:1])

@@ -44,6 +44,11 @@ def _qkv(gen, B, H, Sq, Sk, hd, dtype):
     (2, 4, 200, 70, 32, True, 0),       # causal, Sq > Sk
     (2, 4, 130, 130, 64, True, 17),     # window across tiles
     (1, 2, 1000, 1000, 64, False, 40),  # long, ragged, window only
+    (2, 4, 200, 200, 64, True, 0),      # S ragged against the 64-key tile
+    (3, 2, 10, 10, 64, False, 0),       # S below one tile
+    (3, 2, 10, 10, 32, True, 0),
+    (256, 12, 50, 50, 64, False, 0),    # ViT training shape (batch 256)
+    (256, 8, 77, 77, 64, True, 0),      # text training shape
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, Sq, Sk, hd, causal, window,
                                     dtype):
@@ -64,6 +69,7 @@ def test_flash_kernel_matches_plain(cuda, B, H, Sq, Sk, hd, causal, window,
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 2, 8, 8, 64, torch.float32)
+    before = FA.flash_attention.launches
     with pytest.raises(TypeError):
         FA.flash_attention(q, k.half(), v)
     with pytest.raises(TypeError):
@@ -75,6 +81,15 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
             2, 3))
     with pytest.raises(ValueError, match="is on"):
         FA.flash_attention(q, k.cpu(), v)
+    # rows that are not 16-byte aligned: a view one element into a buffer,
+    # and an S stride of hd + 1 elements
+    flat = torch.randn(q.numel() + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention(flat[1:].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention(q, k, torch.randn((1, 2, 8, 65), device="cuda")[
+            ..., :64])
+    assert FA.flash_attention.launches == before
 
 
 @pytest.mark.cuda
