@@ -10,8 +10,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 2. build   -- builds the port's kernels from ``src/repro_torch/kernels/
    csrc/*.cu`` with nvcc for sm_90a, one nvcc per source, in parallel;
    prints ptxas's registers / spills and counts the tensor-core
-   instructions (HMMA, HGMMA) in the flash-attention library's SASS
-   (``cuobjdump -sass``): none, or a spill, fails;
+   instructions (HMMA, HGMMA) in the flash-attention and SSD libraries'
+   SASS (``cuobjdump -sass``): none, or a spill, fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card through both entry points at the serving,
    training and hybrid shapes (f32 and bf16) and at edge cases, and
@@ -34,12 +34,15 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 7. ssd     -- holds K4 (``ssd_chunk``, the Mamba2 SSD chunk scan) against
    its plain version at the zamba2-1.2b prefill shape (B/C f32 and bf16)
    and at edge cases (ragged T, T < chunk, chunk 64, large decay, the
-   reduced shapes), and times kernel and plain version at the prefill
-   shape;
+   reduced shapes); at the prefill shape also each of its four passes
+   (C B^T, chunk states, state pass, outputs) against the pass's plain
+   version on the same inputs, and times kernel, passes and plain
+   version;
 8. hybrid  -- full-width ``zamba2-1.2b`` (38 Mamba2 layers, one shared
    attention block called 6 times; seeded random weights, f32) through
    ``repro_torch.launch.steps.make_prefill_step(impl="flash")`` at batch
-   2 x 4096 tokens: exactly 38 K4 and 6 K3 launches per prefill, finite
+   2 x 4096 tokens: exactly 38 K4 calls (4 CUDA launches each) and 6 K3
+   launches per prefill, finite
    logits, last-position logits against the plain path (``impl=
    "chunked"``); prefill vs ``decode_step`` scanned over the same 256
    tokens; ``repro_torch.launch.serve.main`` generating on the card
@@ -74,9 +77,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 ARCH = "clip-vitb32-cc12m"
 # H100 SXM data-sheet peaks (dense): HBM bytes/s; f32 outside the tensor
-# cores and bf16 tensor-core FLOP/s.
+# cores and bf16 tensor-core FLOP/s; TF32 tensor-core FLOP/s (the floor
+# of split TF32, three TF32 products per f32 product)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_TF32 = 495e12
 # Tolerances.  Kernel vs plain version: those of tests/test_precision_flash.py.
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # Tower embeddings (L2-normalised, 12 layers), flash path vs the plain
@@ -230,7 +235,7 @@ def phase_build(checks):
                  or "Compiling entry" in ln]
         rec = dict(kernel=name, seconds_all_parallel=seconds,
                    library=str(build.lib_path(name)), ptxas=ptxas)
-        if name == "flash_attention":
+        if name in ("flash_attention", "ssd_chunk"):
             ops = tensor_core_ops(build.lib_path(name))
             spills = [ln for ln in ptxas if re.search(
                 r"[1-9]\d* bytes spill (stores|loads)", ln)]
@@ -631,23 +636,66 @@ SSD_CASES = [
 ]
 
 
-def ssd_bound(B, T, H, P, N, Lc, bc_item):
-    """(ms, "bytes" | "operations") for one K4 call: x, log_a, B, C read
-    once and y written once, against the FLOPs the chunked algorithm
-    needs for these T rows at the f32 peak (the kernel computes in f32
-    for any B/C type): per chunk of r rows, C B^T over the r(r+1)/2
-    causal pairs once per (batch, chunk), and per (batch, head) the
-    masked M x product, the inter-chunk C S and the state update."""
+def ssd_flops(B, T, H, P, N, Lc):
+    """The FLOPs the chunked algorithm needs for these T rows: per chunk
+    of r rows, C B^T over the r(r+1)/2 causal pairs once per (batch,
+    chunk), and per (batch, head) the masked M x product, the
+    inter-chunk C S and the state update."""
     flops = 0
     for t0 in range(0, T, Lc):
         r = min(Lc, T - t0)
         pairs = r * (r + 1) // 2
         flops += B * pairs * N * 2
         flops += B * H * (pairs * P * 2 + 2 * r * N * P * 2)
+    return flops
+
+
+def ssd_bound(B, T, H, P, N, Lc, bc_item):
+    """(ms, "bytes" | "operations") for one K4 call: x, log_a, B, C read
+    once and y written once, against ``ssd_flops`` at the f32 peak (the
+    kernel computes in f32 for any B/C type)."""
+    flops = ssd_flops(B, T, H, P, N, Lc)
     nbytes = 4 * (2 * B * T * H * P + B * T * H) + 2 * B * T * N * bc_item
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ssd_passes(checks, case, x, la, Bm, Cm, Lc):
+    """Each of K4's four passes against its plain version on the same
+    inputs (the kernel's outputs of the earlier passes), and its device
+    time.  Returns ({output: max abs err}, {pass: ms})."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as K4
+    G = K4.ssd_chunk_cb(Bm, Cm, Lc)
+    cum, S = K4.ssd_chunk_state(x, la, Bm, Lc)
+    S_in = K4.ssd_state_pass(cum, S.clone(), Lc)
+    y = K4.ssd_chunk_scan(x, Cm, G, cum, S_in, Lc)
+    want = {"cb": K4.ssd_chunk_cb_plain(Bm, Cm, Lc)}
+    want["cum"], want["state"] = K4.ssd_chunk_state_plain(x, la, Bm, Lc)
+    want["state_pass"] = K4.ssd_state_pass_plain(cum, S, Lc)
+    want["scan"] = K4.ssd_chunk_scan_plain(x, Cm, G, cum, S_in, Lc)
+    # the tiles of G above the diagonal are not written
+    got = dict(cb=torch.tril(G), cum=cum, state=S, state_pass=S_in, scan=y)
+    torch.cuda.synchronize()
+    errs = {}
+    for k, w in want.items():
+        err = (got[k] - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        checks.check(bool(torch.isfinite(got[k]).all())
+                     and got[k].shape == w.shape and err <= TOL_SSD * scale,
+                     f"ssd {case} pass output {k}: max abs err {err} (tol "
+                     f"{TOL_SSD} x {scale})")
+        errs[k] = err
+    del want, got
+    S_work = S.clone()      # the state pass works in place
+    times = dict(
+        cb=device_ms(lambda: K4.ssd_chunk_cb(Bm, Cm, Lc), 20),
+        state=device_ms(lambda: K4.ssd_chunk_state(x, la, Bm, Lc), 20),
+        state_pass=device_ms(lambda: K4.ssd_state_pass(cum, S_work, Lc), 20),
+        scan=device_ms(lambda: K4.ssd_chunk_scan(x, Cm, G, cum, S_in, Lc),
+                       20))
+    return errs, times
 
 
 def phase_ssd(checks):
@@ -691,14 +739,17 @@ def phase_ssd(checks):
             ).item(), plain_vs_f64_max_abs=(ref.double() - ref64).abs().max(
             ).item())
             del ref64
+            Lc = min(chunk, T)
+            pass_errs, pass_ms = _ssd_passes(checks, name, x, la, Bm, Cm, Lc)
             ms = device_ms(lambda: K4.ssd_chunk(x, la, Bm, Cm, chunk=chunk),
-                           10)
+                           20)
             plain_ms = device_ms(lambda: K4.ssd_chunk_plain(
                 x, la, Bm, Cm, chunk=chunk), 10)
-            b_ms, b_by = ssd_bound(B, T, H, P, N, min(chunk, T),
-                                   bc.element_size())
+            b_ms, b_by = ssd_bound(B, T, H, P, N, Lc, bc.element_size())
+            tc_ms = 3 * ssd_flops(B, T, H, P, N, Lc) / PEAK_TF32 * 1e3
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+                       tc_floor_ms=tc_ms, pass_max_abs_err=pass_errs,
+                       pass_ms=pass_ms, library_ms=None)
             timings[name] = dict(rec)
         emit("ssd", **rec)
         del x, la, bc, Bm, Cm, y, ref
@@ -706,9 +757,10 @@ def phase_ssd(checks):
     return timings
 
 
-def _profile(fn):
+def _profile(fn, match=None):
     """torch.profiler over one call: device time by kernel, launches and
-    the device's idle share of the call's wall time."""
+    the device's idle share of the call's wall time; with ``match``, also
+    every kernel whose name holds that string."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -726,11 +778,14 @@ def _profile(fn):
             for e in (kernels or events)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                idle_share=max(0.0, 1.0 - busy / wall_ms), kernels=len(rows),
-                launches=sum(r[2] for r in rows),
-                device_events_only=bool(kernels),
-                top=[[k[:80], t, c] for k, t, c in rows[:15]])
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy,
+               idle_share=max(0.0, 1.0 - busy / wall_ms), kernels=len(rows),
+               launches=sum(r[2] for r in rows),
+               device_events_only=bool(kernels),
+               top=[[k[:80], t, c] for k, t, c in rows[:15]])
+    if match:
+        out["matched"] = [[k[:80], t, c] for k, t, c in rows if match in k]
+    return out
 
 
 def phase_hybrid(checks):
@@ -767,6 +822,7 @@ def phase_hybrid(checks):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K4.ssd_chunk.launches = 0
+    K4.ssd_chunk.cuda_launches = 0
     FA.flash_attention.launches = 0
     t0 = time.monotonic()
     logits = prefill["flash"](model, batch)
@@ -774,11 +830,15 @@ def phase_hybrid(checks):
     ms_flash = (time.monotonic() - t0) * 1e3
     counts = dict(ssd_chunk=K4.ssd_chunk.launches,
                   flash_attention=FA.flash_attention.launches)
+    ssd_cuda_launches = K4.ssd_chunk.cuda_launches
     peak = torch.cuda.max_memory_allocated()
     n_super = cfg.n_layers // cfg.hybrid_attn_every
     want = dict(ssd_chunk=cfg.n_layers, flash_attention=n_super)
     checks.check(counts == want,
                  f"hybrid prefill: launches {counts}, want {want}")
+    checks.check(ssd_cuda_launches == 4 * cfg.n_layers,
+                 f"hybrid prefill: {ssd_cuda_launches} K4 CUDA launches, "
+                 f"want 4 per Mamba2 layer")
     checks.check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
                  and bool(torch.isfinite(logits).all()),
                  f"hybrid prefill: logits {tuple(logits.shape)} not finite")
@@ -802,14 +862,16 @@ def phase_hybrid(checks):
     naive = prefill["naive"](model, batch)
     rel_plain = ((naive - plain).norm() / plain.norm()).item()
     emit("hybrid_prefill", batch=B, seq=S, launches=counts,
-         launches_want=want, ms_per_prefill_kernel_path=ms["flash"],
+         launches_want=want, ssd_cuda_launches=ssd_cuda_launches,
+         ms_per_prefill_kernel_path=ms["flash"],
          ms_per_prefill_plain_path=ms["chunked"],
          tokens_per_s_kernel_path=B * S / (min(ms["flash"]) / 1e3),
          kernel_vs_plain_rel_l2=rel, tol=TOL_HYBRID_REL,
          chunked_vs_naive_plain_rel_l2=rel_plain,
          max_memory_allocated=peak)
     try:       # a measurement only; no check depends on it
-        prof = _profile(lambda: prefill["flash"](model, batch))
+        # "ssd_": the four K4 passes by name
+        prof = _profile(lambda: prefill["flash"](model, batch), match="ssd_")
         # the profiler's own cost inflates its wall time; the device's
         # idle share of an unprofiled prefill uses the timed one
         prof["idle_share_of_unprofiled_prefill"] = max(
@@ -865,7 +927,7 @@ def phase_hybrid(checks):
     del toks
     torch.cuda.empty_cache()
     checks.end_phase("hybrid")
-    return counts
+    return counts, ssd_cuda_launches
 
 
 def _first_batch(cfg):
@@ -1064,7 +1126,7 @@ def main():
     phase_attn_grad(checks)
     gcl_timings = phase_gcl(checks)
     ssd_timings = phase_ssd(checks)
-    hybrid_launches = phase_hybrid(checks)
+    hybrid_launches, ssd_cuda_launches = phase_hybrid(checks)
     launches = phase_slice(checks)
     train_launches = phase_train(checks)
     import torch
@@ -1104,6 +1166,7 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
     t = ssd_timings["prefill"]
+    t_bf16 = ssd_timings["prefill_bf16"]
     kernels.append({
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
@@ -1111,10 +1174,15 @@ def main():
         "shape": t["shape"], "N": t["N"], "chunk": t["chunk"],
         "dtype": "float32", "bc_dtype": t["bc_dtype"],
         "launches": hybrid_launches["ssd_chunk"],
-        "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "ms_bf16_bc": ssd_timings["prefill_bf16"]["ms"],
+        "cuda_launches": ssd_cuda_launches,
+        "cuda_launches_per_call": (ssd_cuda_launches
+                                   / max(hybrid_launches["ssd_chunk"], 1)),
+        "max_abs_err": max(t["max_abs_err"], t_bf16["max_abs_err"]),
+        "ms": t["ms"], "ms_bf16_bc": t_bf16["ms"],
+        "pass_ms": t["pass_ms"], "pass_ms_bf16_bc": t_bf16["pass_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "tc_floor_ms": t["tc_floor_ms"],
         # no single PyTorch call computes the SSD scan
         "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,9 @@ them.
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  Libraries go under
 ``build/kernels/<name>-<hash>/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the source and the compiler flags, so
-an edited source rebuilds and an unchanged one is reused.  Nothing is
+``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+rebuilds and an unchanged one is reused.  Nothing is
 compiled at import time: ``load`` builds on first use, and ``build``
 compiles several sources at once, one ``nvcc`` process each, all started
 together.
@@ -48,6 +49,8 @@ def nvcc() -> str:
 def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the shared headers
+        h.update(header.read_bytes())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 

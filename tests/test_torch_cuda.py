@@ -339,6 +339,47 @@ def test_ssd_chunk_kernel_refuses_what_it_does_not_take(cuda):
         K4.ssd_chunk(x, la.cpu(), Bm, Cm)
 
 
+# the four passes of K4 (C B^T, chunk states, state pass, outputs), each
+# against its plain version on the same inputs: the reduced config's, the
+# JAX tests' and a 64-row chunk's shapes
+SSD_PASS_CASES = [c for c in SSD_CASES
+                  if c[0] in ("reduced", "jax_test", "chunk64")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_PASS_CASES,
+                         ids=[c[0] for c in SSD_PASS_CASES])
+def test_ssd_passes_match_plain(cuda, case):
+    _, B, T, H, P, N, chunk, dtype, dt_bias = case
+    x, la, Bm, Cm = ssd_inputs(cuda, B, T, H, P, N, dtype, dt_bias)
+    Lc = min(chunk, T)
+    G = K4.ssd_chunk_cb(Bm, Cm, Lc)
+    cum, S = K4.ssd_chunk_state(x, la, Bm, Lc)
+    S_in = K4.ssd_state_pass(cum, S.clone(), Lc)
+    y = K4.ssd_chunk_scan(x, Cm, G, cum, S_in, Lc)
+    want = (K4.ssd_chunk_cb_plain(Bm, Cm, Lc),
+            *K4.ssd_chunk_state_plain(x, la, Bm, Lc),
+            K4.ssd_state_pass_plain(cum, S, Lc),
+            K4.ssd_chunk_scan_plain(x, Cm, G, cum, S_in, Lc))
+    torch.cuda.synchronize()
+    # the tiles of G above the diagonal are not written
+    for name, got, w in zip(("cb", "cum", "state", "state_pass", "scan"),
+                            (torch.tril(G), cum, S, S_in, y), want):
+        assert got.shape == w.shape and torch.isfinite(got).all(), name
+        err = (got - w).abs().max().item()
+        assert err <= TOL_SSD * max(1.0, w.abs().max().item()), (name, err)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_counts_one_call_and_four_cuda_launches(cuda):
+    x, la, Bm, Cm = ssd_inputs(cuda, 2, 50, 16, 32, 16, torch.float32, -2.0)
+    calls, launches = K4.ssd_chunk.launches, K4.ssd_chunk.cuda_launches
+    K4.ssd_chunk(x, la, Bm, Cm, chunk=16)
+    torch.cuda.synchronize()
+    assert K4.ssd_chunk.launches == calls + 1
+    assert K4.ssd_chunk.cuda_launches == launches + 4
+
+
 @pytest.mark.cuda
 def test_reduced_hybrid_prefill_launches_and_matches_plain(cuda):
     """One reduced-width zamba2 prefill: one K4 launch per Mamba2 layer,
