@@ -10,8 +10,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 2. build   -- builds the port's kernels from ``src/repro_torch/kernels/
    csrc/*.cu`` with nvcc for sm_90a, one nvcc per source, in parallel;
    prints ptxas's registers / spills and counts the tensor-core
-   instructions (HMMA, HGMMA) in the flash-attention and SSD libraries'
-   SASS (``cuobjdump -sass``): none, or a spill, fails;
+   instructions (HMMA, HGMMA) in each library's SASS (``cuobjdump
+   -sass``): none, or a spill, fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card through both entry points at the serving,
    training and hybrid shapes (f32 and bf16) and at edge cases, and
@@ -23,7 +23,12 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    shapes of both towers;
 5. gcl     -- holds K1 (``gcl_pair_stats``) and K2 (``gcl_pair_grads``)
    against their plain versions at the training shape (256 x 512, f32
-   and bf16) and at edge cases, and times both at the training shape;
+   and bf16), at the paper's sharded shape (256 local anchors against
+   2048 gathered columns, row offset 768) and at edge cases (d = 37,
+   a column split with no unmasked column, d = 3072, per-row taus down
+   to 0.01, a clamped row); two calls bitwise equal; times both (with
+   and without the wrapper's torch ops, and per pass) at the training
+   and sharded shapes, f32 and bf16;
 6. slice   -- builds full-width ``clip-vitb32-cc12m`` params from a seeded
    generator, saves them in the checkpoint format, and runs
    ``repro_torch.launch.serve_embed.main`` with ``--impl flash`` for the
@@ -38,7 +43,12 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    (C B^T, chunk states, state pass, outputs) against the pass's plain
    version on the same inputs, and times kernel, passes and plain
    version;
-8. hybrid  -- full-width ``zamba2-1.2b`` (38 Mamba2 layers, one shared
+8. ssd_grad -- gradients of x, log_a, B and C through ``ssd_chunk`` (the
+   kernel forward, the plain scan's autograd backward) against autograd
+   of the plain scan at a mid-size shape, and every leaf's gradient of
+   a reduced ``zamba2-1.2b`` forward + backward through ``impl="flash"``
+   against ``impl="chunked"``;
+9. hybrid  -- full-width ``zamba2-1.2b`` (38 Mamba2 layers, one shared
    attention block called 6 times; seeded random weights, f32) through
    ``repro_torch.launch.steps.make_prefill_step(impl="flash")`` at batch
    2 x 4096 tokens: exactly 38 K4 calls (4 CUDA launches each) and 6 K3
@@ -48,14 +58,14 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    tokens; ``repro_torch.launch.serve.main`` generating on the card
    (no kernel launches: decode runs none, as in JAX); ms per prefill,
    a torch.profiler breakdown, decode tokens/s, peak device memory;
-9. train   -- three full-width FastCLIP v3 steps at global batch 256
+10. train  -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
-   --loss-impl fused``): launch counts (3 of K1, 3 of K2, 72 of the
-   attention kernel), finite losses, f32 masters; step-1 gradients and
+   --loss-impl fused``): launch counts (3 calls of K1 and of K2, 2 CUDA
+   launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
    the loss / tau / log-u trajectory against the same steps through the
    plain path (``--impl naive --loss-impl dense``); one bf16 step; ms per
    step and peak device memory;
-10. report -- the kernels JSON line, the card line, and the last line
+11. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -82,6 +92,7 @@ ARCH = "clip-vitb32-cc12m"
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_TF32 = 495e12
+PEAK_F64_TC = 67e12      # f64 on the tensor cores (DMMA)
 # Tolerances.  Kernel vs plain version: those of tests/test_precision_flash.py.
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # Tower embeddings (L2-normalised, 12 layers), flash path vs the plain
@@ -105,6 +116,9 @@ TOL_ATTN_GRAD = 1e-5
 # the training step, kernel path vs plain path: step-1 gradients (relative
 # L2 error per leaf) and the loss / tau / log-u trajectory (rtol)
 TOL_TRAIN_GRAD, TOL_TRAIN_TRAJ = 1e-4, 1e-4
+# K4 gradients vs autograd of the plain scan, and a reduced hybrid's leaf
+# gradients through the kernels vs the plain path: relative L2
+TOL_SSD_GRAD = 1e-4
 TRAIN_ARGS = ["--arch", ARCH, "--version", "v3", "--optimizer", "adamw",
               "--global-batch", "256", "--n-samples", "2048",
               "--log-every", "1", "--device", "cuda", "--seed", "0"]
@@ -235,14 +249,13 @@ def phase_build(checks):
                  or "Compiling entry" in ln]
         rec = dict(kernel=name, seconds_all_parallel=seconds,
                    library=str(build.lib_path(name)), ptxas=ptxas)
-        if name in ("flash_attention", "ssd_chunk"):
-            ops = tensor_core_ops(build.lib_path(name))
-            spills = [ln for ln in ptxas if re.search(
-                r"[1-9]\d* bytes spill (stores|loads)", ln)]
-            checks.check(sum(ops.values()) > 0,
-                         f"build: no tensor-core instruction in {name}")
-            checks.check(not spills, f"build: {name} spills: {spills}")
-            rec.update(tensor_core_sass=ops, spills=spills)
+        ops = tensor_core_ops(build.lib_path(name))
+        spills = [ln for ln in ptxas if re.search(
+            r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        checks.check(sum(ops.values()) > 0,
+                     f"build: no tensor-core instruction in {name}")
+        checks.check(not spills, f"build: {name} spills: {spills}")
+        rec.update(tensor_core_sass=ops, spills=spills)
         emit("build", **rec)
     checks.end_phase("build")
 
@@ -485,44 +498,125 @@ def phase_attn_grad(checks):
     checks.end_phase("attn_grad")
 
 
-# name, b (anchor rows), B (columns), d, row_offset, dtype, tau, clamp row
+# name, b (anchor rows), B (columns), d, row_offset, dtype, tau, clamp
+# row, timed.  Timed: the training shape and the paper's sharded shape
+# (global batch 2048 on 8 cards: 256 local anchors against 2048 gathered
+# columns; this card's rows start at 768).  "d37": rows that are not
+# 16-byte aligned, and at b = B = 33 a last column split (32 columns per
+# split) that holds only row 32's own column, all masked for it
 GCL_CASES = [
-    ("main", 256, 256, 512, 0, "float32", 0.07, False),
-    ("main_bf16", 256, 256, 512, 0, "bfloat16", 0.07, False),
-    ("ragged", 200, 200, 128, 0, "float32", 0.05, False),
-    ("rect", 64, 256, 512, 128, "float32", 0.07, False),
-    ("d3072", 256, 256, 3072, 0, "float32", 0.07, False),
-    ("tau_rows_0.01", 256, 256, 512, 0, "float32", None, False),
-    ("clamp_row", 256, 256, 512, 0, "float32", 0.07, True),
+    ("main", 256, 256, 512, 0, "float32", 0.07, False, True),
+    ("main_bf16", 256, 256, 512, 0, "bfloat16", 0.07, False, True),
+    ("rect_paper", 256, 2048, 512, 768, "float32", 0.07, False, True),
+    ("rect_paper_bf16", 256, 2048, 512, 768, "bfloat16", 0.07, False, True),
+    ("ragged", 200, 200, 128, 0, "float32", 0.05, False, False),
+    ("rect", 64, 256, 512, 128, "float32", 0.07, False, False),
+    ("d37", 33, 33, 37, 0, "float32", 0.07, False, False),
+    ("d3072", 256, 256, 3072, 0, "float32", 0.07, False, False),
+    ("tau_rows_0.01", 256, 256, 512, 0, "float32", None, False, False),
+    ("clamp_row", 256, 256, 512, 0, "float32", 0.07, True, False),
 ]
 
 
-def gcl_bound(kernel, b, B, d, item, square):
+def gcl_flops(kernel, b, B, d):
+    """The products' FLOPs of one call: s1, s2 (and de1, de2 in K2)."""
+    return (2 if kernel == "stats" else 4) * 2 * b * B * d
+
+
+def gcl_bound(kernel, b, B, d, dt_name, square):
     """(ms, "bytes" | "operations") for one call at this shape: each
     input read once (the columns are the rows in the square case), each
-    output written once, against the products' FLOPs at the f32 peak
-    (the kernels run f32 FMA on the CUDA cores for any input dtype)."""
+    output written once, against the products' FLOPs at the peak rate of
+    the input type (f32 outside the tensor cores, bf16 on them)."""
+    item = 4 if dt_name == "float32" else 2
     feats = item * d * (2 * b + (0 if square else 2 * B))
     if kernel == "stats":
         nbytes = feats + 4 * 3 * b + 4 * 6 * b     # sd, t1, t2 -> 6 stats
-        flops = 2 * 2 * b * B * d                  # s1, s2
     else:
         vec_in = 4 * (5 * b + (0 if square else 5 * B))
-        nbytes = feats + vec_in + 4 * (2 * b * d + 2 * b)
-        flops = 4 * 2 * b * B * d                  # s1, s2, de1, de2
+        nbytes = feats + vec_in + 4 * 2 * b * d    # -> de1, de2
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = gcl_flops(kernel, b, B, d) / PEAK_FLOPS[dt_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gcl_tc_floor(kernel, b, B, d, dt_name):
+    """The products' floor on the tensor cores as the kernels run them:
+    the similarities as three TF32 products per f32 product (split TF32)
+    or one for bf16 inputs (exact in TF32), at the TF32 peak; K2's second
+    product in f32 on the f64 tensor cores, in bf16 as one TF32 product."""
+    sims = gcl_flops("stats", b, B, d)
+    f32 = dt_name == "float32"
+    ms = (3 if f32 else 1) * sims / PEAK_TF32
+    if kernel == "grads":
+        ms += sims / (PEAK_F64_TC if f32 else PEAK_TF32)
+    return ms * 1e3
+
+
+def _grads_tol_ratio_vs_f64(GL, got, e1, e2, l1, l2, t1, t2, kw2):
+    """max |x - ref| / (atol + rtol |ref|) of K2's outputs ``got`` at the
+    K2 tolerance, ref = the plain version's arithmetic on its own f32
+    weights, in f64 (a measurement: where a row's weights clamp, the
+    finish cancels to ~1e-4 of its terms and f32 rounding shows)."""
+    args, kappa = GL._grads_args(e1, e2, l1, l2, t1, t2, *(kw2.get(k) for k in (
+        "e1_all", "e2_all", "sd_all", "lwt1_all", "lwt2_all", "tau1_all",
+        "tau2_all")))
+    a1, a2, m1, m2 = GL._pair_weights(e1, e2, *args, kw2.get("row_offset", 0))
+    rs = (a1.double().sum(dim=1) + a2.double().sum(dim=1))[:, None]
+    ref = [kappa * ((a + m).to(e1.dtype).double() @ ea.double()
+                    - rs * e.double())
+           for a, m, ea, e in ((a1, m2, args[1], e2), (a2, m1, args[0], e1))]
+    return max((((x.double() - w).abs()) / (TOL_K2[1] + TOL_K2[0] * w.abs()))
+               .max().item() for x, w in zip(got, ref))
+
+
+def _gcl_timings(GL, e1, e2, kw1, kw2, l1, l2, t1, t2, k1, k2, p1, p2):
+    """Device ms of K1 and K2 through the public functions, their launches
+    alone (the wrapper's torch ops, s_ii and the tau vectors, made
+    beforehand), each pass, and the plain versions."""
+    e1a, e2a, sd, v1, v2, denom = GL._stats_args(
+        e1, e2, t1, t2, kw1.get("e1_all"), kw1.get("e2_all"))
+    off = kw1.get("row_offset", 0)
+    args, kappa = GL._grads_args(
+        e1, e2, l1, l2, t1, t2, *(kw2.get(k) for k in (
+            "e1_all", "e2_all", "sd_all", "lwt1_all", "lwt2_all",
+            "tau1_all", "tau2_all")))
+    part = GL.stats_partial(e1, e2, e1a, e2a, sd, v1, v2, off)
+    pw, r = GL.grads_weights(e1, e2, *args, off)
+    pass_ms = {
+        "stats_partial": device_ms(lambda: GL.stats_partial(
+            e1, e2, e1a, e2a, sd, v1, v2, off)),
+        "stats_merge": device_ms(lambda: GL.stats_merge(part, denom)),
+        "grads_weights": device_ms(lambda: GL.grads_weights(
+            e1, e2, *args, off)),
+        "grads_product": device_ms(lambda: GL.grads_product(
+            pw, args[0], args[1], e1, e2, r, kappa))}
+
+    def stats_only():
+        return GL.stats_merge(GL.stats_partial(e1, e2, e1a, e2a, sd, v1, v2,
+                                               off), denom)
+
+    def grads_only():
+        w, rr = GL.grads_weights(e1, e2, *args, off)
+        return GL.grads_product(w, args[0], args[1], e1, e2, rr, kappa)
+
+    kernel_only = {"stats": device_ms(stats_only),
+                   "grads": device_ms(grads_only)}
+    return {"stats": dict(ms=device_ms(k1), kernel_only_ms=kernel_only[
+                "stats"], plain_ms=device_ms(p1)),
+            "grads": dict(ms=device_ms(k2), kernel_only_ms=kernel_only[
+                "grads"], plain_ms=device_ms(p2)),
+            "pass_ms": pass_ms}
+
+
 def phase_gcl(checks):
-    """K1 / K2 vs their plain versions; returns {kernel: timing dict} at
-    the training shape (f32, the main path's type)."""
+    """K1 / K2 vs their plain versions; returns {(case, kernel): timing
+    dict} for the timed cases."""
     import torch
     from repro_torch.kernels import gcl_loss as GL
     gen = torch.Generator(device="cuda").manual_seed(2)
     timings = {}
-    for name, b, B, d, off, dt_name, tau, clamp in GCL_CASES:
+    for name, b, B, d, off, dt_name, tau, clamp, timed in GCL_CASES:
         dt = getattr(torch, dt_name)
 
         def norm(x):
@@ -568,7 +662,10 @@ def phase_gcl(checks):
             return GL.gcl_pair_grads_plain(e1, e2, l1, l2, t1, t2, **kw2)
 
         s_k, s_p, g_k, g_p = k1(), p1(), k2(), p2()
+        s_k2, g_k2 = k1(), k2()          # no atomics: the same bits again
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, w) for a, w in zip(
+            [*s_k, *g_k], [*s_k2, *g_k2]))
         if dt_name == "float32":
             err1 = max((a - w).abs().max().item() for a, w in zip(s_k, s_p))
             ok1 = all(torch.allclose(a, w, rtol=TOL_K1, atol=TOL_K1)
@@ -585,36 +682,34 @@ def phase_gcl(checks):
         checks.check(ok1 and math.isfinite(err1),
                      f"gcl_pair_stats {name}: max abs err {err1}")
         checks.check(ok2, f"gcl_pair_grads {name}: max abs err {err2}")
+        checks.check(bitwise, f"gcl {name}: two calls differ")
         rec = dict(case=name, b=b, B=B, d=d, row_offset=off, dtype=dt_name,
                    tau=tau if tau is not None else "rows 0.01..0.07",
                    clamp_row=clamp, stats_max_abs_err=err1, stats_ok=ok1,
-                   grads_max_abs_err=err2, grads_ok=ok2)
-        if name == "main":
-            item = 4
-            # the launches alone, without the wrapper's torch ops around
-            # them (s_ii, tau vectors, the (B - 1) division, K2's finish)
-            sd = torch.sum(e1.float() * e2.float(), dim=-1)
-            kernel_only = {
-                "stats": device_ms(lambda: GL._launch_stats(
-                    e1, e2, e1, e2, sd, t1, t2, 0)),
-                "grads": device_ms(lambda: GL._launch_grads(
-                    e1, e2, e1, e2, sd, sd, l1, l2, l1, l2, t1, t2, t1, t2,
-                    0))}
-            for kernel, kfn, pfn, err in (("stats", k1, p1, err1),
-                                          ("grads", k2, p2, err2)):
-                ms, plain_ms = device_ms(kfn), device_ms(pfn)
-                b_ms, b_by = gcl_bound(kernel, b, B, d, item, True)
-                timings[kernel] = dict(shape=[b, B, d], dtype=dt_name,
-                                       max_abs_err=err, ms=ms,
-                                       kernel_only_ms=kernel_only[kernel],
-                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                       bound_by=b_by)
-                rec.update({f"{kernel}_ms": ms,
-                            f"{kernel}_kernel_only_ms": kernel_only[kernel],
-                            f"{kernel}_plain_ms": plain_ms,
-                            f"{kernel}_bound_ms": b_ms,
-                            f"{kernel}_bound_by": b_by})
+                   grads_max_abs_err=err2, grads_ok=ok2,
+                   bitwise_deterministic=bitwise)
+        if clamp:
+            rec["grads_tol_ratio_vs_f64"] = {
+                "kernel": _grads_tol_ratio_vs_f64(GL, g_k, e1, e2, l1, l2, t1,
+                                                  t2, kw2),
+                "plain": _grads_tol_ratio_vs_f64(GL, g_p, e1, e2, l1, l2, t1,
+                                                 t2, kw2)}
+        if timed:
+            t = _gcl_timings(GL, e1, e2, kw1, kw2, l1, l2, t1, t2, k1, k2,
+                             p1, p2)
+            rec["pass_ms"] = t["pass_ms"]
+            for kernel, err in (("stats", err1), ("grads", err2)):
+                b_ms, b_by = gcl_bound(kernel, b, B, d, dt_name, b == B)
+                tk = dict(t[kernel], shape=[b, B, d], dtype=dt_name,
+                          row_offset=off, max_abs_err=err, bound_ms=b_ms,
+                          bound_by=b_by, tc_floor_ms=gcl_tc_floor(
+                              kernel, b, B, d, dt_name))
+                timings[name, kernel] = tk
+                rec.update({f"{kernel}_{k}": v for k, v in tk.items()
+                            if k not in ("shape", "dtype", "row_offset",
+                                         "max_abs_err")})
         emit("gcl", **rec)
+        del e1a, e2a, e1, e2, s_k, s_p, g_k, g_p, s_k2, g_k2
     checks.end_phase("gcl")
     return timings
 
@@ -755,6 +850,85 @@ def phase_ssd(checks):
         del x, la, bc, Bm, Cm, y, ref
     checks.end_phase("ssd")
     return timings
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_ssd_grad(checks):
+    """K4's gradients: per input against autograd of the plain scan, and
+    per leaf of a reduced hybrid LM through the kernels against the plain
+    path."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_chunk as K4
+    from repro_torch.models import backbones as BB
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dt_name in ("float32", "bfloat16"):
+        B, T, H, P, N, chunk = 2, 1024, 16, 64, 64, 256
+        dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda")
+                        - 2.0)
+        bc = torch.randn((B, T, 2 * N), generator=gen, device="cuda") * 0.5
+        ins = [(torch.randn((B, T, H, P), generator=gen, device="cuda")
+                * dt[..., None]), -dt, bc[..., :N], bc[..., N:]]
+        ins = [t.to(getattr(torch, dt_name)) if i >= 2 else t
+               for i, t in enumerate(ins)]
+        ins = [t.detach().contiguous().requires_grad_(True) for t in ins]
+        gy = torch.randn((B, T, H, P), generator=gen, device="cuda")
+        K4.ssd_chunk.launches = K4.ssd_chunk.cuda_launches = 0
+        got = torch.autograd.grad(K4.ssd_chunk(*ins, chunk=chunk), ins, gy)
+        launches = (K4.ssd_chunk.launches, K4.ssd_chunk.cuda_launches)
+        want = torch.autograd.grad(K4.ssd_scan_plain(*ins, chunk=chunk)[0],
+                                   ins, gy)
+        torch.cuda.synchronize()
+        rel = {n: _rel_l2(a, w) for n, a, w in zip(("x", "log_a", "B", "C"),
+                                                   got, want)}
+        dtypes_ok = all(a.dtype == w.dtype for a, w in zip(got, want))
+        ok = checks.check(
+            launches == (1, 4) and dtypes_ok and all(
+                math.isfinite(v) and v <= TOL_SSD_GRAD for v in rel.values()),
+            f"ssd_grad {dt_name}: rel L2 {rel}, launches {launches}")
+        emit("ssd_grad", shape=[B, T, H, P], N=N, chunk=chunk,
+             bc_dtype=dt_name, rel_l2=rel, tol=TOL_SSD_GRAD,
+             launches_call_cuda=list(launches), ok=ok)
+        del ins, got, want, gy
+    # a reduced zamba2 forward + backward, kernels vs plain path
+    cfg = get_arch(HYBRID_ARCH).reduced()
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                           device="cuda")
+    ct, grads, counts = None, {}, {}
+    for impl in ("flash", "chunked"):
+        model.zero_grad(set_to_none=True)
+        K4.ssd_chunk.launches = 0
+        x, _ = BB.forward_hidden(model, cfg, {"tokens": tokens}, impl=impl)
+        if ct is None:
+            ct = torch.randn(x.shape, generator=gen, device="cuda")
+        (x * ct).sum().backward()
+        counts[impl] = K4.ssd_chunk.launches
+        grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None}
+    torch.cuda.synchronize()
+    rel = {n: _rel_l2(grads["flash"][n], w)
+           for n, w in grads["chunked"].items()}
+    worst = max(rel, key=rel.get)
+    checks.check(grads["flash"].keys() == grads["chunked"].keys()
+                 and counts == dict(flash=cfg.n_layers, chunked=0)
+                 and all(math.isfinite(v) and v <= TOL_SSD_GRAD
+                         for v in rel.values()),
+                 f"ssd_grad hybrid: worst leaf {worst} rel L2 {rel[worst]}, "
+                 f"K4 calls {counts}")
+    emit("ssd_grad_hybrid", arch=HYBRID_ARCH, reduced=True,
+         n_layers=cfg.n_layers, tokens=list(tokens.shape), leaves=len(rel),
+         k4_calls=counts, worst_leaf=worst, worst_rel_l2=rel[worst],
+         tol=TOL_SSD_GRAD)
+    del model, grads
+    torch.cuda.empty_cache()
+    checks.end_phase("ssd_grad")
 
 
 def _profile(fn, match=None):
@@ -1039,14 +1213,16 @@ def phase_train(checks):
         torch.cuda.reset_peak_memory_stats()
         if counted:
             FA.flash_attention.launches = 0
-            GL.gcl_pair_stats.launches = 0
-            GL.gcl_pair_grads.launches = 0
+            for fn in (GL.gcl_pair_stats, GL.gcl_pair_grads):
+                fn.launches = fn.cuda_launches = 0
         t0 = time.monotonic()
         st = train.main(TRAIN_ARGS + extra, record=record)
         wall = time.monotonic() - t0
         counts = (dict(flash_attention=FA.flash_attention.launches,
                        gcl_pair_stats=GL.gcl_pair_stats.launches,
-                       gcl_pair_grads=GL.gcl_pair_grads.launches)
+                       gcl_pair_grads=GL.gcl_pair_grads.launches,
+                       gcl_pair_stats_cuda=GL.gcl_pair_stats.cuda_launches,
+                       gcl_pair_grads_cuda=GL.gcl_pair_grads.cuda_launches)
                   if counted else None)
         return st, record, counts, wall, torch.cuda.max_memory_allocated()
 
@@ -1055,7 +1231,8 @@ def phase_train(checks):
         ["--steps", str(steps), "--precision", "f32"], counted=True)
     n_layers = cfg.n_layers + cfg.clip.vision_layers
     want = dict(flash_attention=n_layers * steps, gcl_pair_stats=steps,
-                gcl_pair_grads=steps)
+                gcl_pair_grads=steps, gcl_pair_stats_cuda=2 * steps,
+                gcl_pair_grads_cuda=2 * steps)
     checks.check(counts == want, f"train: launches {counts}, want {want}")
     checks.check(len(rec_k) == steps and all(
         math.isfinite(r["loss"]) for r in rec_k),
@@ -1126,6 +1303,7 @@ def main():
     phase_attn_grad(checks)
     gcl_timings = phase_gcl(checks)
     ssd_timings = phase_ssd(checks)
+    phase_ssd_grad(checks)
     hybrid_launches, ssd_cuda_launches = phase_hybrid(checks)
     launches = phase_slice(checks)
     train_launches = phase_train(checks)
@@ -1153,17 +1331,29 @@ def main():
             "library_ms": t["library_ms"]})
     for name, kernel, line in (("gcl_pair_stats", "stats", 169),
                                ("gcl_pair_grads", "grads", 362)):
-        t = gcl_timings[kernel]
+        t = gcl_timings["main", kernel]
+        extra = {f"{case}_{k}": gcl_timings[case, kernel][k]
+                 for case in ("main_bf16", "rect_paper", "rect_paper_bf16")
+                 for k in ("ms", "kernel_only_ms", "plain_ms", "bound_ms",
+                           "tc_floor_ms", "max_abs_err")}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gcl_loss.cu",
             "replaces": f"src/repro/kernels/gcl_loss.py:{line}",
             "shape": t["shape"], "dtype": t["dtype"],
             "launches": train_launches[name],
+            "cuda_launches": train_launches[f"{name}_cuda"],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "kernel_only_ms": t["kernel_only_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "tc_floor_ms": t["tc_floor_ms"],
+            "rect_paper_shape": gcl_timings["rect_paper", kernel]["shape"],
+            "rect_paper_row_offset": gcl_timings["rect_paper", kernel][
+                "row_offset"],
+            **extra,
+            # no single PyTorch call computes the FCCO row statistics or
+            # their closed-form gradients
             "library_ms": None})
     t = ssd_timings["prefill"]
     t_bf16 = ssd_timings["prefill_bf16"]

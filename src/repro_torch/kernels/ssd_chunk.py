@@ -36,8 +36,10 @@ the chunk loop of the TPU kernel's math in torch, or the pass's own); a
 CUDA tensor launches the kernels or raises.  ``ssd_chunk.launches``
 counts calls of ``ssd_chunk`` that went to the kernels (one per Mamba2
 layer), ``ssd_chunk.cuda_launches`` the CUDA launches inside (four per
-call).  There is no autograd Function: the kernels serve inference
-(prefill) only.
+call).  On the card ``ssd_chunk`` is an autograd Function (``_SSDChunk``):
+the forward is the four launches, the backward recomputes
+``ssd_scan_plain`` on the saved inputs and differentiates it, as the JAX
+package differentiates its jnp ``ssd_chunked``; it launches no kernel.
 """
 from __future__ import annotations
 
@@ -328,6 +330,31 @@ def ssd_chunk_scan(x, Cm, G, cum, S_in, Lc):
     return y
 
 
+class _SSDChunk(torch.autograd.Function):
+    """The four passes forward, the plain scan's autograd backward."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, Bm, Cm, chunk):
+        Lc = min(chunk, x.shape[1])
+        G = ssd_chunk_cb(Bm, Cm, Lc)
+        cum, S = ssd_chunk_state(x, log_a, Bm, Lc)
+        y = ssd_chunk_scan(x, Cm, G, cum, ssd_state_pass(cum, S, Lc), Lc)
+        ctx.save_for_backward(x, log_a, Bm, Cm)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y, _ = ssd_scan_plain(*inputs, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad(y, wanted, gy))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None)
+
+
 def ssd_chunk(x, log_a, Bm, Cm, *, chunk=64):
     """x: (B, T, H, P) f32; log_a: (B, T, H) f32; Bm/Cm: (B, T, N) f32 or
     bf16 -> y (B, T, H, P) f32 (the final state is not returned)."""
@@ -336,11 +363,8 @@ def ssd_chunk(x, log_a, Bm, Cm, *, chunk=64):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk kernel needs CUDA tensors, got "
                          f"{x.device}")
-    Lc = min(chunk, x.shape[1])
-    check_inputs(x, log_a, Bm, Cm, Lc)     # all of it, before any launch
-    G = ssd_chunk_cb(Bm, Cm, Lc)
-    cum, S = ssd_chunk_state(x, log_a, Bm, Lc)
-    y = ssd_chunk_scan(x, Cm, G, cum, ssd_state_pass(cum, S, Lc), Lc)
+    check_inputs(x, log_a, Bm, Cm, min(chunk, x.shape[1]))  # before any launch
+    y = _SSDChunk.apply(x, log_a, Bm, Cm, chunk)
     ssd_chunk.launches += 1
     return y
 

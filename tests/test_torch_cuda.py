@@ -147,7 +147,10 @@ def test_flash_mha_gradients_match_naive(cuda, B, S, H, hd, causal):
 
 from repro_torch.kernels import gcl_loss as GL  # noqa: E402
 
-# name, b (anchor rows), B (columns), d, row_offset, dtype, tau
+# name, b (anchor rows), B (columns), d, row_offset, dtype, tau.  The
+# kernels cut columns into splits of GL.SPLIT = 32: at b = B = 33 the last
+# split holds only column 32, all masked for row 32 (its own column);
+# d = 37 (f32) and d = 44 (bf16) give rows that are not 16-byte aligned
 GCL_CASES = [
     ("main", 256, 256, 512, 0, torch.float32, 0.07),
     ("main_bf16", 256, 256, 512, 0, torch.bfloat16, 0.07),
@@ -155,6 +158,10 @@ GCL_CASES = [
     ("rect", 64, 256, 512, 128, torch.float32, 0.07),
     ("wide_d", 48, 48, 3072, 0, torch.float32, 0.06),
     ("tau_min_rows", 130, 130, 64, 0, torch.float32, None),
+    ("d37_masked_split", 33, 33, 37, 0, torch.float32, 0.07),
+    ("d44_bf16", 33, 33, 44, 0, torch.bfloat16, 0.05),
+    ("rect_paper", 256, 2048, 512, 768, torch.float32, 0.07),
+    ("rect_paper_bf16", 256, 2048, 512, 768, torch.bfloat16, 0.07),
 ]
 
 
@@ -196,11 +203,12 @@ def test_gcl_pair_stats_kernel_matches_plain(cuda, case):
     _, b, B, d, off, dtype, tau = case
     e1a, e2a, ta = _gcl_inputs(cuda, b, B, d, off, dtype, tau)
     e1, e2, t, kw = _rect(e1a, e2a, ta, b, B, off)
-    before = GL.gcl_pair_stats.launches
+    before = (GL.gcl_pair_stats.launches, GL.gcl_pair_stats.cuda_launches)
     got = GL.gcl_pair_stats(e1, e2, t[0], t[1], **kw)
     want = GL.gcl_pair_stats_plain(e1, e2, t[0], t[1], **kw)
     torch.cuda.synchronize()
-    assert GL.gcl_pair_stats.launches == before + 1
+    assert (GL.gcl_pair_stats.launches,
+            GL.gcl_pair_stats.cuda_launches) == (before[0] + 1, before[1] + 2)
     if dtype == torch.float32:
         for a, w in zip(got, want):
             torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
@@ -225,14 +233,86 @@ def test_gcl_pair_grads_kernel_matches_plain(cuda, case):
         sda = torch.sum(e1a.float() * e2a.float(), dim=-1)
         kw.update(sd_all=sda, lwt1_all=lwa[0], lwt2_all=lwa[1],
                   tau1_all=ta[0], tau2_all=ta[1])
-    before = GL.gcl_pair_grads.launches
+    before = (GL.gcl_pair_grads.launches, GL.gcl_pair_grads.cuda_launches)
     got = GL.gcl_pair_grads(e1, e2, lw[0], lw[1], t[0], t[1], **kw)
     want = GL.gcl_pair_grads_plain(e1, e2, lw[0], lw[1], t[0], t[1], **kw)
     torch.cuda.synchronize()
-    assert GL.gcl_pair_grads.launches == before + 1
+    assert (GL.gcl_pair_grads.launches,
+            GL.gcl_pair_grads.cuda_launches) == (before[0] + 1, before[1] + 2)
     for a, w in zip(got, want):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+def _grads_case(gen, case):
+    """(e1, e2, lwt rows (2, b), tau rows (2, b), rectangular kwargs)."""
+    _, b, B, d, off, dtype, tau = case
+    e1a, e2a, ta = _gcl_inputs(gen, b, B, d, off, dtype, tau)
+    lwa = _log_weights(gen, e1a, e2a, ta)
+    e1, e2, t, kw = _rect(e1a, e2a, ta, b, B, off)
+    if kw:
+        sda = torch.sum(e1a.float() * e2a.float(), dim=-1)
+        kw.update(sd_all=sda, lwt1_all=lwa[0], lwt2_all=lwa[1],
+                  tau1_all=ta[0], tau2_all=ta[1])
+    return e1, e2, lwa[:, off:off + b], t, kw
+
+
+GCL_PASS_CASES = [c for c in GCL_CASES
+                  if c[0] in ("main_bf16", "d37_masked_split", "rect")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GCL_PASS_CASES,
+                         ids=[c[0] for c in GCL_PASS_CASES])
+def test_gcl_passes_match_plain(cuda, case):
+    """Each of the four passes against its plain version on the same
+    inputs (the kernel's outputs of the pass before)."""
+    e1, e2, lw, t, kw = _grads_case(cuda, case)
+    e1a, e2a, sd, t1, t2, denom = GL._stats_args(
+        e1, e2, t[0], t[1], kw.get("e1_all"), kw.get("e2_all"))
+    off = kw.get("row_offset", 0)
+    part = GL.stats_partial(e1, e2, e1a, e2a, sd, t1, t2, off)
+    stats = GL.stats_merge(part, denom)
+    args, kappa = GL._grads_args(
+        e1, e2, lw[0], lw[1], t[0], t[1], kw.get("e1_all"),
+        kw.get("e2_all"), kw.get("sd_all"), kw.get("lwt1_all"),
+        kw.get("lwt2_all"), kw.get("tau1_all"), kw.get("tau2_all"))
+    pw, r = GL.grads_weights(e1, e2, *args, off)
+    out = GL.grads_product(pw, args[0], args[1], e1, e2, r, kappa)
+    want = dict(
+        part=GL.stats_partial_plain(e1, e2, e1a, e2a, sd, t1, t2, off),
+        stats=GL.stats_merge_plain(part, denom),
+        weights=GL.grads_weights_plain(e1, e2, *args, off),
+        out=GL.grads_product_plain(pw, args[0], args[1], e1, e2, r, kappa))
+    torch.cuda.synchronize()
+    bf16 = e1.dtype == torch.bfloat16
+    # a split's sums on the scale of the outputs (divided by B - 1), which
+    # the tolerances are stated for; the weights to the bf16 rounding
+    scale = torch.tensor([1.0, denom, denom], device="cuda")[:, None, None]
+    for got, w in ((part / scale, want["part"] / scale),
+                   (stats, want["stats"])):
+        torch.testing.assert_close(got, w, rtol=1e-2 if bf16 else 1e-5,
+                                   atol=1e-2 if bf16 else 1e-5)
+    for got, w in zip((pw, r), want["weights"]):
+        torch.testing.assert_close(got.float(), w.float(),
+                                   rtol=1e-2 if bf16 else 1e-4, atol=1e-5)
+    torch.testing.assert_close(out, want["out"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in GCL_CASES
+                                  if c[0] in ("main", "rect_paper_bf16")],
+                         ids=["main", "rect_paper_bf16"])
+def test_gcl_kernels_are_bitwise_deterministic(cuda, case):
+    """No atomics in any sum: two calls give the same bits."""
+    e1, e2, lw, t, kw = _grads_case(cuda, case)
+    kw1 = {k: kw[k] for k in ("e1_all", "e2_all", "row_offset") if k in kw}
+    runs = [(GL.gcl_pair_stats(e1, e2, t[0], t[1], **kw1),
+             GL.gcl_pair_grads(e1, e2, lw[0], lw[1], t[0], t[1], **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip([*runs[0][0], *runs[0][1]], [*runs[1][0], *runs[1][1]]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -409,3 +489,68 @@ def test_reduced_hybrid_prefill_launches_and_matches_plain(cuda):
                                        t)
     assert K4.ssd_chunk.launches == k4
     assert (lg - got[:, 0]).abs().max().item() <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# K4 gradients: the kernel forward, the plain scan's autograd backward
+# ---------------------------------------------------------------------------
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30)).item()
+
+
+SSD_GRAD_CASES = [c for c in SSD_CASES if c[0] in ("reduced", "jax_test")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_GRAD_CASES,
+                         ids=[c[0] for c in SSD_GRAD_CASES])
+def test_ssd_chunk_gradients_match_plain(cuda, case):
+    """Gradients of x, log_a, B and C through ``ssd_chunk`` on the card
+    within 1e-4 relative L2 of autograd through ``ssd_scan_plain``; the
+    backward launches no kernel."""
+    _, B, T, H, P, N, chunk, dtype, dt_bias = case
+    ins = [t.detach().contiguous().requires_grad_(True)
+           for t in ssd_inputs(cuda, B, T, H, P, N, dtype, dt_bias)]
+    gy = torch.randn((B, T, H, P), generator=cuda, device="cuda")
+    calls, launches = K4.ssd_chunk.launches, K4.ssd_chunk.cuda_launches
+    got = torch.autograd.grad(K4.ssd_chunk(*ins, chunk=chunk), ins, gy)
+    assert (K4.ssd_chunk.launches, K4.ssd_chunk.cuda_launches) == (
+        calls + 1, launches + 4)
+    want = torch.autograd.grad(K4.ssd_scan_plain(*ins, chunk=chunk)[0],
+                               ins, gy)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("x", "log_a", "B", "C"), got, want):
+        assert a.dtype == w.dtype and torch.isfinite(a).all(), name
+        assert _rel_l2(a, w) <= 1e-4, (name, _rel_l2(a, w))
+
+
+@pytest.mark.cuda
+def test_reduced_hybrid_gradients_flash_match_chunked(cuda):
+    """A reduced zamba2 forward + backward: every leaf's gradient through
+    ``impl="flash"`` (K4 and K3 forwards) within 1e-4 relative L2 of
+    ``impl="chunked"`` (the plain scan and attention)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import backbones as BB
+    cfg = get_arch("zamba2-1.2b").reduced().replace(n_layers=3)
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=cuda,
+                           device="cuda")
+    ct = None
+    grads = {}
+    for impl in ("flash", "chunked"):
+        model.zero_grad(set_to_none=True)
+        k4 = K4.ssd_chunk.launches
+        x, _ = BB.forward_hidden(model, cfg, {"tokens": tokens}, impl=impl)
+        if ct is None:
+            ct = torch.randn(x.shape, generator=cuda, device="cuda")
+        (x * ct).sum().backward()
+        assert K4.ssd_chunk.launches - k4 == (
+            cfg.n_layers if impl == "flash" else 0)
+        grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None}
+    torch.cuda.synchronize()
+    assert grads["flash"].keys() == grads["chunked"].keys()
+    for n, w in grads["chunked"].items():
+        assert _rel_l2(grads["flash"][n], w) <= 1e-4, n
