@@ -14,10 +14,10 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    -sass``): none, or a spill, fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card through both entry points at the serving,
-   training and hybrid shapes (f32 and bf16) and at edge cases, and
-   times kernel, plain version and one library call
+   training, eval-head (f32) and hybrid shapes (f32 and bf16) and at
+   edge cases, and times kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
-   port) with CUDA events at the serving, training and hybrid shapes;
+   port) with CUDA events at those shapes;
 4. attn_grad -- gradients of q, k, v through the kernel's autograd
    Function against autograd of the naive attention, at the training
    shapes of both towers;
@@ -30,7 +30,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    and without the wrapper's torch ops, and per pass) at the training
    and sharded shapes, f32 and bf16;
 6. slice   -- builds full-width ``clip-vitb32-cc12m`` params from a seeded
-   generator, saves them in the checkpoint format, and runs
+   generator, saves them in the checkpoint format (phase eval reuses
+   it), and runs
    ``repro_torch.launch.serve_embed.main`` with ``--impl flash`` for the
    image tower and the text tower; holds every response against the same
    payload's solo forward through the plain attention, every cache hit
@@ -58,14 +59,28 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    tokens; ``repro_torch.launch.serve.main`` generating on the card
    (no kernel launches: decode runs none, as in JAX); ms per prefill,
    a torch.profiler breakdown, decode tokens/s, peak device memory;
-10. train  -- three full-width FastCLIP v3 steps at global batch 256
+10. eval   -- the zero-shot eval engine at full width:
+   ``repro_torch.launch.eval.main`` on the slice's checkpoint at 192
+   classes x 16 (3072 pairs, 224 px, context 77), extraction batch 256,
+   ``--impl flash --loss-impl fused``: exactly 300 K3 launches (24 per
+   batch, 12 for the 768-prompt head) and 1 K1 call (2 CUDA launches);
+   embeddings flash vs naive within 1e-5, eval_loss fused vs dense
+   within rtol 1e-5, streaming top-k vs the dense oracle; ms of each
+   piece of a pass (CUDA events) and peak memory; K1 timed at 3072 x
+   3072 x 512; the planted known answers at 192 x 16 exact; streaming ==
+   dense bitwise on quantized embeddings (chunks 1024, 512, 100); the
+   stable sort's signed zeros; retrieval at N = 50,000 under 2 GiB of
+   extra memory; planted serving under chaos (NaN batch, corrupt cache
+   entry, stalled batch, corrupt reload candidate): nothing dropped,
+   every completed response bitwise equal to the solo forward;
+11. train  -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
    --loss-impl fused``): launch counts (3 calls of K1 and of K2, 2 CUDA
    launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
    the loss / tau / log-u trajectory against the same steps through the
    plain path (``--impl naive --loss-impl dense``); one bf16 step; ms per
    step and peak device memory;
-11. report -- the kernels JSON line, the card line, and the last line
+12. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -73,6 +88,7 @@ of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -263,7 +279,8 @@ def phase_build(checks):
 KERNEL_CASES = [
     # name, B, H, Sq, Sk, hd, causal, window, dtype, timed; the timed
     # cases are the main paths' shapes: serving at bucket 8, training at
-    # global batch 256, zamba2-1.2b's shared block at the prefill (2 x 4096)
+    # global batch 256, the eval's prompt head (4 templates x 192 classes),
+    # zamba2-1.2b's shared block at the prefill (2 x 4096)
     ("vit", 8, 12, 50, 50, 64, False, 0, "float32", True),
     ("vit", 8, 12, 50, 50, 64, False, 0, "bfloat16", True),
     ("text", 8, 8, 77, 77, 64, True, 0, "float32", True),
@@ -272,6 +289,7 @@ KERNEL_CASES = [
     ("vit_train", 256, 12, 50, 50, 64, False, 0, "bfloat16", True),
     ("text_train", 256, 8, 77, 77, 64, True, 0, "float32", True),
     ("text_train", 256, 8, 77, 77, 64, True, 0, "bfloat16", True),
+    ("text_head", 768, 8, 77, 77, 64, True, 0, "float32", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "float32", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "bfloat16", True),
     ("sq_ne_sk", 2, 4, 64, 300, 64, False, 0, "float32", False),
@@ -345,126 +363,464 @@ def _solo_embedding(model, payload, key, impl, precision):
     return e[0].cpu().numpy()
 
 
-def phase_slice(checks):
-    """Serve both towers at full width through the port's launcher.
-    Returns {tower: flash launches in its serving run}."""
-    import numpy as np
+def make_clip_checkpoint():
+    """Full-width ``clip-vitb32-cc12m`` params from a seeded generator,
+    saved in the checkpoint format (phases slice and eval serve and
+    evaluate it).  Returns (checkpoint directory, the model on the
+    CPU)."""
     import torch
     from repro_torch import checkpoint as CK
     from repro_torch.checkpoint import bridge
     from repro_torch.configs import get_arch
-    from repro_torch.data import ZeroShotEvalDataset
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch import serve_embed
     from repro_torch.models import backbones as BB
-    from repro_torch.models import clip as C
-    from repro_torch.models import precision as PR
-    from repro_torch.serve import content_hash
-
     cfg = get_arch(ARCH)
     t0 = time.monotonic()
     model = BB.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     n_params = sum(p.numel() for p in model.parameters())
     t_init = time.monotonic() - t0
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
+    t0 = time.monotonic()
+    CK.save(ckpt, {"params": bridge.model_to_tree(model)}, 0,
+            {"arch": ARCH, "seed": 0})
+    t_save = time.monotonic() - t0
+    npz_bytes = os.path.getsize(os.path.join(ckpt, "ckpt_00000000.npz"))
+    emit("slice_params", arch=ARCH, n_params=n_params,
+         init_seconds=t_init, save_seconds=t_save, npz_bytes=npz_bytes)
+    return ckpt, model
+
+
+def phase_slice(checks, ckpt, model):
+    """Serve both towers at full width through the port's launcher from
+    the checkpoint in ``ckpt`` (``model`` holds the same params; it moves
+    to the card).  Returns {tower: flash launches in its serving run}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ZeroShotEvalDataset
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve_embed
+    from repro_torch.models import clip as C
+    from repro_torch.models import precision as PR
+    from repro_torch.serve import content_hash
+
+    cfg = get_arch(ARCH)
+    model = model.to("cuda")
+    # both towers, f32 and bf16 policies, flash vs the plain attention
+    # (this also warms the card before the served runs below)
+    ds = ZeroShotEvalDataset(n_classes=8, n_per_class=1,
+                             image_size=cfg.clip.image_size,
+                             context_length=cfg.clip.context_length,
+                             vocab_size=cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in ds.batch(np.arange(8)).items()}
+    for prec in (PR.F32, PR.BF16):
+        with torch.inference_mode():
+            outs = {impl: [e / e.norm(dim=-1, keepdim=True)
+                           for e in C.encode_pair(model, batch, impl=impl,
+                                                  precision=prec)]
+                    for impl in ("flash", "naive")}
+        tol = TOL_EMBED[str(prec.compute_dtype).split(".")[-1]]
+        for i, tower in enumerate(("vit", "text")):
+            d = (outs["flash"][i] - outs["naive"][i]).abs().max().item()
+            ok = checks.check(
+                outs["flash"][i].dtype == torch.float32 and d <= tol,
+                f"{tower} {prec.name}: flash vs naive {d}")
+            emit("slice_towers", tower=tower, precision=prec.name,
+                 batch=8, flash_vs_naive_max_abs=d, tol=tol, ok=ok)
+    launches = {}
+    for tower, modality, key in (("vit", "image", "images"),
+                                 ("text", "text", "texts")):
+        record = []
+        argv = ["--ckpt-dir", ckpt, "--arch", ARCH, "--impl", "flash",
+                "--device", "cuda", "--modality", modality,
+                "--requests", str(SERVE_REQUESTS), "--classes", "32",
+                "--per-class", "1", "--payload-pool", "24",
+                "--offered-rate", "100"]
+        FA.flash_attention.launches = 0
         t0 = time.monotonic()
-        CK.save(ckpt, {"params": bridge.model_to_tree(model)}, 0,
-                {"arch": ARCH, "seed": 0})
-        t_save = time.monotonic() - t0
-        npz_bytes = os.path.getsize(os.path.join(ckpt, "ckpt_00000000.npz"))
-        emit("slice_params", arch=ARCH, n_params=n_params,
-             init_seconds=t_init, save_seconds=t_save, npz_bytes=npz_bytes)
-        model = model.to("cuda")
-        # both towers, f32 and bf16 policies, flash vs the plain attention
-        # (this also warms the card before the served runs below)
-        ds = ZeroShotEvalDataset(n_classes=8, n_per_class=1,
-                                 image_size=cfg.clip.image_size,
-                                 context_length=cfg.clip.context_length,
-                                 vocab_size=cfg.vocab_size)
-        batch = {k: torch.from_numpy(v).to("cuda")
-                 for k, v in ds.batch(np.arange(8)).items()}
-        for prec in (PR.F32, PR.BF16):
-            with torch.inference_mode():
-                outs = {impl: [e / e.norm(dim=-1, keepdim=True)
-                               for e in C.encode_pair(model, batch, impl=impl,
-                                                      precision=prec)]
-                        for impl in ("flash", "naive")}
-            tol = TOL_EMBED[str(prec.compute_dtype).split(".")[-1]]
-            for i, tower in enumerate(("vit", "text")):
-                d = (outs["flash"][i] - outs["naive"][i]).abs().max().item()
-                ok = checks.check(
-                    outs["flash"][i].dtype == torch.float32 and d <= tol,
-                    f"{tower} {prec.name}: flash vs naive {d}")
-                emit("slice_towers", tower=tower, precision=prec.name,
-                     batch=8, flash_vs_naive_max_abs=d, tol=tol, ok=ok)
-        launches = {}
-        for tower, modality, key in (("vit", "image", "images"),
-                                     ("text", "text", "texts")):
-            record = []
-            argv = ["--ckpt-dir", ckpt, "--arch", ARCH, "--impl", "flash",
-                    "--device", "cuda", "--modality", modality,
-                    "--requests", str(SERVE_REQUESTS), "--classes", "32",
-                    "--per-class", "1", "--payload-pool", "24",
-                    "--offered-rate", "100"]
-            FA.flash_attention.launches = 0
-            t0 = time.monotonic()
-            stats = serve_embed.main(argv, record=record)
-            wall = time.monotonic() - t0
-            n_launch = FA.flash_attention.launches
-            launches[tower] = n_launch
-            n_layers = (cfg.clip.vision_layers if tower == "vit"
-                        else cfg.n_layers)
-            checks.check(stats["dropped"] == 0 and stats["completed"] > 0,
-                         f"{tower}: dropped {stats['dropped']}, completed "
-                         f"{stats['completed']}")
-            checks.check(stats["served_cache"] > 0,
-                         f"{tower}: no cache hits")
-            checks.check(stats["retries"] == 0 and n_launch > 0
-                         and n_launch == n_layers * stats["batches"],
-                         f"{tower}: {n_launch} flash launches for "
-                         f"{stats['batches']} batches x {n_layers} layers")
-            # every computed response vs its payload's solo forward through
-            # the plain attention; every cache hit vs the computed bytes
-            computed = {}
-            worst = 0.0
-            for payload, res in record:
-                if res.path == "compute":
-                    computed.setdefault(content_hash(payload), set()).add(
-                        res.embedding.tobytes())
-                    solo = _solo_embedding(model, payload, key, "naive",
-                                           PR.F32)
-                    worst = max(worst, float(np.abs(
-                        solo - res.embedding).max()))
-            # a hit returns the bytes of a compute of the same payload
-            cache_exact = all(
-                res.embedding.tobytes() in computed[content_hash(payload)]
-                for payload, res in record if res.path == "cache")
-            bitwise = all(
-                res.embedding.tobytes() == _solo_embedding(
-                    model, payload, key, "flash", PR.F32).tobytes()
-                for payload, res in record if res.path == "compute")
-            lat = sorted(res.latency * 1e3 for _, res in record
-                         if res.path == "compute")
-            checks.check(worst <= TOL_EMBED["float32"],
-                         f"{tower}: served vs solo naive {worst}")
-            checks.check(cache_exact, f"{tower}: cache hit != computed")
-            emit("slice_serve", tower=tower, wall_seconds=wall,
-                 batches=stats["batches"], completed=stats["completed"],
-                 served_compute=stats["served_compute"],
-                 served_cache=stats["served_cache"],
-                 dropped=stats["dropped"], flash_launches=n_launch,
-                 launches_per_batch=n_launch / max(stats["batches"], 1),
-                 served_vs_solo_naive_max_abs=worst,
-                 tol=TOL_EMBED["float32"], cache_hits_bitwise=cache_exact,
-                 served_vs_solo_flash_bitwise=bitwise,
-                 service_time_est_s=stats["service_time_est"],
-                 computed_latency_ms_p50=lat[len(lat) // 2],
-                 computed_latency_ms_max=lat[-1])
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        stats = serve_embed.main(argv, record=record)
+        wall = time.monotonic() - t0
+        n_launch = FA.flash_attention.launches
+        launches[tower] = n_launch
+        n_layers = (cfg.clip.vision_layers if tower == "vit"
+                    else cfg.n_layers)
+        checks.check(stats["dropped"] == 0 and stats["completed"] > 0,
+                     f"{tower}: dropped {stats['dropped']}, completed "
+                     f"{stats['completed']}")
+        checks.check(stats["served_cache"] > 0,
+                     f"{tower}: no cache hits")
+        checks.check(stats["retries"] == 0 and n_launch > 0
+                     and n_launch == n_layers * stats["batches"],
+                     f"{tower}: {n_launch} flash launches for "
+                     f"{stats['batches']} batches x {n_layers} layers")
+        # every computed response vs its payload's solo forward through
+        # the plain attention; every cache hit vs the computed bytes
+        computed = {}
+        worst = 0.0
+        for payload, res in record:
+            if res.path == "compute":
+                computed.setdefault(content_hash(payload), set()).add(
+                    res.embedding.tobytes())
+                solo = _solo_embedding(model, payload, key, "naive",
+                                       PR.F32)
+                worst = max(worst, float(np.abs(
+                    solo - res.embedding).max()))
+        # a hit returns the bytes of a compute of the same payload
+        cache_exact = all(
+            res.embedding.tobytes() in computed[content_hash(payload)]
+            for payload, res in record if res.path == "cache")
+        bitwise = all(
+            res.embedding.tobytes() == _solo_embedding(
+                model, payload, key, "flash", PR.F32).tobytes()
+            for payload, res in record if res.path == "compute")
+        lat = sorted(res.latency * 1e3 for _, res in record
+                     if res.path == "compute")
+        checks.check(worst <= TOL_EMBED["float32"],
+                     f"{tower}: served vs solo naive {worst}")
+        checks.check(cache_exact, f"{tower}: cache hit != computed")
+        emit("slice_serve", tower=tower, wall_seconds=wall,
+             batches=stats["batches"], completed=stats["completed"],
+             served_compute=stats["served_compute"],
+             served_cache=stats["served_cache"],
+             dropped=stats["dropped"], flash_launches=n_launch,
+             launches_per_batch=n_launch / max(stats["batches"], 1),
+             served_vs_solo_naive_max_abs=worst,
+             tol=TOL_EMBED["float32"], cache_hits_bitwise=cache_exact,
+             served_vs_solo_flash_bitwise=bitwise,
+             service_time_est_s=stats["service_time_est"],
+             computed_latency_ms_p50=lat[len(lat) // 2],
+             computed_latency_ms_max=lat[-1])
     checks.end_phase("slice")
     return launches
+
+
+# the eval phase: 192 classes x 16 (N = 3072 pairs, the largest class
+# count of the planted split), extraction batch 256; ImageNet-1k's
+# validation split (50,000) for the memory contract
+EVAL_CLASSES, EVAL_PER_CLASS, EVAL_BATCH, EVAL_CHUNK = 192, 16, 256, 512
+EVAL_TOPK_SCORE_TOL = 1e-6
+RETRIEVAL_N, RETRIEVAL_K, RETRIEVAL_CHUNK = 50_000, 10, 1024
+RETRIEVAL_EXTRA_BYTES_MAX = 2 * 2 ** 30
+SERVE_CHAOS = "compute_nan@2,cache_corrupt@1,slow_batch@3:50,reload_bad_ckpt@1"
+
+
+def event_ms(fn):
+    """(ms, result) of one call between two CUDA events (the card
+    warmed before; the call's result is synchronised)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def quantized_emb(n, d, seed):
+    """Entries in multiples of 1/64 (tests/test_eval.py): every f32 dot
+    product is exact in any summation order, so streaming and dense
+    scores are bitwise equal."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((np.round(rng.randn(n, d) * 16) / 64.0).astype(
+        np.float32)).to("cuda")
+
+
+def _bits_equal(a, b):
+    import torch
+    return a.shape == b.shape and torch.equal(a.contiguous().view(
+        torch.int32), b.contiguous().view(torch.int32))
+
+
+def _eval_topk_vs_dense(checks, e1, e2):
+    """Streaming top-k of the real embeddings vs the dense oracle: scores
+    within EVAL_TOPK_SCORE_TOL; an index may differ only between
+    candidates whose dense scores differ by less than that."""
+    from repro_torch.eval import metrics as M
+    from repro_torch.eval import retrieval as RT
+    out = {}
+    for name, (a, b) in (("i2t", (e1, e2)), ("t2i", (e2, e1))):
+        s_st, i_st = RT.streaming_topk(a, b, 10, chunk=EVAL_CHUNK)
+        S = a @ b.T
+        s_de, i_de = M.lex_topk(S, 10)
+        err = (s_st - s_de).abs().max().item()
+        diff = i_st != i_de
+        n_diff = int(diff.sum())
+        gap = ((S.gather(1, i_st) - S.gather(1, i_de)).abs()[diff].max()
+               .item() if n_diff else 0.0)
+        checks.check(err <= EVAL_TOPK_SCORE_TOL
+                     and gap < EVAL_TOPK_SCORE_TOL,
+                     f"eval top-k {name}: score err {err}, {n_diff} "
+                     f"indices differ, widest gap {gap}")
+        out[name] = dict(score_max_abs_err=err, indices_differ=n_diff,
+                         differing_score_gap_max=gap)
+        del S
+    return out
+
+
+def _signed_zero_rows():
+    """{width: rows} of {-0.0, 0.0, 0.5, -1.0} at the widths the scans
+    sort (k + chunk, the dense 3072 oracle) and past 4096, where torch
+    sorts by another path: a stable sort must keep -0.0 and 0.0 in input
+    order, as the JAX tie rule does."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(3)
+    vals = np.asarray([-0.0, 0.0, 0.5, -1.0], np.float32)
+    return {w: torch.from_numpy(vals[rng.randint(0, 4, (4, w))])
+            for w in (10 + EVAL_CHUNK, 10 + RETRIEVAL_CHUNK, 3072, 5000)}
+
+
+def phase_eval(checks, ckpt, model):
+    """The zero-shot eval engine at full width: the eval launcher on the
+    clip checkpoint (K3 through both towers and the prompt head, K1
+    through ``eval_loss``), its pieces timed and held to the plain paths;
+    the planted known answers; the streaming top-k exact on quantized
+    embeddings and within its memory contract at N = 50,000; K1 timed at
+    the eval shape; planted serving under chaos with a corrupt reload.
+    Returns the launch counts of the launcher's run and K1's eval-shape
+    timings."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch.configs import get_arch
+    from repro_torch.eval import classifier as CL
+    from repro_torch.eval import engine as EN
+    from repro_torch.eval import extraction as EX
+    from repro_torch.eval import metrics as M
+    from repro_torch.eval import planted as PL
+    from repro_torch.eval import retrieval as RT
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gcl_loss as GL
+    from repro_torch.launch import eval as EV
+    from repro_torch.launch import serve_embed
+    from repro_torch.models import clip as C
+
+    cfg = get_arch(ARCH)
+    N = EVAL_CLASSES * EVAL_PER_CLASS
+    argv = ["--ckpt-dir", ckpt, "--arch", ARCH, "--impl", "flash",
+            "--loss-impl", "fused", "--classes", str(EVAL_CLASSES),
+            "--per-class", str(EVAL_PER_CLASS), "--batch-size",
+            str(EVAL_BATCH), "--chunk", str(EVAL_CHUNK), "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0
+    GL.gcl_pair_stats.launches = GL.gcl_pair_stats.cuda_launches = 0
+    t0 = time.monotonic()
+    metrics = EV.main(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = dict(flash_attention=FA.flash_attention.launches,
+                  gcl_pair_stats=GL.gcl_pair_stats.launches,
+                  gcl_pair_stats_cuda=GL.gcl_pair_stats.cuda_launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg.n_layers + cfg.clip.vision_layers
+    n_prompts = len(EN.DEFAULT_TEMPLATES) * EVAL_CLASSES
+    # both towers per extraction batch, and the text tower once over all
+    # T x C prompts of the head
+    want = dict(flash_attention=n_layers * -(-N // EVAL_BATCH)
+                + cfg.n_layers, gcl_pair_stats=1, gcl_pair_stats_cuda=2)
+    checks.check(counts == want, f"eval: launches {counts}, want {want}")
+    checks.check(len(metrics) == 9 and all(
+        math.isfinite(v) for v in metrics.values()),
+        f"eval: metrics {metrics}")
+    emit("eval_launcher", N=N, classes=EVAL_CLASSES,
+         per_class=EVAL_PER_CLASS, batch=EVAL_BATCH, prompts=n_prompts,
+         launches=counts, launches_want=want, metrics=metrics,
+         wall_seconds=wall, max_memory_allocated=peak)
+
+    # the pieces of one eval pass, timed, on the same params
+    ds = EV.build_eval_dataset(argparse.Namespace(
+        classes=EVAL_CLASSES, per_class=EVAL_PER_CLASS, flip_frac=0.0,
+        seed=0), cfg)
+    emb, pass_ms = {}, {}
+    for impl in ("flash", "naive"):
+        ms, emb[impl] = event_ms(lambda: EX.extract_pair_embeddings(
+            lambda p, b: C.encode_pair(p, b, impl=impl), model, ds,
+            batch_size=EVAL_BATCH, device="cuda"))
+        pass_ms[f"extraction_{impl}"] = ms
+    emb_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(emb["flash"], emb["naive"]))
+    checks.check(emb_err <= TOL_EMBED["float32"],
+                 f"eval: embeddings flash vs naive {emb_err}")
+    e1, e2 = (torch.from_numpy(e).to("cuda") for e in emb["flash"])
+    pass_ms["head"], head = event_ms(lambda: CL.build_head(
+        lambda toks: C.encode_text(model, toks, impl="flash"), ds.tok_base,
+        context_length=ds.context_length, device="cuda"))
+    with torch.inference_mode():
+        pass_ms["zero_shot"], zs = event_ms(
+            lambda: CL.zero_shot_metrics(e1, head, ds.labels))
+        pass_ms["retrieval"], rec = event_ms(
+            lambda: RT.retrieval_recalls(e1, e2, chunk=EVAL_CHUNK))
+        pass_ms["loss_fused"], loss_f = event_ms(
+            lambda: M.contrastive_eval_loss(e1, e2, loss_impl="fused"))
+        pass_ms["loss_dense"], loss_d = event_ms(
+            lambda: M.contrastive_eval_loss(e1, e2, loss_impl="dense"))
+    loss_f, loss_d = float(loss_f), float(loss_d)
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    checks.check(loss_rel <= TOL_K1 and abs(
+        metrics["eval_loss"] - loss_f) <= TOL_K1 * abs(loss_f),
+        f"eval: eval_loss fused {loss_f} vs dense {loss_d} (rel "
+        f"{loss_rel}), launcher {metrics['eval_loss']}")
+    same = {k: float(v) for k, v in {**zs, **rec}.items()}
+    topk = _eval_topk_vs_dense(checks, e1, e2)
+    emit("eval_pass", N=N, pass_ms=pass_ms,
+         pass_ms_total=sum(v for k, v in pass_ms.items()
+                           if k not in ("extraction_naive", "loss_dense")),
+         embeddings_flash_vs_naive_max_abs=emb_err,
+         tol=TOL_EMBED["float32"], eval_loss_fused=loss_f,
+         eval_loss_dense=loss_d, eval_loss_rel=loss_rel, rtol=TOL_K1,
+         pieces_equal_launcher=all(same[k] == metrics[k] for k in same),
+         topk_vs_dense=topk, score_tol=EVAL_TOPK_SCORE_TOL)
+
+    # K1 at the eval shape (square N x N x 512), kernel vs plain version
+    t = torch.full((N,), 0.07, device="cuda")
+    e1a, e2a, sd, v1, v2, denom = GL._stats_args(e1, e2, t, t, None, None)
+    got = GL.gcl_pair_stats(e1, e2, t, t)
+    ref = GL.gcl_pair_stats_plain(e1, e2, t, t)
+    k1_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    checks.check(all(torch.allclose(a, b, rtol=TOL_K1, atol=TOL_K1)
+                     for a, b in zip(got, ref)),
+                 f"eval: K1 at {N} x {N} x 512, max abs err {k1_err}")
+    b_ms, b_by = gcl_bound("stats", N, N, e1.shape[1], "float32", True)
+    k1 = dict(shape=[N, N, e1.shape[1]], dtype="float32",
+              ms=device_ms(lambda: GL.gcl_pair_stats(e1, e2, t, t)),
+              kernel_only_ms=device_ms(lambda: GL.stats_merge(
+                  GL.stats_partial(e1, e2, e1a, e2a, sd, v1, v2, 0), denom)),
+              plain_ms=device_ms(lambda: GL.gcl_pair_stats_plain(
+                  e1, e2, t, t), 20),
+              bound_ms=b_ms, bound_by=b_by,
+              tc_floor_ms=gcl_tc_floor("stats", N, N, e1.shape[1],
+                                       "float32"),
+              max_abs_err=k1_err, launches=counts["gcl_pair_stats"],
+              cuda_launches=counts["gcl_pair_stats_cuda"])
+    emit("eval_k1", **k1)
+    del got, ref, e1a, e2a
+
+    # exactness: the planted known answers at 192 x 16 through the
+    # launcher (K1 for eval_loss); streaming == dense bitwise on
+    # quantized embeddings; the stable sort's signed zeros
+    pdir = tempfile.mkdtemp(prefix="chip_smoke_planted_")
+    try:
+        pm = EV.main(["--planted", "--ckpt-dir", pdir, "--classes",
+                      str(EVAL_CLASSES), "--per-class", str(EVAL_PER_CLASS),
+                      "--batch-size", str(EVAL_BATCH), "--loss-impl",
+                      "fused", "--expect-known-answers", "--device", "cuda"])
+    except SystemExit as e:
+        pm = None
+        checks.check(False, f"eval: planted known answers: exit {e.code}")
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    want_pm = PL.known_answers(ds)
+    if pm is not None:
+        checks.check(all(pm[k] == v for k, v in want_pm.items()),
+                     f"eval: planted {pm} vs known answers {want_pm}")
+    q1, q2 = quantized_emb(N, 512, 0), quantized_emb(N, 512, 1)
+    q2[10:13] = q2[3:6]                           # exact ties
+    ds_, di_ = M.lex_topk(q1 @ q2.T, 10)
+    stream_exact = {}
+    for chunk in (1024, 512, 100):
+        s_, i_ = RT.streaming_topk(q1, q2, 10, chunk=chunk)
+        stream_exact[chunk] = bool(torch.equal(i_, di_)
+                                   and _bits_equal(s_, ds_))
+    checks.check(all(stream_exact.values()),
+                 f"eval: streaming vs dense on quantized {stream_exact}")
+    zeros_ok = {}
+    for w, row in _signed_zero_rows().items():
+        _, i_cpu = M.lex_topk(row, w)
+        _, i_gpu = M.lex_topk(row.to("cuda"), w)
+        zeros_ok[w] = bool(torch.equal(i_gpu.cpu(), i_cpu))
+    # the eval path sorts at most 4096 wide (the dense oracle at N = 3072)
+    checks.check(all(ok for w, ok in zeros_ok.items() if w <= 4096),
+                 f"eval: stable sort signed zeros {zeros_ok}")
+    emit("eval_exact", planted=pm, known_answers=want_pm,
+         streaming_equals_dense_bitwise=stream_exact,
+         signed_zero_rows_in_input_order=zeros_ok)
+    del q1, q2, ds_, di_
+
+    # the memory contract at a real eval scale
+    r1 = quantized_emb(RETRIEVAL_N, 512, 2)
+    r2 = quantized_emb(RETRIEVAL_N, 512, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms_dir = {}
+    with torch.inference_mode():
+        ms_dir["i2t"], (s1, i1) = event_ms(lambda: RT.streaming_topk(
+            r1, r2, RETRIEVAL_K, chunk=RETRIEVAL_CHUNK))
+        ms_dir["t2i"], _ = event_ms(lambda: RT.streaming_topk(
+            r2, r1, RETRIEVAL_K, chunk=RETRIEVAL_CHUNK))
+    extra = torch.cuda.max_memory_allocated() - base
+    sample = slice(0, 256)
+    ds_, di_ = M.lex_topk(r1[sample] @ r2.T, RETRIEVAL_K)
+    rows_exact = bool(torch.equal(i1[sample], di_)
+                      and _bits_equal(s1[sample], ds_))
+    checks.check(extra < RETRIEVAL_EXTRA_BYTES_MAX and rows_exact,
+                 f"eval: retrieval at N={RETRIEVAL_N}: peak extra {extra} "
+                 f"bytes, first rows exact {rows_exact}")
+    emit("eval_memory", N=RETRIEVAL_N, d=512, k=RETRIEVAL_K,
+         chunk=RETRIEVAL_CHUNK, peak_extra_bytes=extra,
+         limit_bytes=RETRIEVAL_EXTRA_BYTES_MAX,
+         dense_NN_f32_bytes=4 * RETRIEVAL_N ** 2, ms=ms_dir,
+         first_256_rows_equal_dense=rows_exact)
+    del r1, r2, s1, i1
+
+    # planted serving under chaos: step 0 serves, a step-1 candidate is
+    # corrupted on the watcher's first attempt (a random projection: an
+    # incompressible array fills the middle of the npz, where the fault
+    # flips a byte, and its answers would differ from step 0's)
+    sdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        sds = EV.build_eval_dataset(argparse.Namespace(
+            classes=16, per_class=1, flip_frac=0.0, seed=0))
+        PL.make_planted_checkpoint(sdir, sds)
+        params0 = PL.planted_params(sds, "cuda")
+        proj = np.random.RandomState(4).randn(PL.LATENT, PL.LATENT).astype(
+            np.float32)
+        CK.save(sdir, dict(PL.planted_params(sds, "cpu"), img_proj=proj), 1)
+        record = []
+        stats = serve_embed.main(
+            ["--planted", "--ckpt-dir", sdir, "--step", "0", "--classes",
+             "16", "--per-class", "1", "--payload-pool", "16", "--requests",
+             "128", "--offered-rate", "400", "--deadline-ms", "2000",
+             "--watch-ckpt", "0.02", "--chaos", SERVE_CHAOS, "--device",
+             "cuda"], record=record)
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    exact = [res.embedding.tobytes() == _planted_solo(params0, pay)
+             for pay, res in record]
+    client = stats["client"]
+    checks.check(stats["dropped"] == 0 and client["completed"] > 0
+                 and len(record) == client["completed"] and all(exact)
+                 and all(res.params_step == 0 for _, res in record),
+                 f"eval serve: dropped {stats['dropped']}, "
+                 f"{sum(exact)} of {len(record)} exact")
+    checks.check(stats["reload_rejected"] == 1 and stats["reloads"] == 0
+                 and stats["params_step"] == 0 and stats["retries"] >= 1,
+                 f"eval serve: reloads {stats['reloads']}, rejected "
+                 f"{stats['reload_rejected']}, retries {stats['retries']}")
+    emit("eval_serve_chaos", chaos=SERVE_CHAOS, client=client,
+         dropped=stats["dropped"], retries=stats["retries"],
+         cache_corrupt=stats["cache_corrupt"],
+         served_cache=stats["served_cache"],
+         reload_rejected=stats["reload_rejected"], reloads=stats["reloads"],
+         params_step=stats["params_step"],
+         completed_bitwise_solo=sum(exact))
+    checks.end_phase("eval")
+    return counts, k1
+
+
+def _planted_solo(params, payload):
+    import torch
+    from repro_torch.core import losses as LS
+    from repro_torch.eval import planted as PL
+    x = torch.from_numpy(payload["images"][None]).to("cuda")
+    with torch.inference_mode():
+        return LS.l2_normalize(PL.encode_image(params, x))[0].cpu().numpy(
+        ).tobytes()
 
 
 def phase_attn_grad(checks):
@@ -1305,26 +1661,36 @@ def main():
     ssd_timings = phase_ssd(checks)
     phase_ssd_grad(checks)
     hybrid_launches, ssd_cuda_launches = phase_hybrid(checks)
-    launches = phase_slice(checks)
-    train_launches = phase_train(checks)
+    ckpt, model = make_clip_checkpoint()
+    try:
+        launches = phase_slice(checks, ckpt, model)
+        eval_launches, k1_eval = phase_eval(checks, ckpt, model)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     import torch
+    del model
+    torch.cuda.empty_cache()
+    train_launches = phase_train(checks)
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
-        # towers, 3 steps) or one full-width zamba2 prefill
+        # towers, 3 steps), one full-width zamba2 prefill or one eval pass
+        # (both towers over 3072 pairs and the prompt head)
         if case == "hybrid":
-            n_launch = hybrid_launches["flash_attention"]
+            path, n_launch = "prefill", hybrid_launches["flash_attention"]
         elif case.endswith("_train"):
-            n_launch = train_launches["flash_attention"]
+            path, n_launch = "train", train_launches["flash_attention"]
+        elif case == "text_head":
+            path, n_launch = "eval", eval_launches["flash_attention"]
         else:
-            n_launch = launches[case]
+            path, n_launch = "serve", launches[case]
         kernels.append({
             "name": f"flash_attention/{case}/{dt_name}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "shape": t["shape"], "causal": t["causal"], "dtype": dt_name,
-            "launches": n_launch,
+            "launches": n_launch, "launches_path": path,
             "max_abs_err": max(t["max_abs_err"], t["max_abs_err_mha"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1352,6 +1718,8 @@ def main():
             "rect_paper_row_offset": gcl_timings["rect_paper", kernel][
                 "row_offset"],
             **extra,
+            **({f"eval_{k}": v for k, v in k1_eval.items()}
+               if name == "gcl_pair_stats" else {}),
             # no single PyTorch call computes the FCCO row statistics or
             # their closed-form gradients
             "library_ms": None})

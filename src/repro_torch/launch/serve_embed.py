@@ -8,16 +8,23 @@ then drives a self-generated open-loop load against it and prints one
 ``SERVE_STATS {json}`` line (submitted == completed + rejected; nothing
 dropped silently).  It runs on the card unless ``--device cpu`` is given.
 
+    # known-answer mode: planted closed-form image tower (exact on any
+    # device; writes the reference checkpoint on first run)
+    PYTHONPATH=src python -m repro_torch.launch.serve_embed --planted \\
+        --ckpt-dir /tmp/planted --requests 64 --deadline-ms 200
+
+    # real tower from a train checkpoint, with hot reload and chaos
     PYTHONPATH=src python -m repro_torch.launch.serve_embed \\
         --arch clip-vitb32-cc12m --ckpt-dir ckpts --modality image \\
-        [--precision bf16] [--watch-ckpt 1.0]
+        [--precision bf16] [--watch-ckpt 1.0] [--chaos compute_nan@2]
 
 ``--impl flash`` (the default) is the path through the hand-written
 attention kernel; ``chunked`` and ``naive`` are the plain PyTorch
-references (the JAX launcher defaults to ``chunked``).
-``--planted`` and ``--chaos`` are not ported yet and are refused.  SIGTERM
-mid-run stops the load generator, drains every admitted request, writes
-the final heartbeat and exits 0.
+references (the JAX launcher defaults to ``chunked``).  ``--chaos`` takes
+the serving faults of ``repro_torch.resilience.chaos`` (``compute_nan``,
+``slow_batch``, ``cache_corrupt``, ``reload_bad_ckpt``).  SIGTERM mid-run
+stops the load generator, drains every admitted request, writes the
+final heartbeat and exits 0.
 """
 from __future__ import annotations
 
@@ -32,38 +39,53 @@ import numpy as np
 from repro_torch import checkpoint as CK
 from repro_torch import device as D
 from repro_torch.configs import get_arch
+from repro_torch.eval import planted as PL
 from repro_torch.launch.eval import build_eval_dataset
 from repro_torch.models import backbones as BB
 from repro_torch.models import clip as C
 from repro_torch.models import precision as PR
-from repro_torch.resilience import Heartbeat, StepWatchdog
+from repro_torch.resilience import Heartbeat, StepWatchdog, parse_chaos
 from repro_torch.serve import (
     CheckpointWatcher, EmbedServer, RetryPolicy, ServeConfig, ServeRejection,
 )
 
 
-def build_server(args, heartbeat=None, watchdog=None):
+def build_server(args, chaos=None, heartbeat=None, watchdog=None):
     """(server, watcher-or-None, dataset) per the CLI flags."""
     device = D.resolve(args.device)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    like = BB.param_shapes(cfg)
-    tree, step, _meta = CK.restore_subtree(args.ckpt_dir, like, "params",
+    if args.planted:
+        ds = build_eval_dataset(args)
+        if CK.latest_step(args.ckpt_dir) is None:
+            path = PL.make_planted_checkpoint(args.ckpt_dir, ds)
+            print(f"wrote reference planted checkpoint: {path}")
+        like = PL.planted_params(ds, "cpu")
+        prefix = ""
+
+        def materialize(t):
+            return PL.params_from_tree(t, device)
+
+        def encode(params, batch):
+            return PL.encode_image(params, batch["images"])
+    else:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        like = BB.param_shapes(cfg)
+        prefix = "params"
+
+        def materialize(t):
+            return BB.params_from_tree(cfg, t, device=device)
+
+        ds = build_eval_dataset(args, cfg)
+        prec = PR.get_precision(args.precision or cfg.precision)
+        tower = C.encode_image if args.modality == "image" else C.encode_text
+        key = "images" if args.modality == "image" else "texts"
+
+        def encode(params, batch):
+            return tower(params, batch[key], impl=args.impl, precision=prec)
+    tree, step, _meta = CK.restore_subtree(args.ckpt_dir, like, prefix,
                                            step=args.step)
-
-    def materialize(t):
-        return BB.params_from_tree(cfg, t, device=device)
-
     params = materialize(tree)
-    ds = build_eval_dataset(args, cfg)
-    prec = PR.get_precision(args.precision or cfg.precision)
-    tower = C.encode_image if args.modality == "image" else C.encode_text
-    key = "images" if args.modality == "image" else "texts"
-
-    def encode(params, batch):
-        return tower(params, batch[key], impl=args.impl, precision=prec)
-
     print(f"restored params at step {step} from {args.ckpt_dir} "
           f"onto {device}")
     cfg_srv = ServeConfig(
@@ -75,14 +97,15 @@ def build_server(args, heartbeat=None, watchdog=None):
         breaker_failures=args.breaker_failures,
         breaker_reset=args.breaker_reset,
         cache_capacity=args.cache_capacity, seed=args.seed)
-    server = EmbedServer(encode, params, step, cfg_srv, heartbeat=heartbeat,
-                         watchdog=watchdog, device=device)
+    server = EmbedServer(encode, params, step, cfg_srv, chaos=chaos,
+                         heartbeat=heartbeat, watchdog=watchdog,
+                         device=device)
     watcher = None
     if args.watch_ckpt is not None:
-        watcher = CheckpointWatcher(args.ckpt_dir, like, server.store,
-                                    materialize=materialize,
-                                    prefix="params",
-                                    poll_interval=args.watch_ckpt)
+        watcher = CheckpointWatcher(
+            args.ckpt_dir, like, server.store, materialize=materialize,
+            prefix=prefix, poll_interval=args.watch_ckpt,
+            fault_hook=(chaos.on_reload if chaos is not None else None))
         watcher.start()
     return server, watcher, ds
 
@@ -95,7 +118,8 @@ def run_load(server, ds, args, stop_flag, record=None):
     out = {"completed": 0, "OVERLOADED": 0, "DEADLINE": 0, "UNAVAILABLE": 0,
            "offered": 0}
     pool = min(args.payload_pool, ds.n)
-    key = "texts" if args.modality == "text" else "images"
+    key = "texts" if (not args.planted and args.modality == "text") \
+        else "images"
     rows = np.asarray(getattr(ds, key)(np.arange(pool)))
     futures = []
     interval = 1.0 / args.offered_rate if args.offered_rate else 0.0
@@ -133,7 +157,9 @@ def main(argv=None, record=None):
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--step", type=int, default=None)
     ap.add_argument("--planted", action="store_true",
-                    help="not ported yet (comes with the eval slice)")
+                    help="known-answer mode: planted closed-form image "
+                         "tower (writes the reference checkpoint on "
+                         "first run)")
     ap.add_argument("--arch", default="clip-vitb32-cc12m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--modality", default="image",
@@ -160,7 +186,9 @@ def main(argv=None, record=None):
     ap.add_argument("--watch-ckpt", type=float, default=None,
                     help="hot-reload poll interval in seconds")
     ap.add_argument("--chaos", default=None,
-                    help="not ported yet (comes with the resilience slice)")
+                    help="serving fault-injection spec "
+                         "(repro_torch.resilience.chaos), e.g. "
+                         "'compute_nan@2,reload_bad_ckpt@1'")
     # load generator
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--offered-rate", type=float, default=0.0,
@@ -170,12 +198,6 @@ def main(argv=None, record=None):
     ap.add_argument("--watchdog-timeout", type=float, default=60.0)
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
-    if args.planted:
-        ap.error("--planted is not ported to repro_torch yet; use "
-                 "repro.launch.serve_embed for the known-answer mode")
-    if args.chaos is not None:
-        ap.error("--chaos is not ported to repro_torch yet; use "
-                 "repro.launch.serve_embed for fault injection")
 
     # SIGTERM: note it, stop offering; the drain below finishes every
     # admitted request before exit.
@@ -186,12 +208,14 @@ def main(argv=None, record=None):
         print(f"[serve] received signal {signum}; draining", flush=True)
     prev_handler = signal.signal(signal.SIGTERM, on_term)
 
+    chaos = parse_chaos(args.chaos, seed=args.seed)
     heartbeat = Heartbeat(os.path.join(args.ckpt_dir,
                                        "serve_heartbeat.json"),
                           interval=1.0)
     watchdog = StepWatchdog(args.watchdog_timeout, label="served batch")
     try:
-        server, watcher, ds = build_server(args, heartbeat=heartbeat,
+        server, watcher, ds = build_server(args, chaos=chaos,
+                                           heartbeat=heartbeat,
                                            watchdog=watchdog)
         try:
             client = run_load(server, ds, args, stop_flag, record=record)

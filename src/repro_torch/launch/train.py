@@ -20,11 +20,16 @@ norm a bitwise no-op (metrics ``skipped``/``nonfinite_rate``).  SIGTERM
 or SIGINT: the loop finishes the step in flight, writes a final
 synchronous checkpoint and returns.  ``--heartbeat-file`` /
 ``--hang-timeout``: liveness file and stack-dump watchdog.
+``--eval-every N`` runs the zero-shot / retrieval eval engine
+(``repro_torch.eval.ClipEvaluator``, the same ``--impl`` and
+``--precision``, ``eval_loss`` through ``--loss-impl``) every N steps and
+after the last, on a planted split seeded ``--seed + 1``, and prints one
+``eval  {step} {json}`` line per eval, as the JAX launcher does.
 
 Not ported yet, and refused with exit code 2: ``--objective lm``,
 ``--mesh``, ``--microbatch`` > 1, the multi-process flags, ``--data
 streaming:*``, the curricula, ``--chaos``, ``--rollback-after``,
-``--ckpt-async``, ``--ckpt-keep*`` and ``--eval-every``.
+``--ckpt-async`` and ``--ckpt-keep*``.
 """
 from __future__ import annotations
 
@@ -44,7 +49,10 @@ from repro_torch.configs import get_arch
 from repro_torch.core import fastclip as FC
 from repro_torch.core import train_step as TS
 from repro_torch.core.schedules import lr_warmup_cosine
-from repro_torch.data import ContrastiveDataset, DevicePrefetcher, ShardedLoader
+from repro_torch.data import (
+    ContrastiveDataset, DevicePrefetcher, ShardedLoader, ZeroShotEvalDataset,
+)
+from repro_torch.eval import ClipEvaluator
 from repro_torch.models.precision import POLICIES
 from repro_torch.optim import OPTIMIZERS, get_optimizer
 
@@ -65,7 +73,6 @@ _NOT_PORTED = {
     "ckpt_async": (False, "async checkpoints"),
     "ckpt_keep": (0, "checkpoint retention"),
     "ckpt_keep_every": (0, "checkpoint retention"),
-    "eval_every": (0, "the periodic eval"),
 }
 
 
@@ -124,6 +131,13 @@ def parse_args(argv=None):
                     help="dump all thread stacks when no step completes for "
                          "this many seconds (0 disables)")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="run the zero-shot/retrieval eval engine every N "
+                         "steps (0 disables), through the same --impl / "
+                         "--precision fast path as training")
+    ap.add_argument("--eval-classes", type=int, default=8)
+    ap.add_argument("--eval-per-class", type=int, default=8)
+    ap.add_argument("--eval-batch", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     # flags of the JAX launcher that are not ported yet (refused)
     ap.add_argument("--objective", default="contrastive")
@@ -141,7 +155,6 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-async", action="store_true")
     ap.add_argument("--ckpt-keep", type=int, default=0)
     ap.add_argument("--ckpt-keep-every", type=int, default=0)
-    ap.add_argument("--eval-every", type=int, default=0)
     args = ap.parse_args(argv)
     for key, (unset, what) in _NOT_PORTED.items():
         if getattr(args, key) != unset:
@@ -210,6 +223,23 @@ def main(argv=None, record=None):
         state = bridge.state_from_tree(state, tree)
         print(f"resumed from step {start}")
 
+    evaluator = None
+    if args.eval_every:
+        eval_ds = ZeroShotEvalDataset(
+            n_classes=args.eval_classes, n_per_class=args.eval_per_class,
+            image_size=cfg.clip.image_size,
+            context_length=cfg.clip.context_length,
+            vocab_size=cfg.vocab_size, seed=args.seed + 1)
+        evaluator = ClipEvaluator(
+            cfg, eval_ds, impl=args.impl, precision=args.precision,
+            batch_size=args.eval_batch,
+            loss_impl=args.loss_impl or "dense", device=device)
+
+    def run_eval(step):
+        em = evaluator.evaluate(state["params"], cache_key=int(step))
+        print(f"eval  {step:5d} " + json.dumps(
+            {k: round(v, 5) for k, v in sorted(em.items())}), flush=True)
+
     def make_stream(from_step):
         it = loader.steps(args.steps, start=from_step)
         if args.prefetch > 0:
@@ -269,6 +299,8 @@ def main(argv=None, record=None):
                 vals = {k: float(v) for k, v in m.items()}
                 record.append({"step": step, "epoch": epoch,
                                "time": time.monotonic(), **vals})
+            if evaluator is not None and (step + 1) % args.eval_every == 0:
+                run_eval(step + 1)
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                 save_ckpt(step + 1)
     finally:
@@ -296,6 +328,8 @@ def main(argv=None, record=None):
                       min(128, args.n_samples))).items()}
     acc = float(TS.retrieval_accuracy(state["params"], cfg, eval_batch))
     print(f"retrieval accuracy: {acc:.4f}")
+    if evaluator is not None and args.steps % args.eval_every != 0:
+        run_eval(args.steps)   # final eval unless the loop just ran it
     if args.ckpt_dir:
         save_ckpt(args.steps)
     return state

@@ -1,3 +1,6 @@
+from repro_torch.resilience.chaos import (  # noqa: F401
+    ChaosInjector, flip_byte, parse_chaos, truncate_file,
+)
 from repro_torch.resilience.guard import (  # noqa: F401
     all_finite, grad_nonfinite_rate, select_state, step_ok,
 )

@@ -11,7 +11,9 @@ complete but corrupt checkpoint must be attempted so that its digest
 failure is observed, counted and the step blacklisted, with the old
 params still serving.  The restore goes through the digest-verified
 ``checkpoint.restore_subtree``; ``materialize`` turns the restored
-numpy tree into params on the serving device.
+numpy tree into params on the serving device.  ``fault_hook(attempt,
+directory, step)`` runs before each restore attempt (the chaos hook
+``ChaosInjector.on_reload``, which corrupts the n-th candidate).
 """
 from __future__ import annotations
 
@@ -46,14 +48,17 @@ class ParamsStore:
 class CheckpointWatcher:
     def __init__(self, directory: str, like, store: ParamsStore, *,
                  materialize: Callable, prefix: str = "params",
-                 poll_interval: float = 1.0):
+                 poll_interval: float = 1.0,
+                 fault_hook: Optional[Callable[[int, str, int], None]] = None):
         self.directory = directory
         self.like = like
         self.store = store
         self.materialize = materialize   # numpy tree -> params
         self.prefix = prefix
         self.poll_interval = float(poll_interval)
+        self._fault_hook = fault_hook  # chaos: corrupt the n-th candidate
         self._rejected = set()
+        self._attempts = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.stats = {"reloads": 0, "reload_rejected": 0}
@@ -68,7 +73,10 @@ class CheckpointWatcher:
         if not candidates:
             return None
         step = max(candidates)
+        self._attempts += 1
         try:
+            if self._fault_hook is not None:
+                self._fault_hook(self._attempts, self.directory, step)
             tree, got_step, _meta = CK.restore_subtree(
                 self.directory, self.like, self.prefix, step=step)
             if got_step != step:

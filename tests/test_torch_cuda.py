@@ -11,6 +11,7 @@ kernels those of tests/test_kernels.py; K4 ``TOL_SSD`` below."""
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -554,3 +555,67 @@ def test_reduced_hybrid_gradients_flash_match_chunked(cuda):
     assert grads["flash"].keys() == grads["chunked"].keys()
     for n, w in grads["chunked"].items():
         assert _rel_l2(grads["flash"][n], w) <= 1e-4, n
+
+
+# ---------------------------------------------------------------------------
+# The eval engine on the card: streaming top-k and K1 at the eval shape
+# ---------------------------------------------------------------------------
+
+def _quantized(n, d, seed):
+    """Entries in multiples of 1/64 (tests/test_eval.py): every f32 dot
+    product is exact in any summation order."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((np.round(rng.randn(n, d) * 16) / 64.0).astype(
+        np.float32)).to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1024, 512, 100])
+def test_streaming_topk_on_card_equals_dense_on_quantized(cuda, chunk):
+    """Bitwise equal to the dense ``lex_topk`` on the card at N = 3072
+    (the chip eval's size), with exact duplicate columns."""
+    from repro_torch.eval import metrics as M
+    from repro_torch.eval import retrieval as RT
+    e1, e2 = _quantized(3072, 512, 0), _quantized(3072, 512, 1)
+    e2[10:13] = e2[3:6]
+    s, i = RT.streaming_topk(e1, e2, 10, chunk=chunk)
+    ds, di = M.lex_topk(e1 @ e2.T, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(i, di)
+    assert torch.equal(s.view(torch.int32), ds.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 522, 1034, 3072, 5000])
+def test_stable_sort_on_card_keeps_signed_zeros_in_input_order(cuda, width):
+    """The tie rule's stable sort at the widths the scans sort (each
+    torch sort path): -0.0 and 0.0 are ties, kept in index order, as on
+    the CPU and in JAX."""
+    from repro_torch.eval import metrics as M
+    vals = torch.tensor([-0.0, 0.0, 0.5, -1.0])
+    x = vals[torch.randint(0, 4, (4, width), generator=torch.Generator()
+                           .manual_seed(width))]
+    _, want = M.lex_topk(x, width)
+    _, got = M.lex_topk(x.to("cuda"), width)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 3072])
+def test_eval_loss_fused_is_k1_and_matches_dense_on_card(cuda, n):
+    """``contrastive_eval_loss(loss_impl="fused")`` is one K1 call (two
+    CUDA launches) at the square eval shape, within rtol 1e-5 of the
+    dense loss math; its row statistics within K1's 1e-5."""
+    from repro_torch.eval import metrics as M
+    e1a, e2a, ta = _gcl_inputs(cuda, n, n, 512, 0, torch.float32, 0.07)
+    before = (GL.gcl_pair_stats.launches, GL.gcl_pair_stats.cuda_launches)
+    fused = M.contrastive_eval_loss(e1a, e2a, 0.07, loss_impl="fused")
+    assert (GL.gcl_pair_stats.launches,
+            GL.gcl_pair_stats.cuda_launches) == (before[0] + 1, before[1] + 2)
+    dense = M.contrastive_eval_loss(e1a, e2a, 0.07, loss_impl="dense")
+    torch.cuda.synchronize()
+    assert abs(fused.item() - dense.item()) <= 1e-5 * abs(dense.item())
+    got = GL.gcl_pair_stats(e1a, e2a, ta[0], ta[1])
+    want = GL.gcl_pair_stats_plain(e1a, e2a, ta[0], ta[1])
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)

@@ -165,7 +165,6 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     ["--data", "streaming:/tmp/x"], ["--image-size-schedule", "0:16"],
     ["--context-schedule", "0:8"], ["--chaos", "nan_batch@1"],
     ["--rollback-after", "2"], ["--ckpt-async"], ["--ckpt-keep", "2"],
-    ["--eval-every", "5"],
 ])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:

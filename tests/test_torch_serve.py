@@ -159,16 +159,6 @@ def test_entry_points_default_to_the_card_and_never_run_on_cpu(served):
     assert D.resolve("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("flag", [["--planted"], ["--chaos",
-                                                  "compute_nan@1"]])
-def test_unported_modes_are_refused(served, flag, capsys):
-    d, _, _ = served
-    with pytest.raises(SystemExit) as e:
-        serve_embed.main(["--ckpt-dir", d, "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("kw", [
     dict(), dict(n_classes=5, n_per_class=3, label_flip_frac=0.3, seed=2),
     dict(image_size=224, context_length=77, vocab_size=49_408, n_classes=32,
