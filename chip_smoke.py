@@ -65,7 +65,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ``--impl flash --loss-impl fused``: exactly 300 K3 launches (24 per
    batch, 12 for the 768-prompt head) and 1 K1 call (2 CUDA launches);
    embeddings flash vs naive within 1e-5, eval_loss fused vs dense
-   within rtol 1e-5, streaming top-k vs the dense oracle; ms of each
+   within rtol 1e-5, the launcher's rank metrics equal to those of the
+   pieces, streaming top-k vs the dense oracle; ms of each
    piece of a pass (CUDA events) and peak memory; K1 timed at 3072 x
    3072 x 512; the planted known answers at 192 x 16 exact; streaming ==
    dense bitwise on quantized embeddings (chunks 1024, 512, 100); the
@@ -79,7 +80,10 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
    the loss / tau / log-u trajectory against the same steps through the
    plain path (``--impl naive --loss-impl dense``); one bf16 step; ms per
-   step and peak device memory;
+   step and peak device memory; ``--eval-every 2`` over 3 steps: exact
+   launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
+   ``eval`` line the evaluator's on the final params, its eval_loss the
+   dense loss's within rtol 1e-5;
 12. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -562,16 +566,15 @@ def _eval_topk_vs_dense(checks, e1, e2):
 
 
 def _signed_zero_rows():
-    """{width: rows} of {-0.0, 0.0, 0.5, -1.0} at the widths the scans
-    sort (k + chunk, the dense 3072 oracle) and past 4096, where torch
-    sorts by another path: a stable sort must keep -0.0 and 0.0 in input
-    order, as the JAX tie rule does."""
+    """{width: rows} of {-0.0, 0.0, 0.5, -1.0} at the widths the eval
+    path sorts (k + chunk, the dense 3072 oracle): a stable sort must keep
+    -0.0 and 0.0 in input order, as the JAX tie rule does."""
     import numpy as np
     import torch
     rng = np.random.RandomState(3)
     vals = np.asarray([-0.0, 0.0, 0.5, -1.0], np.float32)
     return {w: torch.from_numpy(vals[rng.randint(0, 4, (4, w))])
-            for w in (10 + EVAL_CHUNK, 10 + RETRIEVAL_CHUNK, 3072, 5000)}
+            for w in (10 + EVAL_CHUNK, 10 + RETRIEVAL_CHUNK, 3072)}
 
 
 def phase_eval(checks, ckpt, model):
@@ -665,7 +668,11 @@ def phase_eval(checks, ckpt, model):
         metrics["eval_loss"] - loss_f) <= TOL_K1 * abs(loss_f),
         f"eval: eval_loss fused {loss_f} vs dense {loss_d} (rel "
         f"{loss_rel}), launcher {metrics['eval_loss']}")
+    # the launcher's rank metrics are those of the pieces, which are held
+    # to the plain paths
     same = {k: float(v) for k, v in {**zs, **rec}.items()}
+    pieces_equal = all(same[k] == metrics[k] for k in same)
+    checks.check(pieces_equal, f"eval: launcher {metrics} vs pieces {same}")
     topk = _eval_topk_vs_dense(checks, e1, e2)
     emit("eval_pass", N=N, pass_ms=pass_ms,
          pass_ms_total=sum(v for k, v in pass_ms.items()
@@ -673,7 +680,7 @@ def phase_eval(checks, ckpt, model):
          embeddings_flash_vs_naive_max_abs=emb_err,
          tol=TOL_EMBED["float32"], eval_loss_fused=loss_f,
          eval_loss_dense=loss_d, eval_loss_rel=loss_rel, rtol=TOL_K1,
-         pieces_equal_launcher=all(same[k] == metrics[k] for k in same),
+         pieces_equal_launcher=pieces_equal,
          topk_vs_dense=topk, score_tol=EVAL_TOPK_SCORE_TOL)
 
     # K1 at the eval shape (square N x N x 512), kernel vs plain version
@@ -694,7 +701,7 @@ def phase_eval(checks, ckpt, model):
                   e1, e2, t, t), 20),
               bound_ms=b_ms, bound_by=b_by,
               tc_floor_ms=gcl_tc_floor("stats", N, N, e1.shape[1],
-                                       "float32"),
+                                       "float32", True),
               max_abs_err=k1_err, launches=counts["gcl_pair_stats"],
               cuda_launches=counts["gcl_pair_stats_cuda"])
     emit("eval_k1", **k1)
@@ -733,8 +740,7 @@ def phase_eval(checks, ckpt, model):
         _, i_cpu = M.lex_topk(row, w)
         _, i_gpu = M.lex_topk(row.to("cuda"), w)
         zeros_ok[w] = bool(torch.equal(i_gpu.cpu(), i_cpu))
-    # the eval path sorts at most 4096 wide (the dense oracle at N = 3072)
-    checks.check(all(ok for w, ok in zeros_ok.items() if w <= 4096),
+    checks.check(all(zeros_ok.values()),
                  f"eval: stable sort signed zeros {zeros_ok}")
     emit("eval_exact", planted=pm, known_answers=want_pm,
          streaming_equals_dense_bitwise=stream_exact,
@@ -874,9 +880,12 @@ GCL_CASES = [
 ]
 
 
-def gcl_flops(kernel, b, B, d):
-    """The products' FLOPs of one call: s1, s2 (and de1, de2 in K2)."""
-    return (2 if kernel == "stats" else 4) * 2 * b * B * d
+def gcl_flops(kernel, b, B, d, square):
+    """The FLOPs of the products one call needs: the similarities s1 and
+    s2 (one product in the square case, where s2 = s1^T; the kernels
+    compute both), and in K2 the two products P.e (de1, de2)."""
+    sims = (1 if square else 2) * 2 * b * B * d
+    return sims if kernel == "stats" else sims + 2 * 2 * b * B * d
 
 
 def gcl_bound(kernel, b, B, d, dt_name, square):
@@ -892,20 +901,22 @@ def gcl_bound(kernel, b, B, d, dt_name, square):
         vec_in = 4 * (5 * b + (0 if square else 5 * B))
         nbytes = feats + vec_in + 4 * 2 * b * d    # -> de1, de2
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = gcl_flops(kernel, b, B, d) / PEAK_FLOPS[dt_name] * 1e3
+    t_ops = gcl_flops(kernel, b, B, d, square) / PEAK_FLOPS[dt_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gcl_tc_floor(kernel, b, B, d, dt_name):
-    """The products' floor on the tensor cores as the kernels run them:
-    the similarities as three TF32 products per f32 product (split TF32)
-    or one for bf16 inputs (exact in TF32), at the TF32 peak; K2's second
-    product in f32 on the f64 tensor cores, in bf16 as one TF32 product."""
-    sims = gcl_flops("stats", b, B, d)
+def gcl_tc_floor(kernel, b, B, d, dt_name, square):
+    """The floor of the products one call needs (``gcl_flops``) on the
+    tensor cores in the kernels' arithmetic: the similarities as three
+    TF32 products per f32 product (split TF32) or one for bf16 inputs
+    (exact in TF32), at the TF32 peak; K2's products P.e in f32 on the
+    f64 tensor cores, in bf16 as one TF32 product."""
+    sims = gcl_flops("stats", b, B, d, square)
     f32 = dt_name == "float32"
     ms = (3 if f32 else 1) * sims / PEAK_TF32
     if kernel == "grads":
-        ms += sims / (PEAK_F64_TC if f32 else PEAK_TF32)
+        ms += (gcl_flops("grads", b, B, d, square) - sims) / (
+            PEAK_F64_TC if f32 else PEAK_TF32)
     return ms * 1e3
 
 
@@ -1059,7 +1070,7 @@ def phase_gcl(checks):
                 tk = dict(t[kernel], shape=[b, B, d], dtype=dt_name,
                           row_offset=off, max_abs_err=err, bound_ms=b_ms,
                           bound_by=b_by, tc_floor_ms=gcl_tc_floor(
-                              kernel, b, B, d, dt_name))
+                              kernel, b, B, d, dt_name, b == B))
                 timings[name, kernel] = tk
                 rec.update({f"{kernel}_{k}": v for k, v in tk.items()
                             if k not in ("shape", "dtype", "row_offset",
@@ -1647,8 +1658,68 @@ def phase_train(checks):
     emit("train_bf16", loss=rec_b[0]["loss"], f32_masters=bf16_masters,
          wall_seconds=wall_b, max_memory_allocated=mem_b)
     del st_b
+    _train_eval_every(checks, cfg, run)
     checks.end_phase("train")
     return counts
+
+
+def _train_eval_every(checks, cfg, run):
+    """The trainer's periodic eval on the card: ``--eval-every 2`` over 3
+    steps evals at steps 2 and 3 (the final eval), each through K3 (both
+    towers, the prompt head) and K1 (``eval_loss``, the trainer's default
+    ``--loss-impl fused``); launches exact; the last ``eval`` line is the
+    evaluator's on the final params, whose ``eval_loss`` is the dense
+    loss's within rtol TOL_K1."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.data import ZeroShotEvalDataset
+    from repro_torch.eval import ClipEvaluator
+    steps, every, classes, per_class, batch = 3, 2, 8, 8, 64
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        st, _, counts, wall, mem = run(
+            ["--steps", str(steps), "--precision", "f32", "--eval-every",
+             str(every), "--eval-classes", str(classes), "--eval-per-class",
+             str(per_class), "--eval-batch", str(batch)], counted=True)
+    evals = [(int(m.group(1)), json.loads(m.group(2))) for m in map(
+        re.compile(r"^eval  ([ \d]{5}) (\{.*\})$").match,
+        out.getvalue().splitlines()) if m]
+    n_layers = cfg.n_layers + cfg.clip.vision_layers
+    n_evals = 2
+    want = dict(flash_attention=n_layers * steps + n_evals * (
+                    n_layers * -(-classes * per_class // batch)
+                    + cfg.n_layers),
+                gcl_pair_stats=steps + n_evals, gcl_pair_grads=steps,
+                gcl_pair_stats_cuda=2 * (steps + n_evals),
+                gcl_pair_grads_cuda=2 * steps)
+    checks.check(counts == want and [s for s, _ in evals] == [2, 3],
+                 f"train --eval-every: launches {counts}, want {want}; "
+                 f"eval steps {[s for s, _ in evals]}")
+    ds = ZeroShotEvalDataset(
+        n_classes=classes, n_per_class=per_class,
+        image_size=cfg.clip.image_size,
+        context_length=cfg.clip.context_length, vocab_size=cfg.vocab_size,
+        seed=int(TRAIN_ARGS[TRAIN_ARGS.index("--seed") + 1]) + 1)
+    fused, dense = (ClipEvaluator(cfg, ds, impl="flash", precision="f32",
+                                  batch_size=batch, loss_impl=impl,
+                                  device="cuda").evaluate(st["params"])
+                    for impl in ("fused", "dense"))
+    del st
+    torch.cuda.empty_cache()
+    rel = abs(fused["eval_loss"] - dense["eval_loss"]) / abs(
+        dense["eval_loss"])
+    last = evals[-1][1] if evals else None
+    checks.check(last == {k: round(v, 5) for k, v in fused.items()}
+                 and rel <= TOL_K1 and all(
+                     fused[k] == dense[k] for k in fused if k != "eval_loss"),
+                 f"train --eval-every: last eval {last}, fused {fused}, "
+                 f"dense {dense}")
+    emit("train_eval_every", steps=steps, eval_every=every,
+         N=classes * per_class, launches=counts, launches_want=want,
+         evals=evals, eval_loss_fused=fused["eval_loss"],
+         eval_loss_dense=dense["eval_loss"], eval_loss_rel=rel, rtol=TOL_K1,
+         wall_seconds=wall, max_memory_allocated=mem)
 
 
 def main():
