@@ -84,7 +84,23 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
    ``eval`` line the evaluator's on the final params, its eval_loss the
    dense loss's within rtol 1e-5;
-12. report -- the kernels JSON line, the card line, and the last line
+12. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
+   shape of data:2,fsdp:2 at global batch 256 (64 rows x 256 gathered
+   columns x 512, row offsets 0, 64, 128, 192) against their plain
+   versions, timed; ``--mesh data:1,fsdp:1`` (a one-rank NCCL group)
+   through the launcher, held to phase train's run; ``--mesh
+   data:2,fsdp:2`` as 4 ranks sharing the card (gloo), spawned through
+   ``repro_torch.launch.multiprocess`` (this script's ``--mesh-worker``
+   ranks): 3 steps with ``--eval-every 2`` and a sharded checkpoint,
+   every rank's lines equal, exact launches per rank, each rank's peak
+   memory, the checkpoint verified and restored merged on the card; the
+   step-level checks on 4 ranks: step-1 gradients after the reduction
+   and merge against the single-device step's on the same global batch,
+   3 steps' loss and tau, microbatch 2 against 1 (step-1 gradients and
+   the trajectory at the same bounds; 48 K3 launches per rank per
+   step), the sharded top-k bitwise and the planted known answers exact
+   through the sharded retrieval;
+13. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -976,107 +992,114 @@ def _gcl_timings(GL, e1, e2, kw1, kw2, l1, l2, t1, t2, k1, k2, p1, p2):
             "pass_ms": pass_ms}
 
 
+def _gcl_case(checks, gen, case, timings, phase="gcl"):
+    """One case of K1 / K2 against their plain versions (and, for a timed
+    case, their timings into ``timings``); emits its line."""
+    import torch
+    from repro_torch.kernels import gcl_loss as GL
+    name, b, B, d, off, dt_name, tau, clamp, timed = case
+    dt = getattr(torch, dt_name)
+
+    def norm(x):
+        return (x / x.norm(dim=-1, keepdim=True)).to(dt).contiguous()
+    e1a, e2a = (norm(torch.randn((B, d), generator=gen, device="cuda"))
+                for _ in range(2))
+    if tau is None:
+        ta = 0.01 + 0.06 * torch.rand((2, B), generator=gen,
+                                      device="cuda")
+        ta[:, ::3] = 0.01
+    else:
+        ta = torch.full((2, B), tau, device="cuda")
+    # lwt = -log(eps + u) with u tracking g (as in the loss op), times
+    # a random factor in [0.2, 1.2): the backward exponents stay below
+    # log(B / 0.2), as on the training path
+    g1, g2, _, _, m1, m2 = GL.gcl_pair_stats_plain(e1a, e2a, ta[0],
+                                                    ta[1])
+    lwta = torch.stack([-(m1 + torch.log(g1)), -(m2 + torch.log(g2))]) \
+        + torch.log(torch.rand((2, B), generator=gen, device="cuda")
+                    + 0.2)
+    if clamp:
+        lwta[0, off] = 80.0      # exp(min(z + lwt, 60)) clamps here
+    sl = slice(off, off + b)
+    e1, e2 = e1a[sl].contiguous(), e2a[sl].contiguous()
+    t1, t2, l1, l2 = ta[0, sl], ta[1, sl], lwta[0, sl], lwta[1, sl]
+    kw1, kw2 = {}, {}
+    if b < B:
+        sda = torch.sum(e1a.float() * e2a.float(), dim=-1)
+        kw1 = dict(e1_all=e1a, e2_all=e2a, row_offset=off)
+        kw2 = dict(kw1, sd_all=sda, lwt1_all=lwta[0], lwt2_all=lwta[1],
+                   tau1_all=ta[0], tau2_all=ta[1])
+
+    def k1():
+        return GL.gcl_pair_stats(e1, e2, t1, t2, **kw1)
+
+    def p1():
+        return GL.gcl_pair_stats_plain(e1, e2, t1, t2, **kw1)
+
+    def k2():
+        return GL.gcl_pair_grads(e1, e2, l1, l2, t1, t2, **kw2)
+
+    def p2():
+        return GL.gcl_pair_grads_plain(e1, e2, l1, l2, t1, t2, **kw2)
+
+    s_k, s_p, g_k, g_p = k1(), p1(), k2(), p2()
+    s_k2, g_k2 = k1(), k2()          # no atomics: the same bits again
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, w) for a, w in zip(
+        [*s_k, *g_k], [*s_k2, *g_k2]))
+    if dt_name == "float32":
+        err1 = max((a - w).abs().max().item() for a, w in zip(s_k, s_p))
+        ok1 = all(torch.allclose(a, w, rtol=TOL_K1, atol=TOL_K1)
+                  for a, w in zip(s_k, s_p))
+    else:      # bf16: log g = m + log(g), as tests/test_kernels.py
+        err1 = max((s_k[4 + i] + torch.log(s_k[i]) - s_p[4 + i]
+                    - torch.log(s_p[i])).abs().max().item()
+                   for i in (0, 1))
+        ok1 = err1 <= TOL_K1_LOG_BF16
+    err2 = max((a - w).abs().max().item() for a, w in zip(g_k, g_p))
+    ok2 = all(bool(torch.isfinite(a).all())
+              and torch.allclose(a, w, rtol=TOL_K2[0], atol=TOL_K2[1])
+              for a, w in zip(g_k, g_p))
+    checks.check(ok1 and math.isfinite(err1),
+                 f"gcl_pair_stats {name}: max abs err {err1}")
+    checks.check(ok2, f"gcl_pair_grads {name}: max abs err {err2}")
+    checks.check(bitwise, f"gcl {name}: two calls differ")
+    rec = dict(case=name, b=b, B=B, d=d, row_offset=off, dtype=dt_name,
+               tau=tau if tau is not None else "rows 0.01..0.07",
+               clamp_row=clamp, stats_max_abs_err=err1, stats_ok=ok1,
+               grads_max_abs_err=err2, grads_ok=ok2,
+               bitwise_deterministic=bitwise)
+    if clamp:
+        rec["grads_tol_ratio_vs_f64"] = {
+            "kernel": _grads_tol_ratio_vs_f64(GL, g_k, e1, e2, l1, l2, t1,
+                                              t2, kw2),
+            "plain": _grads_tol_ratio_vs_f64(GL, g_p, e1, e2, l1, l2, t1,
+                                             t2, kw2)}
+    if timed:
+        t = _gcl_timings(GL, e1, e2, kw1, kw2, l1, l2, t1, t2, k1, k2,
+                         p1, p2)
+        rec["pass_ms"] = t["pass_ms"]
+        for kernel, err in (("stats", err1), ("grads", err2)):
+            b_ms, b_by = gcl_bound(kernel, b, B, d, dt_name, b == B)
+            tk = dict(t[kernel], shape=[b, B, d], dtype=dt_name,
+                      row_offset=off, max_abs_err=err, bound_ms=b_ms,
+                      bound_by=b_by, tc_floor_ms=gcl_tc_floor(
+                          kernel, b, B, d, dt_name, b == B))
+            timings[name, kernel] = tk
+            rec.update({f"{kernel}_{k}": v for k, v in tk.items()
+                        if k not in ("shape", "dtype", "row_offset",
+                                     "max_abs_err")})
+    emit(phase, **rec)
+
+
 def phase_gcl(checks):
     """K1 / K2 vs their plain versions; returns {(case, kernel): timing
     dict} for the timed cases."""
     import torch
-    from repro_torch.kernels import gcl_loss as GL
     gen = torch.Generator(device="cuda").manual_seed(2)
     timings = {}
-    for name, b, B, d, off, dt_name, tau, clamp, timed in GCL_CASES:
-        dt = getattr(torch, dt_name)
-
-        def norm(x):
-            return (x / x.norm(dim=-1, keepdim=True)).to(dt).contiguous()
-        e1a, e2a = (norm(torch.randn((B, d), generator=gen, device="cuda"))
-                    for _ in range(2))
-        if tau is None:
-            ta = 0.01 + 0.06 * torch.rand((2, B), generator=gen,
-                                          device="cuda")
-            ta[:, ::3] = 0.01
-        else:
-            ta = torch.full((2, B), tau, device="cuda")
-        # lwt = -log(eps + u) with u tracking g (as in the loss op), times
-        # a random factor in [0.2, 1.2): the backward exponents stay below
-        # log(B / 0.2), as on the training path
-        g1, g2, _, _, m1, m2 = GL.gcl_pair_stats_plain(e1a, e2a, ta[0],
-                                                        ta[1])
-        lwta = torch.stack([-(m1 + torch.log(g1)), -(m2 + torch.log(g2))]) \
-            + torch.log(torch.rand((2, B), generator=gen, device="cuda")
-                        + 0.2)
-        if clamp:
-            lwta[0, off] = 80.0      # exp(min(z + lwt, 60)) clamps here
-        sl = slice(off, off + b)
-        e1, e2 = e1a[sl].contiguous(), e2a[sl].contiguous()
-        t1, t2, l1, l2 = ta[0, sl], ta[1, sl], lwta[0, sl], lwta[1, sl]
-        kw1, kw2 = {}, {}
-        if b < B:
-            sda = torch.sum(e1a.float() * e2a.float(), dim=-1)
-            kw1 = dict(e1_all=e1a, e2_all=e2a, row_offset=off)
-            kw2 = dict(kw1, sd_all=sda, lwt1_all=lwta[0], lwt2_all=lwta[1],
-                       tau1_all=ta[0], tau2_all=ta[1])
-
-        def k1():
-            return GL.gcl_pair_stats(e1, e2, t1, t2, **kw1)
-
-        def p1():
-            return GL.gcl_pair_stats_plain(e1, e2, t1, t2, **kw1)
-
-        def k2():
-            return GL.gcl_pair_grads(e1, e2, l1, l2, t1, t2, **kw2)
-
-        def p2():
-            return GL.gcl_pair_grads_plain(e1, e2, l1, l2, t1, t2, **kw2)
-
-        s_k, s_p, g_k, g_p = k1(), p1(), k2(), p2()
-        s_k2, g_k2 = k1(), k2()          # no atomics: the same bits again
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(a, w) for a, w in zip(
-            [*s_k, *g_k], [*s_k2, *g_k2]))
-        if dt_name == "float32":
-            err1 = max((a - w).abs().max().item() for a, w in zip(s_k, s_p))
-            ok1 = all(torch.allclose(a, w, rtol=TOL_K1, atol=TOL_K1)
-                      for a, w in zip(s_k, s_p))
-        else:      # bf16: log g = m + log(g), as tests/test_kernels.py
-            err1 = max((s_k[4 + i] + torch.log(s_k[i]) - s_p[4 + i]
-                        - torch.log(s_p[i])).abs().max().item()
-                       for i in (0, 1))
-            ok1 = err1 <= TOL_K1_LOG_BF16
-        err2 = max((a - w).abs().max().item() for a, w in zip(g_k, g_p))
-        ok2 = all(bool(torch.isfinite(a).all())
-                  and torch.allclose(a, w, rtol=TOL_K2[0], atol=TOL_K2[1])
-                  for a, w in zip(g_k, g_p))
-        checks.check(ok1 and math.isfinite(err1),
-                     f"gcl_pair_stats {name}: max abs err {err1}")
-        checks.check(ok2, f"gcl_pair_grads {name}: max abs err {err2}")
-        checks.check(bitwise, f"gcl {name}: two calls differ")
-        rec = dict(case=name, b=b, B=B, d=d, row_offset=off, dtype=dt_name,
-                   tau=tau if tau is not None else "rows 0.01..0.07",
-                   clamp_row=clamp, stats_max_abs_err=err1, stats_ok=ok1,
-                   grads_max_abs_err=err2, grads_ok=ok2,
-                   bitwise_deterministic=bitwise)
-        if clamp:
-            rec["grads_tol_ratio_vs_f64"] = {
-                "kernel": _grads_tol_ratio_vs_f64(GL, g_k, e1, e2, l1, l2, t1,
-                                                  t2, kw2),
-                "plain": _grads_tol_ratio_vs_f64(GL, g_p, e1, e2, l1, l2, t1,
-                                                 t2, kw2)}
-        if timed:
-            t = _gcl_timings(GL, e1, e2, kw1, kw2, l1, l2, t1, t2, k1, k2,
-                             p1, p2)
-            rec["pass_ms"] = t["pass_ms"]
-            for kernel, err in (("stats", err1), ("grads", err2)):
-                b_ms, b_by = gcl_bound(kernel, b, B, d, dt_name, b == B)
-                tk = dict(t[kernel], shape=[b, B, d], dtype=dt_name,
-                          row_offset=off, max_abs_err=err, bound_ms=b_ms,
-                          bound_by=b_by, tc_floor_ms=gcl_tc_floor(
-                              kernel, b, B, d, dt_name, b == B))
-                timings[name, kernel] = tk
-                rec.update({f"{kernel}_{k}": v for k, v in tk.items()
-                            if k not in ("shape", "dtype", "row_offset",
-                                         "max_abs_err")})
-        emit("gcl", **rec)
-        del e1a, e2a, e1, e2, s_k, s_p, g_k, g_p, s_k2, g_k2
+    for case in GCL_CASES:
+        _gcl_case(checks, gen, case, timings)
     checks.end_phase("gcl")
     return timings
 
@@ -1617,6 +1640,10 @@ def phase_train(checks):
          ms_per_step_after_warmup=ms_step, wall_seconds=wall_k,
          max_memory_allocated=mem_k, f32_masters=dtypes_ok)
     u_k = [st_k["fc"][u].clone() for u in ("u1", "u2")]
+    # phase mesh holds its data:1,fsdp:1 run to this run
+    from repro_torch.checkpoint import bridge, flatten
+    ref_tree = {k: v.detach().cpu().numpy() for k, v in flatten(
+        bridge.state_to_tree(st_k)).items()}
     del st_k
 
     st_p, rec_p, _, wall_p, mem_p = run(
@@ -1660,7 +1687,7 @@ def phase_train(checks):
     del st_b
     _train_eval_every(checks, cfg, run)
     checks.end_phase("train")
-    return counts
+    return counts, rec_k, ref_tree
 
 
 def _train_eval_every(checks, cfg, run):
@@ -1722,6 +1749,452 @@ def _train_eval_every(checks, cfg, run):
          wall_seconds=wall, max_memory_allocated=mem)
 
 
+# ---------------------------------------------------------------------------
+# phase mesh: the (data, fsdp) mesh on the card
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("data", "fsdp")
+MESH_ARGS = TRAIN_ARGS + ["--precision", "f32", "--steps", "3"]
+# K1 / K2 at the per-rank shape of data:2,fsdp:2 at global batch 256: each
+# rank's 64 rows against the 256 gathered columns, at its row offset
+MESH_GCL_CASES = [(f"mesh_rank{r}", 64, 256, 512, 64 * r, "float32", 0.07,
+                   False, True) for r in range(4)]
+MESH_EVAL_N = EVAL_CLASSES * EVAL_PER_CLASS
+
+
+def _counters():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gcl_loss as GL
+    return dict(flash_attention=FA.flash_attention.launches,
+                gcl_pair_stats=GL.gcl_pair_stats.launches,
+                gcl_pair_grads=GL.gcl_pair_grads.launches,
+                gcl_pair_stats_cuda=GL.gcl_pair_stats.cuda_launches,
+                gcl_pair_grads_cuda=GL.gcl_pair_grads.cuda_launches)
+
+
+def _zero_counters():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gcl_loss as GL
+    FA.flash_attention.launches = 0
+    for fn in (GL.gcl_pair_stats, GL.gcl_pair_grads):
+        fn.launches = fn.cuda_launches = 0
+
+
+def _train_launches(cfg, steps, evals, eval_pairs, eval_batch, mb=1):
+    """Launches of one rank's (or one device's) launcher run: K3 in both
+    towers per step (per micro-step), K1 and K2 once per step; an eval
+    pass runs K3 over its batches and the prompt head, K1 once."""
+    n_layers = cfg.n_layers + cfg.clip.vision_layers
+    flash = n_layers * steps * mb + evals * (
+        n_layers * -(-eval_pairs // eval_batch) + cfg.n_layers)
+    return dict(flash_attention=flash, gcl_pair_stats=steps + evals,
+                gcl_pair_grads=steps,
+                gcl_pair_stats_cuda=2 * (steps + evals),
+                gcl_pair_grads_cuda=2 * steps)
+
+
+def _flag(argv, name, default=0):
+    return int(argv[argv.index(name) + 1]) if name in argv else default
+
+
+def _step_gaps_ms(record, eval_every, ckpt_every):
+    """Host-clock gaps between consecutive steps' records that hold a
+    step alone: a gap after step s holds the eval when (s + 1) is a
+    multiple of ``eval_every`` and the checkpoint when it is one of
+    ``ckpt_every`` (0: never), and those gaps are left out."""
+    return [(b["time"] - a["time"]) * 1e3 for a, b in zip(record, record[1:])
+            if not any(n and (a["step"] + 1) % n == 0
+                       for n in (eval_every, ckpt_every))]
+
+
+def _state_digests(state):
+    """{flat path: sha256 of the leaf's bytes} of a train state (a rank's
+    shards or a full tree of tensors)."""
+    import hashlib
+    from repro_torch.checkpoint import flatten
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, v in flatten(state).items()}
+
+
+def _restore_vs_rank_shards(tree, rank_digests, data, fsdp):
+    """The leaves where the merged restore ``tree``, cut into rank r's
+    shards of the (data, fsdp) mesh, differs in any bit from the shards
+    rank r held at the end of its run (``rank_digests[r]``)."""
+    import torch
+    from repro_torch.core import shard_state as SS
+    from repro_torch.launch import mesh as MS
+    bad = []
+    for r, want in enumerate(rank_digests):
+        mesh = MS.Mesh(data, fsdp, r, torch.device("cpu"), None,
+                       {"data": None, "fsdp": None})
+        got = _state_digests(SS.shard_train_state(tree, mesh))
+        bad += [f"rank{r}:{k}" for k in sorted(set(got) | set(want or {}))
+                if got.get(k) != (want or {}).get(k)]
+    return bad
+
+
+def _mesh_worker_train(argv):
+    """One rank of the launcher on the mesh: reports its launches, its
+    peak memory, the host-clock time of its steps that ran no eval or
+    checkpoint, and the digests of its final shards on one JSON line."""
+    import torch
+    from repro_torch.launch import train
+    rank = int(argv[argv.index("--process-id") + 1])
+    _zero_counters()
+    record = []
+    state = train.main(argv, record=record)
+    print(json.dumps({"mesh_rank": rank, "launches": _counters(),
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(),
+                      "losses": [r["loss"] for r in record],
+                      "ms_step_gaps_without_eval": _step_gaps_ms(
+                          record, _flag(argv, "--eval-every"),
+                          _flag(argv, "--ckpt-every")),
+                      "state_sha256": _state_digests(state)}), flush=True)
+
+
+def _mesh_batches(cfg, rank, steps, full):
+    """The first ``steps`` (idx, batch) of the launcher's 4-shard loader
+    at MESH_ARGS: this rank's rows, or (``full``) the whole global batch,
+    on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.data import ContrastiveDataset, ShardedLoader
+    ds = ContrastiveDataset(n=2048, image_size=cfg.clip.image_size,
+                            context_length=cfg.clip.context_length,
+                            vocab_size=cfg.vocab_size, n_classes=64)
+    loader = ShardedLoader(ds, global_batch=256, n_shards=4, seed=0,
+                           owned_shards=None if full else (rank,))
+    out = []
+    for _, _, idx, batch in loader.steps(steps):
+        idx = idx if full else loader._owned_rows(idx)
+        out.append((torch.from_numpy(np.asarray(idx)).cuda(),
+                    {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
+    return out
+
+
+def _mesh_worker_step(argv):
+    """One rank of the step-level checks on the card (data:2,fsdp:2):
+    step-1 gradients after the reduction and merge against the
+    single-device step's on the same global batch; 3 steps against 3
+    single-device steps; microbatch 2 against 1; the sharded eval forms.
+    Rank 0 reports the comparisons; every rank its launches."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import bridge, flatten, unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.core import shard_state as SS
+    from repro_torch.core import train_step as TS
+    from repro_torch.data import ZeroShotEvalDataset
+    from repro_torch.eval import engine as EN
+    from repro_torch.eval import planted as PL
+    from repro_torch.eval import retrieval as RT
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import multiprocess as MP
+    rank = int(argv[argv.index("--process-id") + 1])
+    dev = MP.initialize(argv[argv.index("--coordinator") + 1],
+                        int(argv[argv.index("--num-processes") + 1]), rank,
+                        "cuda")
+    rep = {"mesh_rank": rank}
+    try:
+        mesh = MS.make_train_mesh(2, 2, device=dev)
+        rep["backend"] = mesh.backend
+        cfg = get_arch(ARCH)
+        tc1 = _train_config(cfg, "flash", "fused")
+        tcm = dataclasses.replace(tc1, fsdp=True, mesh_axes=MESH_AXES)
+        st1 = TS.init_train_state(torch.Generator().manual_seed(0), tc1,
+                                  "cpu")
+        tree = unflatten({k: v.clone() for k, v in flatten(
+            bridge.state_to_tree(st1)).items()})
+        local = _mesh_batches(cfg, rank, 3, full=False)
+        step = TS.make_train_step(tcm)
+        dims = step.param_dims
+        gamma = tc1.fc.gamma_fn()(torch.zeros((), dtype=torch.int32))
+        st = SS.shard_train_state(tree, mesh, dims)
+        _, _, g_sh, _ = step.step_grads(st, local[0][1], local[0][0], gamma)
+        g_full = SS.full_params(g_sh, dims)
+        full = _mesh_batches(cfg, rank, 3, full=True) if rank == 0 else None
+        if rank == 0:
+            # the single-device step on the same global batch
+            st1 = bridge.state_from_tree(
+                {**st1, "params": st1["params"].cuda()}, tree)
+            core = TS.make_loss_core(tc1.fc, "fused")
+            _, _, g1, _ = TS.step_grads(tc1, core, st1, full[0][1],
+                                        full[0][0], gamma)
+            g1 = flatten(bridge.named_to_tree(st1["params"], g1))
+            rel = {k: ((g_full[k] - g1[k]).norm() / g1[k].norm().clamp_min(
+                1e-30)).item() for k in g1}
+            worst = max(rel, key=rel.get)
+            rep.update(grad_leaves=len(rel), grad_worst_leaf=worst,
+                       grad_worst_rel_l2=rel[worst])
+            del g1
+        del g_sh
+        # step-1 gradients through two micro-steps per rank
+        step2 = TS.make_train_step(dataclasses.replace(tcm, microbatch=2))
+        _, _, g2, _ = step2.step_grads(st, local[0][1], local[0][0], gamma)
+        g2 = SS.full_params(g2, dims)
+        rel = {k: ((g2[k] - g_full[k]).norm() / g_full[k].norm().clamp_min(
+            1e-30)).item() for k in g_full}
+        worst = max(rel, key=rel.get)
+        rep.update(mb2_grad_worst_leaf=worst, mb2_grad_worst_rel_l2=rel[worst])
+        del g2, st, g_full
+        # three steps: sharded (microbatch 1, then 2) and single-device
+        runs = {}
+        for mb in (1, 2):
+            s = SS.shard_train_state(tree, mesh, dims)
+            fn = TS.make_train_step(dataclasses.replace(tcm, microbatch=mb))
+            losses, taus, per_step = [], [], []
+            for idx, batch in local:
+                _zero_counters()
+                s, m = fn(s, batch, idx)
+                per_step.append(_counters())
+                losses.append(float(m["loss"]))
+                taus.append(float(m["tau"]))
+            runs[mb] = (losses, taus, SS.full_params(s["params"], dims))
+            rep[f"mb{mb}_launches_per_step"] = per_step
+            del s
+        if rank == 0:
+            fn1 = TS.make_train_step(tc1, "cuda")
+            losses, taus = [], []
+            for idx, batch in full:
+                st1, m = fn1(st1, batch, idx)
+                losses.append(float(m["loss"]))
+                taus.append(float(m["tau"]))
+            rep["single_losses"], rep["single_taus"] = losses, taus
+            rep["mesh_losses"], rep["mesh_taus"] = runs[1][:2]
+            rep["traj_worst_rel"] = max(
+                abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+                    runs[1][0] + runs[1][1], losses + taus))
+            rep["mb2_traj_worst_rel"] = max(
+                abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+                    runs[2][0] + runs[2][1], runs[1][0] + runs[1][1]))
+            rep["mb2_dloss"] = max(abs(a - b) for a, b in zip(
+                runs[1][0], runs[2][0]))
+            rep["mb2_dparam"] = max(
+                (runs[1][2][k] - runs[2][2][k]).abs().max().item()
+                for k in runs[1][2])
+            del st1
+        del runs
+        torch.cuda.empty_cache()
+        # the sharded eval forms, exact
+        q1, q2 = quantized_emb(MESH_EVAL_N, 512, 0), quantized_emb(
+            MESH_EVAL_N, 512, 1)
+        q2[10:13] = q2[3:6]                          # exact ties
+        (s1, i1), (s2, i2) = RT.sharded_retrieval_topk(
+            mesh, MESH_AXES, q1, q2, RETRIEVAL_K, chunk=RETRIEVAL_CHUNK)
+        (d1, j1), (d2, j2) = RT.retrieval_topk(q1, q2, RETRIEVAL_K,
+                                               chunk=RETRIEVAL_CHUNK)
+        rep["sharded_topk_bitwise"] = bool(
+            torch.equal(i1, j1) and torch.equal(i2, j2)
+            and _bits_equal(s1, d1) and _bits_equal(s2, d2))
+        ds = ZeroShotEvalDataset(n_classes=EVAL_CLASSES,
+                                 n_per_class=EVAL_PER_CLASS, seed=0)
+        got = EN.evaluate_planted(PL.planted_params(ds, dev), ds,
+                                  batch_size=EVAL_BATCH, device=dev,
+                                  mesh=mesh, axes=MESH_AXES)
+        want = PL.known_answers(ds)
+        rep["planted_exact"] = all(got[k] == v for k, v in want.items())
+        rep["planted"] = got
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    finally:
+        MS.set_mesh(None)
+        MP.shutdown()
+    print(json.dumps(rep), flush=True)
+
+
+def _spawn_mesh(kind, args, timeout):
+    """4 ranks of this script's worker ``kind`` on the card; returns
+    (harness results, one report dict per rank)."""
+    from repro_torch.launch import multiprocess as MP
+    res = MP.run_train_multiprocess(
+        ["--mesh-worker", kind, *args], num_processes=4, timeout=timeout,
+        module="chip_smoke",
+        env_extra={"PYTHONPATH": os.pathsep.join([SRC, ROOT])})
+    reports = []
+    for r in res:
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith('{"mesh_rank"')]
+        reports.append(json.loads(lines[-1]) if lines else None)
+    return res, reports
+
+
+def phase_mesh(checks, train_rec, train_tree):
+    """The (data, fsdp) mesh on the card; returns the kernels' per-rank
+    launches of the data:2,fsdp:2 launcher run and the K1/K2 timings at
+    the per-rank shape."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch.checkpoint import bridge, flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    from repro_torch.launch import train
+
+    cfg = get_arch(ARCH)
+    # K1 / K2 at the per-rank shape, each row offset
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timings = {}
+    for case in MESH_GCL_CASES:
+        _gcl_case(checks, gen, case, timings, phase="mesh_gcl")
+
+    # data:1,fsdp:1: a one-rank group (NCCL), held to phase train's run
+    d1 = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+    try:
+        _zero_counters()
+        record, out = [], io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            train.main(MESH_ARGS + ["--mesh", "data:1,fsdp:1", "--ckpt-dir",
+                                    d1, "--ckpt-every", "100"], record=record)
+        wall = time.monotonic() - t0
+        counts = _counters()
+        first = out.getvalue().splitlines()[0]
+        tree, step, _ = CK.restore(d1, CK.unflatten(
+            {k: v for k, v in train_tree.items()}))
+    finally:
+        shutil.rmtree(d1, ignore_errors=True)
+    tree = flatten(tree)
+    want = _train_launches(cfg, 3, 0, 0, 1)
+    traj = max(abs(r[k] - w[k]) / max(abs(w[k]), 1e-30)
+               for r, w in zip(record, train_rec)
+               for k in ("loss", "tau", "loss_value", "u_mean"))
+    lines_bitwise = all(r[k] == w[k] for r, w in zip(record, train_rec)
+                        for k in w if k not in ("time",))
+    state_bitwise = all(tree[k].tobytes() == train_tree[k].tobytes()
+                        for k in train_tree)
+    state_err = max(float(np.max(np.abs(
+        tree[k][np.isfinite(train_tree[k])].astype(np.float64)
+        - train_tree[k][np.isfinite(train_tree[k])]), initial=0.0))
+        for k in train_tree if tree[k].dtype.kind == "f")
+    checks.check(first.startswith("mesh data:1,fsdp:1 backend nccl world 1"),
+                 f"mesh 1x1: first line {first!r}")
+    checks.check(counts == want, f"mesh 1x1: launches {counts}, want {want}")
+    checks.check(len(record) == 3 and traj <= TOL_TRAIN_TRAJ and step == 3,
+                 f"mesh 1x1: trajectory rel {traj} vs the single-device run")
+    emit("mesh_1x1", first_line=first, launches=counts, launches_want=want,
+         losses=[r["loss"] for r in record], worst_rel_traj=traj,
+         tol=TOL_TRAIN_TRAJ, log_lines_bitwise=lines_bitwise,
+         final_state_bitwise=state_bitwise, final_state_max_abs_err=state_err,
+         ms_step_gaps=_step_gaps_ms(record, 0, 100), wall_seconds=wall)
+    del tree
+
+    # data:2,fsdp:2: four ranks sharing the card (gloo), through the
+    # multi-process launcher, with --eval-every and a sharded checkpoint
+    torch.cuda.empty_cache()
+    d4 = tempfile.mkdtemp(prefix="chip_smoke_mesh4_")
+    try:
+        t0 = time.monotonic()
+        res, reps = _spawn_mesh("train", MESH_ARGS + [
+            "--mesh", "data:2,fsdp:2", "--eval-every", "2",
+            "--eval-classes", "8", "--eval-per-class", "8", "--eval-batch",
+            "64", "--ckpt-dir", d4, "--ckpt-every", "100"], 900)
+        wall = time.monotonic() - t0
+        rcs = [r.returncode for r in res]
+        for r in res:
+            if r.returncode:
+                print(r.stderr[-3000:], file=sys.stderr, flush=True)
+        lines = [[ln for ln in r.stdout.splitlines()
+                  if ln.startswith(("step ", "eval "))] for r in res]
+        want4 = _train_launches(cfg, 3, 2, 64, 64)
+        launches = [rp["launches"] if rp else None for rp in reps]
+        ok_ckpt = CK.latest_step(d4) == 3
+        tree, _, _ = CK.restore(d4, CK.unflatten(
+            {k: v for k, v in train_tree.items()}))
+        # bitwise: the merged restore against every rank's final shards
+        differ = _restore_vs_rank_shards(
+            tree, [(rp or {}).get("state_sha256") for rp in reps], 2, 2)
+        # merged on one device: a single-device state on the card
+        st = TS.init_train_state(torch.Generator().manual_seed(1),
+                                 _train_config(cfg, "flash", "fused"), "cuda")
+        st = bridge.state_from_tree(st, tree)
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in st["params"].parameters())
+        del st, tree
+    finally:
+        shutil.rmtree(d4, ignore_errors=True)
+    checks.check(rcs == [0] * 4, f"mesh 2x2 launcher: exit codes {rcs}")
+    checks.check(all(ln == lines[0] for ln in lines)
+                 and len([x for x in lines[0] if x.startswith("step ")]) == 3
+                 and len([x for x in lines[0] if x.startswith("eval ")]) == 2,
+                 f"mesh 2x2 launcher: rank lines differ {lines}")
+    checks.check(launches == [want4] * 4,
+                 f"mesh 2x2 launcher: launches {launches}, want {want4}")
+    checks.check(ok_ckpt and finite and not differ,
+                 "mesh 2x2 launcher: the sharded checkpoint does not verify "
+                 f"or restore merged (leaves differing from the ranks' "
+                 f"final shards: {differ[:8]})")
+    emit("mesh_2x2_launcher", exit_codes=rcs, step_lines=lines[0],
+         launches_per_rank=launches, launches_want=want4,
+         max_memory_allocated_per_rank=[
+             rp["max_memory_allocated"] if rp else None for rp in reps],
+         ms_step_gaps_without_eval_per_rank=[
+             rp["ms_step_gaps_without_eval"] if rp else None for rp in reps],
+         checkpoint_verified=ok_ckpt, restored_merged_finite=finite,
+         restored_merged_equals_rank_shards_bitwise=not differ,
+         wall_seconds=wall)
+
+    # step-level parity, microbatch 2, the sharded eval forms
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    res, reps = _spawn_mesh("step", [], 900)
+    wall = time.monotonic() - t0
+    rcs = [r.returncode for r in res]
+    for r in res:
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr, flush=True)
+    r0 = reps[0] or {}
+    want1 = _train_launches(cfg, 1, 0, 0, 1)
+    want2 = _train_launches(cfg, 1, 0, 0, 1, mb=2)
+    per_step = [(rp or {}).get("mb1_launches_per_step") for rp in reps]
+    per_step2 = [(rp or {}).get("mb2_launches_per_step") for rp in reps]
+    checks.check(rcs == [0] * 4 and all(reps),
+                 f"mesh step: exit codes {rcs}")
+    checks.check(r0.get("grad_worst_rel_l2", 1.0) <= TOL_TRAIN_GRAD,
+                 f"mesh step: step-1 grads, worst leaf "
+                 f"{r0.get('grad_worst_leaf')} rel L2 "
+                 f"{r0.get('grad_worst_rel_l2')}")
+    checks.check(r0.get("traj_worst_rel", 1.0) <= TOL_TRAIN_TRAJ,
+                 f"mesh step: loss/tau trajectory rel "
+                 f"{r0.get('traj_worst_rel')}")
+    checks.check(r0.get("mb2_grad_worst_rel_l2", 1.0) <= TOL_TRAIN_GRAD
+                 and r0.get("mb2_traj_worst_rel", 1.0) <= TOL_TRAIN_TRAJ,
+                 f"mesh step: microbatch 2 vs 1 step-1 grads rel L2 "
+                 f"{r0.get('mb2_grad_worst_rel_l2')}, trajectory rel "
+                 f"{r0.get('mb2_traj_worst_rel')}")
+    checks.check(per_step == [[want1] * 3] * 4
+                 and per_step2 == [[want2] * 3] * 4,
+                 f"mesh step: launches per step {per_step} / {per_step2}, "
+                 f"want {want1} / {want2}")
+    checks.check(all((rp or {}).get("sharded_topk_bitwise")
+                     and (rp or {}).get("planted_exact") for rp in reps),
+                 "mesh step: the sharded eval is not exact")
+    emit("mesh_step", exit_codes=rcs, backend=r0.get("backend"),
+         grad_leaves=r0.get("grad_leaves"),
+         grad_worst_leaf=r0.get("grad_worst_leaf"),
+         grad_worst_rel_l2=r0.get("grad_worst_rel_l2"), tol=TOL_TRAIN_GRAD,
+         mesh_losses=r0.get("mesh_losses"),
+         single_losses=r0.get("single_losses"),
+         mesh_taus=r0.get("mesh_taus"), single_taus=r0.get("single_taus"),
+         traj_worst_rel=r0.get("traj_worst_rel"), traj_tol=TOL_TRAIN_TRAJ,
+         mb2_grad_worst_leaf=r0.get("mb2_grad_worst_leaf"),
+         mb2_grad_worst_rel_l2=r0.get("mb2_grad_worst_rel_l2"),
+         mb2_traj_worst_rel=r0.get("mb2_traj_worst_rel"),
+         mb2_dloss=r0.get("mb2_dloss"), mb2_dparam_after_3_steps=r0.get(
+             "mb2_dparam"), launches_per_step_mb1=want1,
+         launches_per_step_mb2=want2,
+         sharded_topk_bitwise=[(rp or {}).get("sharded_topk_bitwise")
+                               for rp in reps],
+         planted=r0.get("planted"),
+         max_memory_allocated_per_rank=[
+             (rp or {}).get("max_memory_allocated") for rp in reps],
+         wall_seconds=wall)
+    checks.end_phase("mesh")
+    return {"launches_per_rank": launches[0], "gcl": timings}
+
+
 def main():
     checks = Checks()
     phase_device()
@@ -1741,7 +2214,10 @@ def main():
     import torch
     del model
     torch.cuda.empty_cache()
-    train_launches = phase_train(checks)
+    train_launches, train_rec, train_tree = phase_train(checks)
+    torch.cuda.empty_cache()
+    mesh_out = phase_mesh(checks, train_rec, train_tree)
+    del train_tree
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -1765,7 +2241,11 @@ def main():
             "max_abs_err": max(t["max_abs_err"], t["max_abs_err_mha"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            # one rank's launches in the data:2,fsdp:2 launcher run (3
+            # steps at 64 rows per rank, 2 evals)
+            "mesh_launches_per_rank": mesh_out["launches_per_rank"][
+                "flash_attention"]})
     for name, kernel, line in (("gcl_pair_stats", "stats", 169),
                                ("gcl_pair_grads", "grads", 362)):
         t = gcl_timings["main", kernel]
@@ -1791,6 +2271,14 @@ def main():
             **extra,
             **({f"eval_{k}": v for k, v in k1_eval.items()}
                if name == "gcl_pair_stats" else {}),
+            "mesh_launches_per_rank": mesh_out["launches_per_rank"][name],
+            "mesh_cuda_launches_per_rank": mesh_out["launches_per_rank"][
+                f"{name}_cuda"],
+            **{f"{case[0]}_{k}": mesh_out["gcl"][case[0], kernel][k]
+               for case in MESH_GCL_CASES
+               for k in ("shape", "row_offset", "ms", "kernel_only_ms",
+                         "plain_ms", "bound_ms", "tc_floor_ms",
+                         "max_abs_err")},
             # no single PyTorch call computes the FCCO row statistics or
             # their closed-form gradients
             "library_ms": None})
@@ -1822,4 +2310,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        # one rank of phase mesh (spawned by it, never by hand)
+        sys.path.insert(0, SRC)
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        {"train": _mesh_worker_train, "step": _mesh_worker_step}[
+            sys.argv[2]](sys.argv[3:])
+    else:
+        main()

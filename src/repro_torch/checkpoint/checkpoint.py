@@ -12,13 +12,27 @@ JAX package wrote restores here and the reverse.
 
 Trees are nested ``dict``s (sorted key order, as JAX flattens them)
 whose leaves are numpy arrays or tensors; restores return numpy arrays.
-Multi-process (rank-tagged) checkpoints are not read by this port yet.
+
+Sharded saves (``save_sharded``, the (data, fsdp) mesh of
+``core.shard_state``) write the JAX package's format: shard file ``k``
+holds every fsdp-sharded leaf's k-th piece along the dim recorded in the
+sidecar.  With more than one rank, every rank writes its block of the
+sample-sharded leaves (the FCCO u and v2 tau buffers) to a rank-tagged
+file ``ckpt_XXXXXXXX.rankRRofPP.npz`` plus a commit meta with the
+block's digest and global start; rank 0 writes the shard files, waits on
+a filesystem-polling barrier for every rank's commit meta, folds them
+into the sidecar (``ranks``) and only then writes ``latest``, so the
+marker never names a step some rank has not finished.  Restore merges
+both (concatenation along the recorded dims, rank blocks in start
+order), so a step saved at one mesh shape restores bit-exactly at any
+other, in either package.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -77,6 +91,16 @@ def _shard_file(directory: str, step: int, k: int, n: int) -> str:
                         f"ckpt_{step:08d}.shard{k:02d}of{n:02d}.npz")
 
 
+def _rank_file(directory: str, step: int, r: int, p: int) -> str:
+    return os.path.join(directory,
+                        f"ckpt_{step:08d}.rank{r:02d}of{p:02d}.npz")
+
+
+def _rank_meta_file(directory: str, step: int, r: int, p: int) -> str:
+    return os.path.join(directory,
+                        f"ckpt_{step:08d}.rank{r:02d}of{p:02d}.meta.json")
+
+
 def _step_files(directory: str, step: int, nshards: int) -> List[str]:
     if nshards == 1:
         return [os.path.join(directory, f"ckpt_{step:08d}.npz")]
@@ -96,41 +120,170 @@ def _read_meta(directory: str, step: int) -> Optional[Dict]:
     return _read_json(os.path.join(directory, f"ckpt_{step:08d}.json"))
 
 
-def save(directory: str, tree: Any, step: int,
-         metadata: Optional[Dict] = None) -> str:
-    """Single-file save of a nested dict of arrays/tensors.  Returns the
-    npz path."""
-    os.makedirs(directory, exist_ok=True)
-    arrays = {k: _to_numpy(v) for k, v in flatten(tree).items()}
-    path_npz = os.path.join(directory, f"ckpt_{step:08d}.npz")
+def _wait_for(pred, timeout: float, what: str):
+    """Filesystem-polling barrier: poll ``pred()`` until it returns
+    something truthy (returned), raising after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"multi-process checkpoint barrier timed out after "
+                f"{timeout:.0f}s waiting for {what} (a peer rank died or "
+                "fell behind)")
+        time.sleep(0.05)
 
-    def write_npz(tmp):
+
+def _collect_rank_metas(directory: str, step: int, p: int):
+    metas = []
+    for r in range(p):
+        m = _read_json(_rank_meta_file(directory, step, r, p))
+        if m is None or m.get("step") != step or m.get("count") != p:
+            return None
+        metas.append(m)
+    return metas
+
+
+def _sidecar_committed(directory: str, step: int, p: int) -> bool:
+    meta = _read_meta(directory, step)
+    return bool(meta and meta.get("step") == step
+                and int(meta.get("ranks", {}).get("count", 0)) == p)
+
+
+def _savez(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    def write(tmp):
         # through a handle: savez would append ".npz" to the tmp name
         with open(tmp, "wb") as f:
             np.savez_compressed(f, **arrays)
+    _atomic_replace(path, write)
 
-    _atomic_replace(path_npz, write_npz)
-    meta = {"step": step, "order": list(arrays), "metadata": metadata or {},
-            "digests": {k: [_digest(a)] for k, a in arrays.items()}}
 
-    def write_json(tmp):
+def _write_json(path: str, obj) -> None:
+    def write(tmp):
         with open(tmp, "w") as f:
-            json.dump(meta, f)
+            json.dump(obj, f)
+    _atomic_replace(path, write)
 
-    _atomic_replace(os.path.join(directory, f"ckpt_{step:08d}.json"),
-                    write_json)
+
+def _write_step(directory: str, step: int, pieces, dims, order,
+                metadata: Optional[Dict], local=None, process_index: int = 0,
+                process_count: int = 1,
+                barrier_timeout: float = 120.0) -> List[str]:
+    """The one write path: array file(s), then the digest-carrying
+    sidecar, then the ``latest`` marker.  ``pieces``: {key: [array per
+    shard piece]}; ``local``: {key: (global start, block)} of this rank's
+    sample-sharded leaves (multi-process only)."""
+    os.makedirs(directory, exist_ok=True)
+    local = local or {}
+    mp = process_count > 1
+    if mp:
+        r, p = process_index, process_count
+        _savez(_rank_file(directory, step, r, p),
+               {key: blk for key, (_, blk) in local.items()})
+        _write_json(_rank_meta_file(directory, step, r, p), {
+            "step": step, "rank": r, "count": p,
+            "arrays": {key: {"start": int(start), "digest": _digest(blk)}
+                       for key, (start, blk) in local.items()}})
+        if r != 0:
+            _wait_for(lambda: _sidecar_committed(directory, step, p),
+                      barrier_timeout, f"sidecar commit of step {step}")
+            return [_rank_file(directory, step, r, p)]
+    nshards = max((len(v) for v in pieces.values()), default=1)
+    paths = _step_files(directory, step, nshards)
+    for k, path in enumerate(paths):
+        _savez(path, {key: parts[k] for key, parts in pieces.items()
+                      if k < len(parts)})
+    meta = {"step": step, "order": order, "metadata": metadata or {},
+            "digests": {key: [_digest(a) for a in parts]
+                        for key, parts in pieces.items()}}
+    if nshards > 1:
+        meta["shards"] = {"count": nshards, "dims": dims}
+    if mp:
+        metas = _wait_for(
+            lambda: _collect_rank_metas(directory, step, process_count),
+            barrier_timeout,
+            f"all {process_count} rank metas of step {step}")
+        meta["ranks"] = {
+            "count": process_count,
+            "arrays": {key: {"dim": 0, "parts": sorted(
+                [{"rank": m["rank"], "start": m["arrays"][key]["start"],
+                  "digest": m["arrays"][key]["digest"]} for m in metas],
+                key=lambda d: d["start"])}
+                for key in metas[0]["arrays"]}}
+    _write_json(os.path.join(directory, f"ckpt_{step:08d}.json"), meta)
 
     def write_latest(tmp):
         with open(tmp, "w") as f:
             f.write(str(step))
 
     _atomic_replace(os.path.join(directory, "latest"), write_latest)
-    return path_npz
+    return paths
+
+
+def save(directory: str, tree: Any, step: int,
+         metadata: Optional[Dict] = None) -> str:
+    """Single-file save of a nested dict of arrays/tensors.  Returns the
+    npz path."""
+    arrays = {k: _to_numpy(v) for k, v in flatten(tree).items()}
+    return _write_step(directory, step, {k: [a] for k, a in arrays.items()},
+                       {}, list(arrays), metadata)[0]
+
+
+def save_sharded(directory: str, state: Any, step: int, mesh, param_dims,
+                 metadata: Optional[Dict] = None,
+                 barrier_timeout: float = 120.0) -> List[str]:
+    """Per-shard save of one rank's (data, fsdp) train state
+    (``core.shard_state``): every rank of the mesh calls it for the same
+    step (rank 0's fsdp row gathers the fsdp pieces, a collective).
+    Shard file ``k`` holds the k-th fsdp piece of every sharded leaf;
+    replicated leaves go whole into shard 0 (rank 0 writes the shard
+    files and the sidecar); sample-sharded leaves go whole into shard 0
+    on a one-rank mesh and into this rank's rank-tagged file otherwise.
+    ``param_dims`` is the layout the state was sharded with.
+    Degenerates to the single-npz format when nothing is fsdp-sharded
+    and the mesh has one rank."""
+    from repro_torch.core import shard_state as SS
+    lays = SS.leaf_layouts(state, mesh.fsdp, param_dims)
+    flat = flatten(state)
+    mp = mesh.world_size > 1
+    # rank 0 writes the shard files; only its fsdp row gathers for it,
+    # and only rank 0 copies the pieces to the host
+    writer = mesh.rank == 0
+    gathers = mesh.axis_index("data") == 0
+    pieces, dims, local = {}, {}, {}
+    # JAX's key order: sorted at every level of the nested tree
+    order = list(flatten(unflatten(dict.fromkeys(flat))))
+    for key in order:
+        leaf, lay = flat[key], lays[key]
+        if lay is not None and lay[0] == "fsdp":
+            dims[key] = lay[1]
+            if gathers:
+                full = SS.all_gather_dim(leaf, "fsdp", lay[1], mesh)
+                if writer:
+                    pieces[key] = [_to_numpy(c) for c in
+                                   torch.chunk(full, mesh.fsdp, dim=lay[1])]
+                del full
+        elif lay is not None and mp:
+            local[key] = (mesh.rank * leaf.shape[0], _to_numpy(leaf))
+        elif writer:
+            pieces[key] = [_to_numpy(leaf)]
+    return _write_step(directory, step, pieces, dims, order, metadata,
+                       local=local, process_index=mesh.rank,
+                       process_count=mesh.world_size,
+                       barrier_timeout=barrier_timeout)
 
 
 def _is_complete(directory: str, step: int) -> bool:
     meta = _read_meta(directory, step)
     if meta is None:
+        return False
+    ranks = meta.get("ranks")
+    if ranks and not all(
+            os.path.exists(_rank_file(directory, step, r,
+                                      int(ranks["count"])))
+            for r in range(int(ranks["count"]))):
         return False
     shards = meta.get("shards")
     n = int(shards["count"]) if shards else 1
@@ -155,10 +308,6 @@ def _load_verified(directory: str, step: int):
     meta = _read_meta(directory, step)
     if meta is None:
         raise FileNotFoundError(f"no sidecar for step {step} in {directory}")
-    if meta.get("ranks"):
-        raise ValueError(
-            f"step {step} is a multi-process (rank-tagged) checkpoint, "
-            "which this port does not read yet")
     shards = meta.get("shards")
     n = int(shards["count"]) if shards else 1
     dims = shards["dims"] if shards else {}
@@ -180,15 +329,41 @@ def _load_verified(directory: str, step: int):
                         f"{os.path.basename(path)}")
         parts.append(shard)
     if n == 1:
-        return parts[0], meta
-    # merge of an fsdp-sharded save: concatenate along the recorded dim
-    data = {}
-    for key in parts[0]:
-        if key in dims:
-            data[key] = np.concatenate([p[key] for p in parts if key in p],
-                                       axis=int(dims[key]))
-        else:
-            data[key] = parts[0][key]
+        data = dict(parts[0])
+    else:
+        # merge of an fsdp-sharded save: concatenate along the recorded
+        # dim (the merged arrays do not depend on the saving mesh shape)
+        data = {}
+        for key in parts[0]:
+            if key in dims:
+                data[key] = np.concatenate(
+                    [p[key] for p in parts if key in p], axis=int(dims[key]))
+            else:
+                data[key] = parts[0][key]
+    ranks = meta.get("ranks")
+    if ranks:
+        # sample-sharded leaves of a multi-process step: digest-verify
+        # every rank block and merge in global (start) order
+        p = int(ranks["count"])
+        per_rank = []
+        for r in range(p):
+            with np.load(_rank_file(directory, step, r, p)) as f:
+                per_rank.append({key: f[key] for key in f.files})
+        for key, info in ranks["arrays"].items():
+            blocks = []
+            for part in info["parts"]:
+                arr = per_rank[int(part["rank"])].get(key)
+                if arr is None:
+                    raise ValueError(
+                        f"step {step}: array {key!r} missing from rank "
+                        f"{part['rank']} file")
+                if _digest(arr) != int(part["digest"]):
+                    raise ValueError(
+                        f"step {step}: digest mismatch for {key!r} in rank "
+                        f"{part['rank']} file")
+                blocks.append(arr)
+            data[key] = (np.concatenate(blocks, axis=int(info["dim"]))
+                         if len(blocks) > 1 else blocks[0])
     return data, meta
 
 

@@ -3,9 +3,10 @@
 JAX package's bit for bit).
 
 Each worker owns a contiguous shard of the dataset (samples
-[k*n/K, (k+1)*n/K)), matching the sharding of the FCCO u buffers.
-Process-local row ownership (``owned_shards``) comes with the
-multi-process slice of the port.
+[k*n/K, (k+1)*n/K)), matching the sharding of the FCCO u buffers.  With
+``owned_shards`` a process assembles only its own shards' rows of each
+global batch (a rank of the (data, fsdp) mesh owns one shard); the
+yielded index plan stays global.
 
 ``DevicePrefetcher`` wraps any step iterator with a producer thread that
 assembles host batches and starts the host->device copy ``depth`` steps
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -28,6 +29,10 @@ class ShardedLoader:
     global_batch: int
     n_shards: int = 1
     seed: int = 0
+    # multi-process ownership: when set, only these shard ids' rows of
+    # each global batch are assembled here (``steps`` / ``epoch`` batches
+    # hold len(owned_shards) * local_batch rows); ``idx`` stays global
+    owned_shards: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         self.n = self.dataset.n
@@ -45,6 +50,12 @@ class ShardedLoader:
                 f"{self.n} / {self.n_shards}): steps_per_epoch would be "
                 "0 and the loader could never yield a full batch.  "
                 "Lower --global-batch or raise --n-samples.")
+        if self.owned_shards is not None:
+            bad = [k for k in self.owned_shards
+                   if not 0 <= k < self.n_shards]
+            if bad:
+                raise ValueError(
+                    f"owned_shards {bad} outside [0, {self.n_shards})")
 
     @property
     def steps_per_epoch(self) -> int:
@@ -66,11 +77,30 @@ class ShardedLoader:
             p[step * self.local_batch:(step + 1) * self.local_batch]
             for p in per_shard])
 
-    def steps(self, n_steps: int, start: int = 0):
-        """(epoch, step, idx, batch) for steps [``start``, ``n_steps``).
-        ``start`` is the resume fast-forward, positionally identical to
-        filtering a full run: whole epochs before it draw no permutation
-        and skipped steps assemble no batch."""
+    def _owned_rows(self, idx: np.ndarray) -> np.ndarray:
+        """The rows of a global index batch assembled here: shard k owns
+        rows [k * local_batch, (k + 1) * local_batch) of the
+        shard-concatenated batch (all rows when ``owned_shards`` is
+        unset)."""
+        if self.owned_shards is None:
+            return idx
+        L = self.local_batch
+        idx = np.asarray(idx)
+        return np.concatenate([idx[k * L:(k + 1) * L]
+                               for k in self.owned_shards])
+
+    def epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, dict]]:
+        """Yields (global indices (global_batch,), batch dict) with the
+        per-shard sub-batches concatenated in shard order."""
+        per_shard = self._epoch_perms(epoch)
+        for step in range(self.steps_per_epoch):
+            idx = self._step_idx(per_shard, step)
+            yield idx, self.dataset.batch(self._owned_rows(idx))
+
+    def _index_steps(self, n_steps: int, start: int = 0):
+        """The index-only step plan: (epoch, step, idx) for steps
+        [``start``, ``n_steps``); whole epochs before ``start`` draw no
+        permutation."""
         step = 0
         epoch = 0
         while step < n_steps:
@@ -83,10 +113,19 @@ class ShardedLoader:
                 if step >= n_steps:
                     return
                 if step >= start:
-                    idx = self._step_idx(per_shard, e_step)
-                    yield epoch, step, idx, self.dataset.batch(idx)
+                    yield epoch, step, self._step_idx(per_shard, e_step)
                 step += 1
             epoch += 1
+
+    def steps(self, n_steps: int, start: int = 0):
+        """(epoch, step, idx, batch) for steps [``start``, ``n_steps``).
+        ``start`` is the resume fast-forward, positionally identical to
+        filtering a full run: whole epochs before it draw no permutation
+        and skipped steps assemble no batch.  ``batch`` holds the owned
+        rows only; ``idx`` is global."""
+        for epoch, step, idx in self._index_steps(n_steps, start):
+            yield epoch, step, idx, self.dataset.batch(
+                self._owned_rows(idx))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """repro_torch.eval: the zero-shot evaluation engine (port of
-``repro.eval``, single device).
+``repro.eval``).
 
 Measures what the paper reports: zero-shot classification (prompt-
 ensemble text classifier heads) and exact global image<->text retrieval
@@ -22,7 +22,8 @@ from repro_torch.eval.metrics import (  # noqa: F401
     contrastive_eval_loss, lex_topk, recall_at_k, topk_accuracy,
 )
 from repro_torch.eval.retrieval import (  # noqa: F401
-    CHUNK, retrieval_recalls, retrieval_topk, streaming_topk,
+    CHUNK, make_sharded_topk, retrieval_recalls, retrieval_topk,
+    sharded_retrieval_recalls, sharded_retrieval_topk, streaming_topk,
 )
 from repro_torch.eval.templates import (  # noqa: F401
     DEFAULT_TEMPLATES, PromptTemplate, render_prompt_bank,

@@ -1,5 +1,5 @@
 """Eval engine assembly: towers -> embeddings -> zero-shot + retrieval
-(port of ``repro.eval.engine``, single device).
+(port of ``repro.eval.engine``).
 
 ``ClipEvaluator`` is the reusable evaluator (the CLI and the trainer's
 periodic hook): it memoises rendered prompt banks per class set and the
@@ -13,8 +13,12 @@ classifier head per params key, and computes
                      is K1)
 
 ``evaluate_embeddings`` is the tower-independent core shared with the
-planted known-answer path.  The JAX module's sharded arguments (``mesh``,
-``axes``, ``param_shardings``) come with the port's mesh.
+planted known-answer path; with ``mesh`` + ``axes`` its retrieval scan
+runs sharded over the mesh's ranks (rows by sample ownership, columns
+gathered), bit-identical to the single-device scan.  ``ClipEvaluator``
+with ``param_dims`` consumes a rank's param shards of the (data, fsdp)
+mesh (the trainer's ``--eval-every``): it gathers them over ``fsdp`` on
+the device once per pass.
 """
 from __future__ import annotations
 
@@ -39,9 +43,11 @@ def evaluate_embeddings(e1n, e2n, labels=None, head=None, *,
                         top_ks: Sequence[int] = (1, 5),
                         chunk: int = RT.CHUNK,
                         loss_impl: Optional[str] = None, tau: float = 0.07,
-                        device=None) -> dict:
+                        device=None, mesh=None, axes=None) -> dict:
     """Metrics from already-normalised (N, E) embeddings (numpy arrays or
-    tensors), computed on ``device`` (default: the card)."""
+    tensors), computed on ``device`` (default: the card).  With ``mesh``
+    + ``axes`` every rank passes the same embeddings and the retrieval
+    scan runs sharded over the ranks (a collective)."""
     dev = D.resolve(device)
     e1n = torch.as_tensor(e1n).to(dev)
     e2n = torch.as_tensor(e2n).to(dev)
@@ -50,7 +56,11 @@ def evaluate_embeddings(e1n, e2n, labels=None, head=None, *,
         if head is not None:
             out.update(CL.zero_shot_metrics(e1n, head.to(dev), labels,
                                             top_ks))
-        out.update(RT.retrieval_recalls(e1n, e2n, ks, chunk=chunk))
+        if mesh is not None:
+            out.update(RT.sharded_retrieval_recalls(mesh, axes, e1n, e2n, ks,
+                                                    chunk=chunk))
+        else:
+            out.update(RT.retrieval_recalls(e1n, e2n, ks, chunk=chunk))
         if loss_impl is not None:
             out["eval_loss"] = M.contrastive_eval_loss(e1n, e2n, tau,
                                                        loss_impl=loss_impl)
@@ -68,7 +78,7 @@ class ClipEvaluator:
                  top_ks: Sequence[int] = (1, 5), chunk: int = RT.CHUNK,
                  templates=DEFAULT_TEMPLATES,
                  loss_impl: Optional[str] = None, tau: float = 0.07,
-                 device=None):
+                 device=None, param_dims=None, mesh=None):
         if cfg.family != "clip":
             raise ValueError("ClipEvaluator needs a clip-family arch; got "
                              f"{cfg.family!r}")
@@ -83,6 +93,9 @@ class ClipEvaluator:
         self.batch_size, self.prefetch = batch_size, prefetch
         self.head_cache: dict = {}
         self._head_key = None
+        # the training layout of the (data, fsdp) mesh: evaluate() takes
+        # a rank's param shards and gathers them on the device
+        self.param_dims, self.mesh = param_dims, mesh
         self._encode_pair = (lambda p, b: BB.encode_pair(
             p, cfg, b, impl=impl, precision=prec))
         self._encode_text = (lambda p, t: C.encode_text(
@@ -91,7 +104,11 @@ class ClipEvaluator:
     def evaluate(self, params, *, cache_key=None) -> dict:
         """Full eval pass.  ``cache_key``: identity of ``params`` (e.g.
         the train step): repeated evals at the same key reuse the
-        classifier head for this class set."""
+        classifier head for this class set.  With ``param_dims``,
+        ``params`` are this rank's shards (a collective)."""
+        if self.param_dims is not None:
+            params = EX.sharded_params(self.cfg, params, self.param_dims,
+                                       self.mesh, self.device)
         e1n, e2n = EX.extract_pair_embeddings(
             self._encode_pair, params, self.dataset,
             batch_size=self.batch_size, prefetch=self.prefetch,
@@ -122,11 +139,12 @@ def evaluate_planted(params, dataset, *, ks: Sequence[int] = (1, 5, 10),
                      chunk: int = RT.CHUNK, batch_size: int = 64,
                      templates=DEFAULT_TEMPLATES,
                      loss_impl: Optional[str] = None,
-                     device=None) -> dict:
+                     device=None, mesh=None, axes=None) -> dict:
     """End-to-end eval through the planted closed-form towers (params as
     restored from a ``make_planted_checkpoint`` checkpoint, on
     ``device``, default the card): the metrics must equal
-    ``planted.known_answers(dataset)`` exactly."""
+    ``planted.known_answers(dataset)`` exactly, with or without the
+    sharded retrieval (``mesh`` + ``axes``)."""
     e1n, e2n = EX.extract_pair_embeddings(
         PL.encode_pair, params, dataset, batch_size=batch_size,
         device=device)
@@ -136,4 +154,4 @@ def evaluate_planted(params, dataset, *, ks: Sequence[int] = (1, 5, 10),
         device=device)
     return evaluate_embeddings(
         e1n, e2n, dataset.labels, head, ks=ks, top_ks=top_ks, chunk=chunk,
-        loss_impl=loss_impl, device=device)
+        loss_impl=loss_impl, device=device, mesh=mesh, axes=axes)

@@ -1,5 +1,5 @@
 """Embedding extraction over an eval split, and the serving encode
-(port of ``repro.eval.extraction``, single device).
+(port of ``repro.eval.extraction``).
 
 Reuses the tower fast path end to end: the caller supplies an
 ``encode_pair_fn(params, batch)`` built on ``backbones.encode_pair`` with
@@ -13,8 +13,10 @@ repeating index 0; the padded rows are computed and *discarded* before
 concatenation, so the returned arrays are exactly (n, E) and padding can
 never leak into metrics.
 
-The JAX module's sharded forms (``param_shardings``, ``replicated_like``)
-come with the port's mesh.
+On the (data, fsdp) mesh the params are a rank's shards:
+``sharded_params`` gathers them over ``fsdp`` on the device (never
+through the host) into the model the extraction runs, the counterpart
+of the JAX jit consuming the training layout.
 """
 from __future__ import annotations
 
@@ -81,6 +83,19 @@ def _put(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t.to(dev)
+
+
+def sharded_params(cfg, shards, param_dims, mesh=None, device=None):
+    """The model whose weights are a rank's param shards (flat JAX paths)
+    gathered over ``fsdp`` on the device: a collective, every rank of
+    the fsdp row calls it."""
+    from repro_torch.checkpoint import unflatten
+    from repro_torch.core import shard_state as SS
+    from repro_torch.models import backbones as BB
+    full = SS.full_params({k: v.detach() for k, v in shards.items()},
+                          param_dims, mesh)
+    dev = next(iter(full.values())).device if device is None else device
+    return BB.params_from_tree(cfg, unflatten(full), dev)
 
 
 def make_extract_fn(encode_pair_fn: Callable) -> Callable:

@@ -26,10 +26,29 @@ synchronous checkpoint and returns.  ``--heartbeat-file`` /
 after the last, on a planted split seeded ``--seed + 1``, and prints one
 ``eval  {step} {json}`` line per eval, as the JAX launcher does.
 
+``--mesh data:N[,fsdp:M]`` runs the contrastive step on the (data, fsdp)
+mesh (``core.shard_state``): one process per rank, N*M ranks, the batch
+and the FCCO u state sharded by sample ownership, params and moments
+ZeRO-sharded over fsdp with reduce-scatter gradient reduction, sharded
+and rank-tagged checkpoints in the JAX package's format (restorable at
+any mesh shape, in either package), and ``--eval-every`` on the sharded
+params.  ``--coordinator ADDR --num-processes P --process-id K`` join the
+``torch.distributed`` group (ADDR ``file:///path`` or ``HOST:PORT``);
+``python -m repro_torch.launch.multiprocess --nproc P -- <train args>``
+spawns a whole group.  A ``--mesh`` run without them is a one-rank
+group.  The backend follows ``launch.mesh.choose_backend``: NCCL when
+every rank has a card of its own, gloo when ranks share a card or run
+on the CPU; the run's first line names it, with the world size and this
+rank's device.  Each rank assembles only its own rows of the global
+batch; only rank 0 writes the heartbeat.  ``--microbatch N`` splits a
+rank's rows into N micro-steps with their own weight gathers.
+``--reduction allgather_ad`` is the DDP-style baseline loss.
+
+``--local-devices`` is refused with exit code 2: it forces CPU devices
+per process in JAX, and a rank here is one process with one device.
 Not ported yet, and refused with exit code 2: ``--objective lm``,
-``--mesh``, ``--microbatch`` > 1, the multi-process flags, ``--data
-streaming:*``, the curricula, ``--chaos``, ``--rollback-after``,
-``--ckpt-async`` and ``--ckpt-keep*``.
+``--data streaming:*``, the curricula, ``--chaos``,
+``--rollback-after``, ``--ckpt-async`` and ``--ckpt-keep*``.
 """
 from __future__ import annotations
 
@@ -47,24 +66,22 @@ from repro_torch import resilience as RS
 from repro_torch.checkpoint import bridge
 from repro_torch.configs import get_arch
 from repro_torch.core import fastclip as FC
+from repro_torch.core import shard_state as SS
 from repro_torch.core import train_step as TS
 from repro_torch.core.schedules import lr_warmup_cosine
 from repro_torch.data import (
     ContrastiveDataset, DevicePrefetcher, ShardedLoader, ZeroShotEvalDataset,
 )
 from repro_torch.eval import ClipEvaluator
+from repro_torch.launch import mesh as MS
+from repro_torch.launch import multiprocess as MP
+from repro_torch.models import backbones as BB
 from repro_torch.models.precision import POLICIES
 from repro_torch.optim import OPTIMIZERS, get_optimizer
 
 # flag -> (value that means "unset", what it belongs to)
 _NOT_PORTED = {
     "objective": ("contrastive", "the LM objective"),
-    "mesh": (None, "the (data, fsdp) mesh"),
-    "microbatch": (1, "the fsdp step's microbatch pipeline"),
-    "coordinator": (None, "multi-process runs"),
-    "num_processes": (1, "multi-process runs"),
-    "process_id": (0, "multi-process runs"),
-    "local_devices": (None, "multi-process runs"),
     "data": ("synthetic", "the streaming data pipeline"),
     "image_size_schedule": (None, "the curricula"),
     "context_schedule": (None, "the curricula"),
@@ -114,6 +131,24 @@ def parse_args(argv=None):
                     choices=["chunked", "flash", "naive"],
                     help="attention: the flash kernel (default) or the plain "
                          "chunked / naive references")
+    ap.add_argument("--reduction", default="fastclip",
+                    choices=["fastclip", "allgather_ad"],
+                    help="mesh loss reduction: the closed-form backward "
+                         "(fastclip) or autograd through the feature gather "
+                         "(the DDP-style baseline)")
+    ap.add_argument("--mesh", default=None,
+                    help="data:N[,fsdp:M]: the (data, fsdp) mesh of N*M "
+                         "ranks, one process each; unset = one device")
+    ap.add_argument("--microbatch", type=int, default=1,
+                    help="micro-steps per rank in the mesh step, each with "
+                         "its own weight gather; 1 = unpipelined")
+    ap.add_argument("--coordinator", default=None,
+                    help="torch.distributed init method of the group: "
+                         "file:///path or HOST:PORT")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="ranks in the group (= data * fsdp)")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's rank in [0, --num-processes)")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="host->device prefetch depth (0 disables)")
     ap.add_argument("--device", default=D.DEFAULT,
@@ -141,11 +176,6 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     # flags of the JAX launcher that are not ported yet (refused)
     ap.add_argument("--objective", default="contrastive")
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--microbatch", type=int, default=1)
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=1)
-    ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--local-devices", type=int, default=None)
     ap.add_argument("--data", default="synthetic")
     ap.add_argument("--image-size-schedule", default=None)
@@ -161,6 +191,18 @@ def parse_args(argv=None):
             flag = "--" + key.replace("_", "-")
             ap.error(f"{flag} ({what}) is not ported to repro_torch yet; "
                      "use repro.launch.train")
+    if args.local_devices is not None:
+        ap.error("--local-devices has no meaning here: it forces CPU "
+                 "devices per process in JAX, and every rank of "
+                 "repro_torch is one process with one device (launch more "
+                 "ranks: python -m repro_torch.launch.multiprocess)")
+    if (args.num_processes > 1 or args.coordinator) and not args.mesh:
+        ap.error("--num-processes > 1 / --coordinator require --mesh "
+                 "data:N[,fsdp:M]: the multi-process trainer is the mesh "
+                 "step")
+    if args.microbatch != 1 and not args.mesh:
+        ap.error("--microbatch needs --mesh: micro-steps belong to the "
+                 "mesh step")
     return args
 
 
@@ -180,20 +222,46 @@ def _to_device(item, device):
 
 
 def main(argv=None, record=None):
-    """CLI entry point; returns the final train state.  ``record``:
-    optional list that receives one dict per step (``step``, ``epoch``,
-    the host clock ``time`` after the step's metrics were read, and every
-    metric as a float)."""
+    """CLI entry point; returns the final train state (on a mesh, this
+    rank's shards).  ``record``: optional list that receives one dict per
+    step (``step``, ``epoch``, the host clock ``time`` after the step's
+    metrics were read, and every metric as a float)."""
     args = parse_args(argv)
-    device = D.resolve(args.device)
+    mesh = None
+    if args.mesh:
+        data_sz, fsdp_sz = MS.parse_mesh_arg(args.mesh)
+        device = MP.initialize(args.coordinator, args.num_processes,
+                               args.process_id, D.resolve(args.device))
+        try:
+            mesh = MS.make_train_mesh(data_sz, fsdp_sz, device=device)
+        except ValueError as e:
+            MP.shutdown()
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        print(f"mesh data:{data_sz},fsdp:{fsdp_sz} backend {mesh.backend} "
+              f"world {mesh.world_size} rank {mesh.rank} device {device}",
+              flush=True)
+    else:
+        device = D.resolve(args.device)
+    try:
+        return _train(args, device, mesh, record)
+    finally:
+        if mesh is not None:
+            MS.set_mesh(None)
+            MP.shutdown()
+
+
+def _train(args, device, mesh, record):
+    rank = mesh.rank if mesh is not None else 0
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     ds = ContrastiveDataset(n=args.n_samples, image_size=cfg.clip.image_size,
                             context_length=cfg.clip.context_length,
                             vocab_size=cfg.vocab_size, n_classes=64)
-    loader = ShardedLoader(ds, global_batch=args.global_batch,
-                           seed=args.seed)
+    loader = ShardedLoader(
+        ds, global_batch=args.global_batch,
+        n_shards=mesh.world_size if mesh is not None else 1, seed=args.seed,
+        owned_shards=(rank,) if mesh is not None else None)
     fc = FC.FastCLIPConfig(
         version=args.version, n_samples=args.n_samples, rho=args.rho,
         eps=args.eps, gamma_min=args.gamma_min,
@@ -207,21 +275,38 @@ def main(argv=None, record=None):
         lr_fn=lr_warmup_cosine(args.lr, min(500, args.steps // 10 + 1),
                                args.steps),
         wd=args.wd, loss_impl=args.loss_impl, impl=args.impl,
-        precision=args.precision, guard=args.guard)
-    state = TS.init_train_state(torch.Generator().manual_seed(args.seed), tc,
-                                device)
-    step_fn = TS.make_train_step(tc, device)
-
+        precision=args.precision, guard=args.guard,
+        reduction=args.reduction,
+        mesh_axes=MS.TRAIN_AXES if mesh is not None else None,
+        fsdp=mesh is not None, microbatch=args.microbatch)
+    gen = torch.Generator().manual_seed(args.seed)
     start = 0
     latest = CK.latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if mesh is None:
+        state = TS.init_train_state(gen, tc, device)
+        step_fn = TS.make_train_step(tc, device)
+        p_dims = None
+    else:
+        try:
+            step_fn = TS.make_train_step(tc)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        p_dims = step_fn.param_dims
+        # every rank builds the same full state on the host and keeps its
+        # shards (a resume restores the merged checkpoint first)
+        tree = bridge.state_to_tree(TS.init_train_state(gen, tc, "cpu"))
     if args.resume and latest:
         # the run shape first: a v2 state does not fit a v3 run
         check_resume_metadata(CK.read_metadata(args.ckpt_dir, latest),
                               args.arch, args.version)
-        tree, start, _ = CK.restore(args.ckpt_dir,
-                                    bridge.state_to_tree(state), step=latest)
-        state = bridge.state_from_tree(state, tree)
+        like = bridge.state_to_tree(state) if mesh is None else tree
+        tree, start, _ = CK.restore(args.ckpt_dir, like, step=latest)
+        if mesh is None:
+            state = bridge.state_from_tree(state, tree)
         print(f"resumed from step {start}")
+    if mesh is not None:
+        state = SS.shard_train_state(tree, mesh, p_dims)
+        del tree
 
     evaluator = None
     if args.eval_every:
@@ -233,15 +318,23 @@ def main(argv=None, record=None):
         evaluator = ClipEvaluator(
             cfg, eval_ds, impl=args.impl, precision=args.precision,
             batch_size=args.eval_batch,
-            loss_impl=args.loss_impl or "dense", device=device)
+            loss_impl=args.loss_impl or "dense", device=device,
+            param_dims=p_dims, mesh=mesh)
 
     def run_eval(step):
         em = evaluator.evaluate(state["params"], cache_key=int(step))
         print(f"eval  {step:5d} " + json.dumps(
             {k: round(v, 5) for k, v in sorted(em.items())}), flush=True)
 
+    def own_rows(item):
+        # the step takes this rank's rows of the global index plan
+        epoch, step, idx, batch = item
+        return epoch, step, loader._owned_rows(idx), batch
+
     def make_stream(from_step):
         it = loader.steps(args.steps, start=from_step)
+        if mesh is not None:
+            it = map(own_rows, it)
         if args.prefetch > 0:
             return DevicePrefetcher(it, depth=args.prefetch,
                                     transform=lambda x: _to_device(x, device))
@@ -250,18 +343,32 @@ def main(argv=None, record=None):
     meta = {"arch": args.arch, "version": args.version}
 
     def save_ckpt(step_no):
-        CK.save(args.ckpt_dir, bridge.state_to_tree(state), step_no,
-                metadata=meta)
+        if mesh is not None:
+            CK.save_sharded(args.ckpt_dir, state, step_no, mesh, p_dims,
+                            metadata=meta)
+        else:
+            CK.save(args.ckpt_dir, bridge.state_to_tree(state), step_no,
+                    metadata=meta)
 
     hb_path = args.heartbeat_file or (
         f"{args.ckpt_dir}/heartbeat.json" if args.ckpt_dir else None)
-    hb = RS.Heartbeat(hb_path) if hb_path else None
+    # only rank 0 writes the heartbeat: ranks sharing a filesystem would
+    # clobber each other's records
+    hb = RS.Heartbeat(hb_path) if hb_path and rank == 0 else None
     wd = (RS.StepWatchdog(args.hang_timeout)
           if args.hang_timeout > 0 else None)
     received = {"sig": None}
 
     def on_signal(signum, frame):
         received["sig"] = signum    # honoured between steps: clean exit
+
+    def preempt_now():
+        if mesh is None:
+            return received["sig"] is not None
+        # every rank stops at the same step when any rank was signalled
+        flag = torch.tensor([float(received["sig"] is not None)],
+                            device=device)
+        return bool(SS.staged_psum(flag, mesh).item() > 0)
 
     prev_handlers = {}
     for s in (signal.SIGTERM, signal.SIGINT):
@@ -277,7 +384,7 @@ def main(argv=None, record=None):
     stream = make_stream(start)
     try:
         for epoch, step, idx, batch in stream:
-            if received["sig"] is not None:
+            if preempt_now():
                 preempted = True
                 break
             state, m = step_fn(state, batch, idx)
@@ -326,7 +433,11 @@ def main(argv=None, record=None):
     eval_batch = {k: torch.from_numpy(v).to(device)
                   for k, v in ds.batch(np.arange(
                       min(128, args.n_samples))).items()}
-    acc = float(TS.retrieval_accuracy(state["params"], cfg, eval_batch))
+    # on a mesh the metric runs on the gathered params, on every rank
+    params = (state["params"] if mesh is None else BB.params_from_tree(
+        cfg, CK.unflatten(SS.full_params(state["params"], p_dims)), device))
+    acc = float(TS.retrieval_accuracy(params, cfg, eval_batch))
+    del params
     print(f"retrieval accuracy: {acc:.4f}")
     if evaluator is not None and args.steps % args.eval_every != 0:
         run_eval(args.steps)   # final eval unless the loop just ran it

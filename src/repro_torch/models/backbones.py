@@ -113,6 +113,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device=None):
     return model
 
 
+def meta_model(cfg: ArchConfig) -> nn.Module:
+    """The model on the ``meta`` device: no storage, only the structure
+    that ``torch.func.functional_call`` runs with weights given to it
+    (the sharded train step's gathered params)."""
+    _check_family(cfg)
+    return _empty(cfg, "meta")
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     """The JAX-layout params tree as ``meta`` tensors (shapes only, no
     allocation), the ``tree_like`` of a checkpoint restore."""

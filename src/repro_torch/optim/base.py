@@ -36,10 +36,26 @@ def tree_zeros_like(params: Dict[str, torch.Tensor]):
             for k, p in params.items()}
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every leaf (f32)."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in tree.values())
-    return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+def global_norm(tree: Dict[str, torch.Tensor], *, axes=None,
+                sharded_dims=None) -> torch.Tensor:
+    """L2 norm over every leaf (f32).  With ``axes`` (mesh axis names)
+    the tree holds a rank's shards: the squared sums of the leaves that
+    ``sharded_dims`` marks (a dict of the same keys, non-None = sharded)
+    are all-reduced over ``axes``, replicated leaves count once, so every
+    rank gets the norm of the whole tree."""
+    if axes is None or sharded_dims is None:
+        sq = sum(torch.sum(torch.square(g.float())) for g in tree.values())
+        return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    from repro_torch.core import shard_state as SS
+    sq_rep, sq_shard = [], []
+    for k, g in tree.items():
+        (sq_rep if sharded_dims[k] is None else sq_shard).append(
+            torch.sum(torch.square(g.float())))
+    dev = next(iter(tree.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rep = sum(sq_rep, zero)
+    shard = SS.psum(sum(sq_shard, zero), tuple(axes))
+    return torch.sqrt(rep + shard)
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):

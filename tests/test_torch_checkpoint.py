@@ -144,5 +144,10 @@ def test_rank_tagged_checkpoints_are_refused(tmp_path, params):
     meta = json.loads(side.read_text())
     meta["ranks"] = {"count": 2, "arrays": {}}
     side.write_text(json.dumps(meta))
-    with pytest.raises(ValueError, match="multi-process"):
+    # a rank-tagged step whose rank files are missing is incomplete: no
+    # restore, and no latest step (the readers of the rank-tagged format
+    # are tested in tests/test_torch_mesh_ckpt.py)
+    with pytest.raises(FileNotFoundError):
         TCK.restore(str(tmp_path), {"params": tree}, step=0)
+    assert TCK.available_steps(str(tmp_path)) == []
+    assert TCK.latest_step(str(tmp_path)) is None

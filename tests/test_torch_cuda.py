@@ -619,3 +619,44 @@ def test_eval_loss_fused_is_k1_and_matches_dense_on_card(cuda, n):
     want = GL.gcl_pair_stats_plain(e1a, e2a, ta[0], ta[1])
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The mesh's collectives on the card: two ranks sharing it (gloo)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def two_rank_checks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    import json
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "helpers"))
+    import torch_mesh_check as H
+    d = tmp_path_factory.mktemp("two_ranks")
+    ranks = H.spawn("cuda", d, nproc=2, timeout=180)
+    assert [r.returncode for r in ranks] == [0, 0], ranks[0].stderr[-3000:]
+    with open(d / "cuda.json") as f:
+        return json.load(f)
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_take_cuda_tensors_on_a_shared_card(
+        two_rank_checks):
+    """all_gather_into_tensor, reduce_scatter_tensor and all_reduce on
+    CUDA tensors of two ranks sharing one card: the backend rule picks
+    gloo (NCCL refuses two ranks on one device)."""
+    c = two_rank_checks
+    if torch.cuda.device_count() < 2:
+        assert c["backend"] == "gloo" and c["device"] == "cuda:0"
+    assert c["all_gather"] and c["reduce_scatter"] and c["all_reduce"]
+    assert c["all_ranks"]
+
+
+@pytest.mark.cuda
+def test_differentiable_gathers_reduce_scatter_on_the_card(two_rank_checks):
+    """The backward of ``shard_state.gather_params`` (the fsdp weight
+    gather) and of ``distributed._GatherAxes`` (the baselines' feature
+    gather) sums the ranks' cotangents onto this rank's block."""
+    c = two_rank_checks
+    assert c["gather_params_backward"] and c["gather_axes_backward"]

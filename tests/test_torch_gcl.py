@@ -232,10 +232,19 @@ def test_fcco_loss_op_matches_jax_dense(impl, tau, scale_by_tau):
 
 
 def test_fcco_loss_op_refuses_axes_and_bad_impl():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TD.make_fcco_loss_op(("data",), 1e-14)
+    """Mesh axes need a mesh to run on (the sharded op itself is tested
+    in tests/test_torch_mesh.py); an unknown impl or reduce is refused."""
+    from repro_torch.launch import mesh as MS
+    MS.set_mesh(None)
+    op = TD.make_fcco_loss_op(("data",), 1e-14)
+    e = torch.ones((2, 4)) / 2.0
+    lu = torch.zeros(2)
+    with pytest.raises(RuntimeError, match="set_mesh"):
+        op(e, e, lu, lu, 0.07, 0.07, 0.5)
     with pytest.raises(ValueError, match="loss_impl"):
         TD.make_fcco_loss_op(None, 1e-14, loss_impl="pallas")
+    with pytest.raises(ValueError, match="reduce"):
+        TD.make_fcco_loss_op(("data",), 1e-14, reduce="sum")
 
 
 # ---------------------------------------------------------------------------

@@ -160,9 +160,7 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--objective", "lm"], ["--mesh", "data:2"], ["--microbatch", "2"],
-    ["--num-processes", "2"], ["--coordinator", "localhost:1"],
-    ["--data", "streaming:/tmp/x"], ["--image-size-schedule", "0:16"],
+    ["--objective", "lm"], ["--data", "streaming:/tmp/x"], ["--image-size-schedule", "0:16"],
     ["--context-schedule", "0:8"], ["--chaos", "nan_batch@1"],
     ["--rollback-after", "2"], ["--ckpt-async"], ["--ckpt-keep", "2"],
 ])
@@ -171,6 +169,20 @@ def test_unported_flags_are_refused(flag, capsys):
         ttrain.main(BASE + CPU + flag)
     assert e.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,why", [
+    (["--local-devices", "2"], "one process with one device"),
+    (["--num-processes", "2"], "require --mesh"),
+    (["--microbatch", "2"], "needs --mesh"),
+])
+def test_flags_without_meaning_here_are_refused(flag, why, capsys):
+    """``--local-devices`` (JAX's forced CPU devices per process) has no
+    counterpart; the rank flags and ``--microbatch`` need ``--mesh``."""
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(BASE + CPU + flag)
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
 
 
 def test_resume_metadata_mismatch_is_refused(tmp_path):

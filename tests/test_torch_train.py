@@ -9,8 +9,8 @@ largest entry (f32 summation order moves entries near zero of a leaf
 with O(1) gradients by a few 1e-6 of its scale); loss, loss value and
 tau over 3 steps rtol 1e-4, the touched log-u rows rtol 1e-4 / atol 1e-5
 (log domain: absolute 1e-5 is relative 1e-5 in u); params after 3 steps atol 5e-5 (same math, other summation order).
-Also: the bitwise no-op of a NaN step under the guard, f32 masters under
-bf16, and the refusals of what is not ported."""
+Also: the bitwise no-op of a NaN step under the guard and f32 masters
+under bf16.  The mesh step is tested in tests/test_torch_mesh*.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -251,12 +251,3 @@ def test_state_bridge_roundtrip_is_bitwise():
         for k in want:
             assert got[k].dtype == want[k].dtype, k
             assert got[k].tobytes() == want[k].tobytes(), k
-
-
-def test_mesh_settings_are_refused():
-    jtc, ttc = configs("v3")
-    for kw in (dict(fsdp=True), dict(mesh_axes=("data",)),
-               dict(microbatch=2)):
-        tc = TTS.TrainStepConfig(**{**ttc.__dict__, **kw})
-        with pytest.raises(NotImplementedError):
-            TTS.make_train_step(tc, "cpu")
