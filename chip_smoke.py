@@ -14,8 +14,9 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    -sass``): none, or a spill, fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card through both entry points at the serving,
-   training, eval-head (f32) and hybrid shapes (f32 and bf16) and at
-   edge cases, and times kernel, plain version and one library call
+   training, eval-head (f32) and hybrid shapes (f32 and bf16), at
+   the curricula's training shapes (S = 2 and a causal S = 32, f32) and
+   at edge cases, and times kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
    port) with CUDA events at those shapes;
 4. attn_grad -- gradients of q, k, v through the kernel's autograd
@@ -100,11 +101,31 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the trajectory at the same bounds; 48 K3 launches per rank per
    step), the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
-13. report -- the kernels JSON line, the card line, and the last line
+13. resilience -- the trainer's recovery paths at full width (v3, f32,
+   batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
+   state compared by the sha256 of every leaf with the oracle's (4
+   steps, synchronous saves at 2 and 4): ``nan_batch@2`` under
+   ``--guard`` equal to the oracle's step-2 checkpoint; ``--data
+   streaming:`` (shards of the same samples, 4 decode workers) equal to
+   the oracle, ms per step and host seconds per batch of both loaders;
+   a ``kill@3`` launcher subprocess, then ``--resume`` here, equal to
+   the oracle; one run with ``--ckpt-async --ckpt-keep 1`` and
+   ``--rollback-after 2`` over ``nan_batch@2,nan_batch@3`` (6 steps run)
+   equal to the oracle, keeping step 4 only, its latest checkpoint and
+   heartbeat checked, the gap that holds its async save beside the
+   oracle's sync one; both curricula (image 32 then 224, context 32
+   then 77) on the kernel and the plain paths within rtol 1e-4, K3's
+   launches counted by shape; launches exact in every run; and, at the
+   reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
+   ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
+   shards bitwise;
+14. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
-of JAX or of the JAX package.
+of JAX or of the JAX package.  ``--only kernel,resilience`` (a partial
+run for development) runs phases device and build, then the named
+phases, and prints no report.
 """
 from __future__ import annotations
 
@@ -322,6 +343,10 @@ KERNEL_CASES = [
     ("below_one_tile", 3, 2, 10, 10, 64, False, 0, "bfloat16", False),
     ("hd32", 2, 4, 77, 77, 32, True, 0, "float32", False),
     ("hd32", 2, 4, 130, 130, 32, False, 0, "bfloat16", False),
+    # the curricula's shapes at global batch 256 (phase resilience): the
+    # 32 px image (one patch and the class token), the 32-token context
+    ("curriculum_vit", 256, 12, 2, 2, 64, False, 0, "float32", False),
+    ("curriculum_text", 256, 8, 32, 32, 64, True, 0, "float32", False),
 ]
 
 
@@ -1776,6 +1801,7 @@ def _zero_counters():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gcl_loss as GL
     FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_seq.clear()
     for fn in (GL.gcl_pair_stats, GL.gcl_pair_grads):
         fn.launches = fn.cuda_launches = 0
 
@@ -1809,11 +1835,16 @@ def _step_gaps_ms(record, eval_every, ckpt_every):
 
 def _state_digests(state):
     """{flat path: sha256 of the leaf's bytes} of a train state (a rank's
-    shards or a full tree of tensors)."""
+    shards, or a full tree of tensors or numpy arrays)."""
     import hashlib
+    import numpy as np
     from repro_torch.checkpoint import flatten
-    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
-                              .tobytes()).hexdigest()
+
+    def raw(v):
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().contiguous().numpy()
+        return np.ascontiguousarray(v).tobytes()
+    return {k: hashlib.sha256(raw(v)).hexdigest()
             for k, v in flatten(state).items()}
 
 
@@ -2195,10 +2226,411 @@ def phase_mesh(checks, train_rec, train_tree):
     return {"launches_per_rank": launches[0], "gcl": timings}
 
 
-def main():
+# ---------------------------------------------------------------------------
+# phase resilience: chaos, rollback, async checkpoints, streaming, curricula
+# ---------------------------------------------------------------------------
+
+# the launcher at full width and depth: v3, f32, global batch 256, 1024
+# samples (4 steps per epoch), the kernel path, seed 0
+RES_ARGS = ["--arch", ARCH, "--version", "v3", "--optimizer", "adamw",
+            "--global-batch", "256", "--n-samples", "1024", "--log-every",
+            "1", "--device", "cuda", "--seed", "0", "--precision", "f32",
+            "--impl", "flash", "--loss-impl", "fused", "--steps", "4"]
+# ViT-B/32's 7 x 7 patch grid leaves one smaller image size, 32 (one
+# patch); the text context 32 of 77
+RES_CURRICULUM = ["--image-size-schedule", "0:32,2:224",
+                  "--context-schedule", "0:32,2:77"]
+# the mesh cases at the reduced size: data:2,fsdp:2 as 4 gloo ranks on
+# the card (this script's --mesh-worker ranks: launches and final shards)
+RES_MESH_ARGS = ["--arch", ARCH, "--reduced", "--global-batch", "16",
+                 "--n-samples", "32", "--log-every", "1", "--mesh",
+                 "data:2,fsdp:2", "--device", "cuda", "--impl", "flash",
+                 "--loss-impl", "fused", "--seed", "0"]
+
+
+def _res_run(argv, on_step=None):
+    """The launcher in this process on ``argv``, its output captured; the
+    counts set to 0 just before and read just after.  ``on_step(record)``
+    runs after each step's record."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.checkpoint import bridge
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+
+    class Record(list):
+        def append(self, item):
+            super().append(item)
+            if on_step is not None:
+                on_step(item)
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    record, out = Record(), io.StringIO()
+    sync()
+    _zero_counters()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        st = train.main(argv, record=record)
+    sync()
+    wall = time.monotonic() - t0
+    res = dict(launches=_counters(), by_seq={
+        f"{q}x{k}": n for (q, k), n in
+        sorted(FA.flash_attention.launches_by_seq.items())},
+        record=list(record), out=out.getvalue(), wall=wall)
+    res["digests"] = _state_digests(bridge.state_to_tree(st))
+    del st
+    torch.cuda.empty_cache()
+    return res
+
+
+def _res_worker(argv):
+    """One full-width launcher run of phase resilience in a process of its
+    own (spawned by it, never by hand): ``_res_run``'s result on one JSON
+    line."""
+    res = _res_run(argv)
+    print(json.dumps({"res_worker": res}), flush=True)
+
+
+def _spawn_logged(cmd, log_path, env):
+    log = open(log_path, "w+")
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True, env=env, cwd=ROOT), log
+
+
+def _ckpt_digests(directory, step):
+    """sha256 per leaf of a checkpoint step, merged (digest-verified)."""
+    from repro_torch.checkpoint import checkpoint as CKM
+    return _state_digests(CKM._load_verified(directory, step)[0])
+
+
+def _host_batch_seconds(loader, n):
+    """Host seconds per batch of ``loader``'s first ``n`` batches, pulled
+    one after another with no step in between."""
+    t0 = time.monotonic()
+    got = sum(1 for _ in loader.steps(n))
+    return (time.monotonic() - t0) / got
+
+
+def _res_mesh(tmp):
+    """The mesh cases (reduced, data:2,fsdp:2, 4 ranks on the card): a
+    clean run with checkpoints at 2 and 4 and a ``kill@3`` run at once,
+    then the kill's ``--resume`` and a ``nan_batch@2`` run at once."""
+    import threading
+    from repro_torch import checkpoint as CK
+    ref_d, kill_d = (os.path.join(tmp, n) for n in ("mesh_ref", "mesh_kill"))
+    out = {}
+
+    def wave(**jobs):
+        def one(name, args):
+            out[name] = _spawn_mesh("train", RES_MESH_ARGS + args, 600)
+        ts = [threading.Thread(target=one, args=it) for it in jobs.items()]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+
+    t0 = time.monotonic()
+    wave(ref=["--steps", "4", "--guard", "--ckpt-dir", ref_d,
+              "--ckpt-every", "2"],
+         kill=["--steps", "4", "--ckpt-dir", kill_d, "--ckpt-every", "2",
+               "--chaos", "kill@3"])
+    out["kill_latest"] = CK.latest_step(kill_d)
+    wave(resume=["--steps", "4", "--ckpt-dir", kill_d, "--ckpt-every", "2",
+                 "--resume"],
+         nan=["--steps", "3", "--guard", "--chaos", "nan_batch@2"])
+    out["ref_step2"] = CK.checkpoint._load_verified(ref_d, 2)[0]
+    out["wall"] = time.monotonic() - t0
+    return out
+
+
+def phase_resilience(checks):
+    """Chaos, rollback, async checkpoints, the streaming loader and the
+    curricula through the port's launcher at full width, the mesh cases
+    at the reduced size.  The cases that wait on 1.8 GB
+    ``savez_compressed`` writes overlap: the ``kill@3`` subprocess runs
+    beside the oracle, the async + rollback run (a worker process)
+    starts after the oracle's last timed step and runs beside the
+    resume, the NaN and curriculum runs and the mesh cases; the timed
+    streaming runs come last, alone.  Returns the kernels' launches per
+    full-width case."""
+    import concurrent.futures
+    import signal
+    import threading
+    from repro_torch import checkpoint as CK
+    from repro_torch.configs import get_arch
+    from repro_torch.data import (ContrastiveDataset, ShardedLoader,
+                                  StreamingDataset, StreamingLoader,
+                                  write_contrastive_shards)
+    cfg = get_arch(ARCH)
+    one = _train_launches(cfg, 1, 0, 0, 1)
+
+    def steps(n):
+        return {k: v * n for k, v in one.items()}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_res_")
+    d0, d1, d2 = (os.path.join(tmp, n) for n in ("oracle", "async", "kill"))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([SRC, ROOT])}
+    procs, logs = {}, []
+    mt = reads = None
+    launches = {}
+    t_phase = time.monotonic()
+    try:
+        # kill@3 of a launcher subprocess, beside the oracle
+        procs["kill"], log = _spawn_logged(
+            [sys.executable, "-m", "repro_torch.launch.train", *RES_ARGS,
+             "--guard", "--ckpt-dir", d2, "--ckpt-every", "2", "--chaos",
+             "kill@3"], os.path.join(tmp, "kill.log"), env)
+        logs.append(log)
+
+        def start_async(item):
+            # after the oracle's last timed step: saves, rollback
+            if item["step"] == 3 and "async" not in procs:
+                procs["async"], alog = _spawn_logged(
+                    [sys.executable, "-m", "chip_smoke", "--res-worker",
+                     *RES_ARGS, "--ckpt-async", "--ckpt-keep", "1",
+                     "--rollback-after", "2", "--ckpt-dir", d1,
+                     "--ckpt-every", "2", "--chaos",
+                     "nan_batch@2,nan_batch@3"],
+                    os.path.join(tmp, "async.log"), env)
+                logs.append(alog)
+
+        # the oracle: 4 steps, synchronous saves at 2 and 4
+        o = _res_run(RES_ARGS + ["--guard", "--ckpt-dir", d0,
+                                 "--ckpt-every", "2"], on_step=start_async)
+        oracle, rec = o["digests"], o["record"]
+        launches["oracle"] = o["launches"]
+        sync_gap = (rec[2]["time"] - rec[1]["time"]) * 1e3
+        free = _step_gaps_ms(rec, 0, 2)
+        checks.check(o["launches"] == steps(4) and len(rec) == 4
+                     and CK.available_steps(d0) == [2, 4],
+                     f"resilience oracle: launches {o['launches']}, steps "
+                     f"{[r['step'] for r in rec]}, saved "
+                     f"{CK.available_steps(d0)}")
+        emit("resilience_oracle", launches=o["launches"],
+             losses=[r["loss"] for r in rec],
+             ms_step_gaps_without_save=free,
+             ms_gap_with_sync_save=sync_gap, wall_seconds=o["wall"])
+
+        # the mesh cases, and the reads that verify the oracle's step 2
+        # and the killed run's newest step, beside the runs below
+        mesh = {}
+        mt = threading.Thread(target=lambda: mesh.update(_res_mesh(tmp)))
+        mt.start()
+        reads = concurrent.futures.ThreadPoolExecutor(2)
+        want2_f = reads.submit(_ckpt_digests, d0, 2)
+
+        # kill_resume: the subprocess died before step 3; resume here (its
+        # first write, of step 4, comes after its steps 2 and 3)
+        rc = procs["kill"].wait(timeout=900)
+        klatest_f = reads.submit(CK.latest_step, d2)
+        k = _res_run(RES_ARGS + ["--guard", "--ckpt-dir", d2, "--ckpt-every",
+                                 "2", "--resume"])
+        klatest = klatest_f.result()
+        launches["kill_resume"] = k["launches"]
+        logs[0].seek(0)
+        checks.check(rc == -signal.SIGKILL and klatest == 2
+                     and "resumed from step 2" in k["out"]
+                     and k["digests"] == oracle
+                     and k["launches"] == steps(2),
+                     f"resilience kill_resume: rc {rc}, latest {klatest}, "
+                     f"bitwise {k['digests'] == oracle}, launches "
+                     f"{k['launches']}; subprocess: {logs[0].read()[-2000:]}")
+        emit("resilience_kill_resume", returncode=rc, latest_step=klatest,
+             bitwise_vs_oracle=k["digests"] == oracle,
+             launches=k["launches"], wall_seconds=k["wall"])
+
+        # nan_skip: the poisoned step 2 leaves the state of step 2
+        n = _res_run(RES_ARGS + ["--guard", "--chaos", "nan_batch@2",
+                                 "--steps", "3"])
+        launches["nan_skip"] = n["launches"]
+        want2 = want2_f.result()
+        nskip = n["out"].count('"skipped": 1.0')
+        checks.check(n["digests"] == want2 and nskip == 1
+                     and n["out"].count('"skipped": 0.0') == 2
+                     and n["launches"] == steps(3),
+                     f"resilience nan_skip: bitwise {n['digests'] == want2}"
+                     f", skipped lines {nskip}, launches {n['launches']}")
+        emit("resilience_nan_skip", bitwise_vs_oracle_step2=n["digests"] ==
+             want2, skipped_lines=nskip, launches=n["launches"],
+             wall_seconds=n["wall"])
+
+        # the curricula, kernel path vs plain path
+        ck = _res_run(RES_ARGS + RES_CURRICULUM)
+        cp = _res_run(RES_ARGS + RES_CURRICULUM + ["--impl", "chunked",
+                                                   "--loss-impl", "dense"])
+        launches["curriculum"] = ck["launches"]
+        traj = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(ck["record"], cp["record"])
+                   for k in ("loss", "tau", "loss_value", "u_mean"))
+        # two steps at each stage, one launch per layer of each tower
+        vis, txt = 2 * cfg.clip.vision_layers, 2 * cfg.n_layers
+        want_seq = {"2x2": vis, "32x32": txt, "50x50": vis, "77x77": txt}
+        checks.check(ck["launches"] == steps(4) and ck["by_seq"] == want_seq
+                     and all(v == 0 for v in cp["launches"].values())
+                     and len(cp["record"]) == 4 and traj <= TOL_TRAIN_TRAJ,
+                     f"resilience curriculum: launches {ck['launches']} by "
+                     f"(Sq, Sk) {ck['by_seq']} (want {want_seq}), plain "
+                     f"{cp['launches']}, trajectory rel {traj}")
+        emit("resilience_curriculum", launches=ck["launches"],
+             flash_launches_by_seq=ck["by_seq"],
+             losses_kernel=[r["loss"] for r in ck["record"]],
+             losses_plain=[r["loss"] for r in cp["record"]],
+             worst_rel_traj=traj, tol=TOL_TRAIN_TRAJ,
+             wall_seconds=[ck["wall"], cp["wall"]])
+
+        # the mesh cases
+        mt.join()
+        rcfg = cfg.reduced()
+        res = {k: [r.returncode for r in mesh[k][0]]
+               for k in ("ref", "kill", "resume", "nan")}
+        reps = {k: mesh[k][1] for k in ("ref", "resume", "nan")}
+        for k in ("ref", "resume", "nan"):
+            for r in mesh[k][0]:
+                if r.returncode:
+                    print(r.stderr[-3000:], file=sys.stderr, flush=True)
+        dig = {k: [(rp or {}).get("state_sha256") for rp in v]
+               for k, v in reps.items()}
+        nan_differ = _restore_vs_rank_shards(
+            CK.unflatten(mesh["ref_step2"]), dig["nan"], 2, 2)
+        mlaunch = {k: [(rp or {}).get("launches") for rp in v]
+                   for k, v in reps.items()}
+        mwant = {k: [_train_launches(rcfg, n, 0, 0, 1)] * 4
+                 for k, n in (("ref", 4), ("resume", 2), ("nan", 3))}
+        nan_lines = [r.stdout.count('"skipped": 1.0') for r in mesh["nan"][0]]
+        checks.check(res["ref"] == res["resume"] == res["nan"] == [0] * 4
+                     and res["kill"] == [-signal.SIGKILL] * 4
+                     and mesh["kill_latest"] == 2
+                     and all("resumed from step 2" in r.stdout
+                             for r in mesh["resume"][0]),
+                     f"resilience mesh: exit codes {res}, latest after the "
+                     f"kill {mesh['kill_latest']}")
+        checks.check(dig["resume"] == dig["ref"] and None not in dig["ref"]
+                     and not nan_differ and nan_lines == [1] * 4,
+                     f"resilience mesh: resume bitwise "
+                     f"{dig['resume'] == dig['ref']}, nan_skip leaves "
+                     f"differing {nan_differ[:8]}, skipped lines "
+                     f"{nan_lines}")
+        checks.check(mlaunch == mwant, f"resilience mesh: launches "
+                     f"{mlaunch}, want {mwant}")
+        emit("resilience_mesh", exit_codes=res,
+             latest_after_kill=mesh["kill_latest"],
+             resume_bitwise=dig["resume"] == dig["ref"],
+             nan_skip_bitwise_vs_ref_step2=not nan_differ,
+             launches_per_rank=mlaunch, wall_seconds=mesh["wall"])
+
+        # async saves with retention and a rollback over two NaN steps
+        arc = procs["async"].wait(timeout=900)
+        logs[-1].seek(0)
+        alines = [ln for ln in logs[-1].read().splitlines()
+                  if ln.startswith('{"res_worker"')]
+        a = json.loads(alines[-1])["res_worker"] if alines else {}
+        arec = a.get("record", [])
+        launches["async_rollback"] = a.get("launches")
+        async_gap = ((arec[2]["time"] - arec[1]["time"]) * 1e3
+                     if len(arec) > 2 else None)
+        kept = CK.available_steps(d1)
+        with open(os.path.join(d1, "latest")) as f:
+            marker = f.read().strip()
+        latest_ok = (marker == "4" and kept == [4]
+                     and _ckpt_digests(d1, 4) == a.get("digests"))
+        with open(os.path.join(d1, "heartbeat.json")) as f:
+            hb = json.load(f)
+        hb_ok = (hb.get("step") == 3 and hb.get("pid") == procs["async"].pid
+                 and isinstance(hb.get("time"), float))
+        rolled = a.get("out", "").count("rollback: 2 consecutive bad steps; "
+                                        "restored verified step 2")
+        checks.check(arc == 0 and a.get("digests") == oracle and rolled == 1
+                     and [r["step"] for r in arec] == [0, 1, 2, 3, 2, 3]
+                     and latest_ok and hb_ok
+                     and a.get("launches") == steps(6),
+                     f"resilience async_rollback: exit {arc}, bitwise "
+                     f"{a.get('digests') == oracle}, rollback lines "
+                     f"{rolled}, kept {kept}, latest restores {latest_ok}, "
+                     f"heartbeat {hb}, launches {a.get('launches')}")
+        emit("resilience_async_rollback", bitwise_vs_oracle=a.get(
+             "digests") == oracle, rollback_lines=rolled, kept_steps=kept,
+             latest_restores_bitwise=latest_ok, heartbeat=hb,
+             launches=a.get("launches"), ms_gap_with_async_save=async_gap,
+             ms_gap_with_sync_save_oracle=sync_gap,
+             wall_seconds=a.get("wall"))
+
+        # streaming, alone: shards of the same 1024 samples, 4 workers;
+        # 4 steps bitwise against the oracle, then 12 steps of each loader:
+        # the prefetch queue, filled during the first step, hides the host
+        # for the first few steps, so the steady state is the median of
+        # the gaps after the third
+        shards = os.path.join(tmp, "shards")
+        ds = ContrastiveDataset(n=1024, image_size=cfg.clip.image_size,
+                                context_length=cfg.clip.context_length,
+                                vocab_size=cfg.vocab_size, n_classes=64)
+        t0 = time.monotonic()
+        write_contrastive_shards(ds, shards)
+        write_s = time.monotonic() - t0
+        sds = StreamingDataset(shards)
+        host = {"in_memory": _host_batch_seconds(
+                    ShardedLoader(ds, global_batch=256, seed=0), 4),
+                "streaming_4_workers": _host_batch_seconds(
+                    StreamingLoader(sds, global_batch=256, seed=0,
+                                    workers=4, decode_ahead=4), 4)}
+        sds.close()
+        stream = RES_ARGS + ["--guard", "--data", f"streaming:{shards}",
+                             "--decode-workers", "4"]
+        s = _res_run(stream)
+        launches["streaming"] = s["launches"]
+        long_mem = _res_run(RES_ARGS + ["--guard", "--steps", "12"])
+        long_str = _res_run(stream + ["--steps", "12"])
+        gaps = {k: _step_gaps_ms(r["record"], 0, 0) for k, r in
+                (("in_memory", long_mem), ("streaming", long_str))}
+        steady = {k: sorted(g[3:])[len(g[3:]) // 2] for k, g in gaps.items()}
+        checks.check(s["digests"] == oracle and s["launches"] == steps(4)
+                     and long_mem["launches"] == steps(12)
+                     and long_str["launches"] == steps(12),
+                     f"resilience streaming: bitwise "
+                     f"{s['digests'] == oracle}, launches {s['launches']}")
+        emit("resilience_streaming", bitwise_vs_oracle=s["digests"] ==
+             oracle, launches=s["launches"], shard_write_seconds=write_s,
+             host_seconds_per_batch=host,
+             ms_step_gaps_4_steps_streaming=_step_gaps_ms(s["record"], 0, 0),
+             ms_step_gaps_4_steps_in_memory_oracle=free,
+             ms_step_gaps_12_steps=gaps, ms_per_step_steady_median=steady,
+             wall_seconds=s["wall"])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if mt is not None:
+            mt.join()           # its groups end, or the harness kills them
+        if reads is not None:
+            reads.shutdown()
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("resilience", seconds=time.monotonic() - t_phase)
+    checks.end_phase("resilience")
+    return launches
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                 "GPU (no arguments: every phase)")
+    ap.add_argument("--only", default=None,
+                    help="a partial run: device, build, then these phases "
+                         "(comma-separated: kernel, gcl, train, "
+                         "resilience); no report and no last line")
+    args = ap.parse_args(argv)
     checks = Checks()
     phase_device()
     phase_build(checks)
+    if args.only:
+        for name in args.only.split(","):
+            {"kernel": phase_kernel, "gcl": phase_gcl, "train": phase_train,
+             "resilience": phase_resilience}[name](checks)
+        print(f"chip_smoke: partial run of {args.only} passed; no report",
+              flush=True)
+        return
     timings = phase_kernel(checks)
     phase_attn_grad(checks)
     gcl_timings = phase_gcl(checks)
@@ -2218,6 +2650,8 @@ def main():
     torch.cuda.empty_cache()
     mesh_out = phase_mesh(checks, train_rec, train_tree)
     del train_tree
+    torch.cuda.empty_cache()
+    res_launches = phase_resilience(checks)
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -2245,7 +2679,10 @@ def main():
             # one rank's launches in the data:2,fsdp:2 launcher run (3
             # steps at 64 rows per rank, 2 evals)
             "mesh_launches_per_rank": mesh_out["launches_per_rank"][
-                "flash_attention"]})
+                "flash_attention"],
+            # each full-width run of phase resilience
+            "resilience_launches": {c: n["flash_attention"]
+                                    for c, n in res_launches.items()}})
     for name, kernel, line in (("gcl_pair_stats", "stats", 169),
                                ("gcl_pair_grads", "grads", 362)):
         t = gcl_timings["main", kernel]
@@ -2274,6 +2711,8 @@ def main():
             "mesh_launches_per_rank": mesh_out["launches_per_rank"][name],
             "mesh_cuda_launches_per_rank": mesh_out["launches_per_rank"][
                 f"{name}_cuda"],
+            "resilience_launches": {c: n[name]
+                                    for c, n in res_launches.items()},
             **{f"{case[0]}_{k}": mesh_out["gcl"][case[0], kernel][k]
                for case in MESH_GCL_CASES
                for k in ("shape", "row_offset", "ms", "kernel_only_ms",
@@ -2318,5 +2757,12 @@ if __name__ == "__main__":
         torch.backends.cudnn.allow_tf32 = False
         {"train": _mesh_worker_train, "step": _mesh_worker_step}[
             sys.argv[2]](sys.argv[3:])
+    elif sys.argv[1:2] == ["--res-worker"]:
+        # one full-width run of phase resilience (spawned by it)
+        sys.path.insert(0, SRC)
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _res_worker(sys.argv[2:])
     else:
         main()

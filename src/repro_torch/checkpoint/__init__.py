@@ -1,4 +1,5 @@
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
-    available_steps, flatten, latest_step, read_metadata, restore,
-    restore_subtree, save, save_sharded, unflatten, verify_step,
+    AsyncCheckpointer, available_steps, flatten, latest_step,
+    prune_checkpoints, read_metadata, restore, restore_subtree, save,
+    save_sharded, set_fault_hook, unflatten, verify_step,
 )

@@ -26,15 +26,32 @@ marker never names a step some rank has not finished.  Restore merges
 both (concatenation along the recorded dims, rank blocks in start
 order), so a step saved at one mesh shape restores bit-exactly at any
 other, in either package.
+
+Every save is a synchronous host snapshot (``_snapshot`` /
+``_snapshot_sharded``: leaves copied to numpy; a sharded save's fsdp
+gathers, collectives, run here on the calling thread) followed by the one
+write path (``_write_step``).  ``AsyncCheckpointer`` takes owned copies
+in ``save`` and runs the writes on one worker thread, in order, with the
+retention of ``prune_checkpoints`` (newest ``keep_last`` plus every
+``keep_every``-th step) after each; a writer error is latched and raised
+by the next ``save`` or ``wait``.  ``set_fault_hook`` installs a callback
+that every write announces its stages to, in the JAX package's order and
+names: ``pre_npz``, then per file ``mid_npz`` (tmp written) and ``npz``
+(renamed; rank files too, followed by ``mid_rank_meta`` / ``rank_meta``),
+``mid_sidecar`` / ``sidecar``, ``mid_latest`` / ``latest``, ``done``; the
+chaos battery (``repro_torch.resilience.chaos``) kills the process at
+them.
 """
 from __future__ import annotations
 
 import json
 import os
+import queue
 import re
+import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,10 +80,35 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _to_numpy(leaf) -> np.ndarray:
+_FAULT_HOOK: Optional[Callable[[str], None]] = None
+
+
+def set_fault_hook(fn: Optional[Callable[[str], None]]) -> None:
+    """Install ``fn(event)``, called at every write stage of every save
+    (``None`` removes it)."""
+    global _FAULT_HOOK
+    _FAULT_HOOK = fn
+
+
+def _fault(event: str) -> None:
+    if _FAULT_HOOK is not None:
+        _FAULT_HOOK(event)
+
+
+def _host(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as a numpy array on the host.  A CUDA tensor is copied
+    (``.cpu()`` waits for the stream, so the bytes are those of this
+    moment); a CPU tensor's ``.numpy()`` and ``np.asarray`` alias the
+    leaf, so ``copy=True`` takes an owned buffer (what an async save
+    needs: the optimizer updates the live tensors in place)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        if t.device.type != "cpu":
+            return t.cpu().numpy()
+        a = t.numpy()
+    else:
+        a = np.asarray(leaf)
+    return np.array(a, copy=True) if copy else a
 
 
 def _digest(arr: np.ndarray) -> int:
@@ -76,14 +118,22 @@ def _digest(arr: np.ndarray) -> int:
     return zlib.crc32(a.tobytes(), h)
 
 
-def _atomic_replace(path: str, write_fn) -> None:
+def _atomic_replace(path: str, write_fn, kind: str) -> None:
+    """``write_fn(tmp)`` then ``os.replace``, with the fault events
+    ``mid_<kind>`` (tmp written, not renamed) and ``<kind>`` around the
+    rename."""
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         write_fn(tmp)
+        _fault(f"mid_{kind}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
-            os.remove(tmp)
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+    _fault(kind)
 
 
 def _shard_file(directory: str, step: int, k: int, n: int) -> str:
@@ -157,27 +207,32 @@ def _savez(path: str, arrays: Dict[str, np.ndarray]) -> None:
         # through a handle: savez would append ".npz" to the tmp name
         with open(tmp, "wb") as f:
             np.savez_compressed(f, **arrays)
-    _atomic_replace(path, write)
+    _atomic_replace(path, write, "npz")
 
 
-def _write_json(path: str, obj) -> None:
+def _write_json(path: str, obj, kind: str) -> None:
     def write(tmp):
         with open(tmp, "w") as f:
             json.dump(obj, f)
-    _atomic_replace(path, write)
+    _atomic_replace(path, write, kind)
 
 
 def _write_step(directory: str, step: int, pieces, dims, order,
-                metadata: Optional[Dict], local=None, process_index: int = 0,
+                metadata: Optional[Dict], keep_last: int = 0,
+                keep_every: int = 0, local=None, process_index: int = 0,
                 process_count: int = 1,
                 barrier_timeout: float = 120.0) -> List[str]:
-    """The one write path: array file(s), then the digest-carrying
-    sidecar, then the ``latest`` marker.  ``pieces``: {key: [array per
-    shard piece]}; ``local``: {key: (global start, block)} of this rank's
-    sample-sharded leaves (multi-process only)."""
+    """The one write path, under sync and async saves alike: array
+    file(s), then the digest-carrying sidecar, then the ``latest``
+    marker, then retention (``keep_last > 0``).  ``pieces``: {key: [array
+    per shard piece]}; ``local``: {key: (global start, block)} of this
+    rank's sample-sharded leaves (multi-process only).  Runs no
+    collective: ranks meet on the filesystem, so it may run on a worker
+    thread."""
     os.makedirs(directory, exist_ok=True)
     local = local or {}
     mp = process_count > 1
+    _fault("pre_npz")
     if mp:
         r, p = process_index, process_count
         _savez(_rank_file(directory, step, r, p),
@@ -185,10 +240,12 @@ def _write_step(directory: str, step: int, pieces, dims, order,
         _write_json(_rank_meta_file(directory, step, r, p), {
             "step": step, "rank": r, "count": p,
             "arrays": {key: {"start": int(start), "digest": _digest(blk)}
-                       for key, (start, blk) in local.items()}})
+                       for key, (start, blk) in local.items()}},
+            "rank_meta")
         if r != 0:
             _wait_for(lambda: _sidecar_committed(directory, step, p),
                       barrier_timeout, f"sidecar commit of step {step}")
+            _fault("done")
             return [_rank_file(directory, step, r, p)]
     nshards = max((len(v) for v in pieces.values()), default=1)
     paths = _step_files(directory, step, nshards)
@@ -212,38 +269,44 @@ def _write_step(directory: str, step: int, pieces, dims, order,
                   "digest": m["arrays"][key]["digest"]} for m in metas],
                 key=lambda d: d["start"])}
                 for key in metas[0]["arrays"]}}
-    _write_json(os.path.join(directory, f"ckpt_{step:08d}.json"), meta)
+    _write_json(os.path.join(directory, f"ckpt_{step:08d}.json"), meta,
+                "sidecar")
 
     def write_latest(tmp):
         with open(tmp, "w") as f:
             f.write(str(step))
 
-    _atomic_replace(os.path.join(directory, "latest"), write_latest)
+    _atomic_replace(os.path.join(directory, "latest"), write_latest,
+                    "latest")
+    if keep_last > 0:
+        prune_checkpoints(directory, keep_last=keep_last,
+                          keep_every=keep_every)
+    _fault("done")
     return paths
+
+
+def _snapshot(tree: Any, copy: bool = False):
+    """(pieces, dims, order, local) of a whole tree on the host: one
+    piece per leaf, in the sorted key order of ``flatten``."""
+    flat = flatten(tree)
+    return ({k: [_host(v, copy)] for k, v in flat.items()}, {}, list(flat),
+            {})
 
 
 def save(directory: str, tree: Any, step: int,
          metadata: Optional[Dict] = None) -> str:
     """Single-file save of a nested dict of arrays/tensors.  Returns the
     npz path."""
-    arrays = {k: _to_numpy(v) for k, v in flatten(tree).items()}
-    return _write_step(directory, step, {k: [a] for k, a in arrays.items()},
-                       {}, list(arrays), metadata)[0]
+    pieces, dims, order, _ = _snapshot(tree)
+    return _write_step(directory, step, pieces, dims, order, metadata)[0]
 
 
-def save_sharded(directory: str, state: Any, step: int, mesh, param_dims,
-                 metadata: Optional[Dict] = None,
-                 barrier_timeout: float = 120.0) -> List[str]:
-    """Per-shard save of one rank's (data, fsdp) train state
-    (``core.shard_state``): every rank of the mesh calls it for the same
-    step (rank 0's fsdp row gathers the fsdp pieces, a collective).
-    Shard file ``k`` holds the k-th fsdp piece of every sharded leaf;
-    replicated leaves go whole into shard 0 (rank 0 writes the shard
-    files and the sidecar); sample-sharded leaves go whole into shard 0
-    on a one-rank mesh and into this rank's rank-tagged file otherwise.
-    ``param_dims`` is the layout the state was sharded with.
-    Degenerates to the single-npz format when nothing is fsdp-sharded
-    and the mesh has one rank."""
+def _snapshot_sharded(state: Any, mesh, param_dims, copy: bool = False):
+    """(pieces, dims, order, local) of one rank's (data, fsdp) train
+    state on the host, for ``_write_step`` with ``process_index =
+    mesh.rank`` and ``process_count = mesh.world_size``.  Every rank of
+    the mesh calls it for the same step: rank 0's fsdp row gathers the
+    fsdp pieces (collectives, on the calling thread)."""
     from repro_torch.core import shard_state as SS
     lays = SS.leaf_layouts(state, mesh.fsdp, param_dims)
     flat = flatten(state)
@@ -262,17 +325,144 @@ def save_sharded(directory: str, state: Any, step: int, mesh, param_dims,
             if gathers:
                 full = SS.all_gather_dim(leaf, "fsdp", lay[1], mesh)
                 if writer:
-                    pieces[key] = [_to_numpy(c) for c in
+                    pieces[key] = [_host(c, copy) for c in
                                    torch.chunk(full, mesh.fsdp, dim=lay[1])]
                 del full
         elif lay is not None and mp:
-            local[key] = (mesh.rank * leaf.shape[0], _to_numpy(leaf))
+            local[key] = (mesh.rank * leaf.shape[0], _host(leaf, copy))
         elif writer:
-            pieces[key] = [_to_numpy(leaf)]
+            pieces[key] = [_host(leaf, copy)]
+    return pieces, dims, order, local
+
+
+def save_sharded(directory: str, state: Any, step: int, mesh, param_dims,
+                 metadata: Optional[Dict] = None,
+                 barrier_timeout: float = 120.0) -> List[str]:
+    """Per-shard save of one rank's (data, fsdp) train state
+    (``core.shard_state``): every rank of the mesh calls it for the same
+    step.  Shard file ``k`` holds the k-th fsdp piece of every sharded
+    leaf; replicated leaves go whole into shard 0 (rank 0 writes the
+    shard files and the sidecar); sample-sharded leaves go whole into
+    shard 0 on a one-rank mesh and into this rank's rank-tagged file
+    otherwise.  ``param_dims`` is the layout the state was sharded with.
+    Degenerates to the single-npz format when nothing is fsdp-sharded
+    and the mesh has one rank."""
+    pieces, dims, order, local = _snapshot_sharded(state, mesh, param_dims)
     return _write_step(directory, step, pieces, dims, order, metadata,
                        local=local, process_index=mesh.rank,
                        process_count=mesh.world_size,
                        barrier_timeout=barrier_timeout)
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer.  ``save`` takes the host snapshot
+    synchronously, into owned buffers (after it returns, the live state
+    may change freely; a sharded snapshot's gathers run here, on the
+    calling thread, never on the worker), and queues the write for one
+    worker thread, so the step loop does not wait for
+    ``np.savez_compressed``.
+
+    Saves are written in submission order, each followed by retention
+    (``keep_last`` / ``keep_every``, as ``prune_checkpoints``).  A writer
+    error is latched and raised by the next ``save`` or ``wait``.
+    ``wait()`` drains the queue (before a rollback's restore, and at
+    shutdown); ``close()`` waits and stops the worker."""
+
+    def __init__(self, directory: str, keep_last: int = 0,
+                 keep_every: int = 0, process_index: int = 0,
+                 process_count: int = 1, barrier_timeout: float = 120.0):
+        self.directory = directory
+        self.keep_last = int(keep_last)
+        self.keep_every = int(keep_every)
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
+        self.barrier_timeout = float(barrier_timeout)
+        self._q: "queue.Queue" = queue.Queue()
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            job = self._q.get()
+            try:
+                if job is None:
+                    return
+                step, pieces, dims, order, local, metadata = job
+                _write_step(self.directory, step, pieces, dims, order,
+                            metadata, keep_last=self.keep_last,
+                            keep_every=self.keep_every, local=local,
+                            process_index=self.process_index,
+                            process_count=self.process_count,
+                            barrier_timeout=self.barrier_timeout)
+            except BaseException as e:   # latched; raised on the caller
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                f"async checkpoint write failed in {self.directory}"
+            ) from err
+
+    def save(self, tree: Any, step: int, metadata: Optional[Dict] = None,
+             mesh=None, param_dims=None) -> None:
+        """Queue a save of ``tree`` (a nested dict of arrays / tensors)
+        at ``step``; with ``mesh``, of one rank's (data, fsdp) train
+        state, as ``save_sharded`` (every rank calls it)."""
+        self._raise_pending()
+        if mesh is not None:
+            snap = _snapshot_sharded(tree, mesh, param_dims, copy=True)
+        else:
+            snap = _snapshot(tree, copy=True)
+        self._q.put((step, *snap, metadata))
+
+    def wait(self) -> None:
+        self._q.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._q.put(None)
+            self._thread.join(timeout=60.0)
+
+
+def prune_checkpoints(directory: str, keep_last: int,
+                      keep_every: int = 0) -> List[int]:
+    """Delete every complete step except the newest ``keep_last`` and
+    (``keep_every > 0``) every step divisible by ``keep_every``, with
+    their shard, rank and rank-meta files.  Partial steps are left alone
+    (discovery ignores them).  Returns the deleted steps."""
+    if keep_last <= 0:
+        return []
+    steps = available_steps(directory)
+    protect = set(steps[-keep_last:])
+    if keep_every > 0:
+        protect |= {s for s in steps if s % keep_every == 0}
+    deleted = []
+    for s in steps:
+        if s in protect:
+            continue
+        meta = _read_meta(directory, s) or {}
+        n = int(meta.get("shards", {}).get("count", 1))
+        for p in _step_files(directory, s, n):
+            if os.path.exists(p):
+                os.remove(p)
+        nranks = int(meta.get("ranks", {}).get("count", 0))
+        for r in range(nranks):
+            for p in (_rank_file(directory, s, r, nranks),
+                      _rank_meta_file(directory, s, r, nranks)):
+                if os.path.exists(p):
+                    os.remove(p)
+        sidecar = os.path.join(directory, f"ckpt_{s:08d}.json")
+        if os.path.exists(sidecar):
+            os.remove(sidecar)
+        deleted.append(s)
+    return deleted
 
 
 def _is_complete(directory: str, step: int) -> bool:

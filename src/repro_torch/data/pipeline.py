@@ -12,6 +12,9 @@ yielded index plan stays global.
 assembles host batches and starts the host->device copy ``depth`` steps
 ahead (the launcher's transform copies from pinned host memory with
 ``non_blocking=True``), so the copy overlaps the previous step's compute.
+When the producer stops (end, error or ``close()``) it closes the wrapped
+iterator, so a generator's cleanup, such as the streaming loader's decode
+pool shutdown, runs at once.
 """
 from __future__ import annotations
 
@@ -169,6 +172,12 @@ class DevicePrefetcher:
             except BaseException as e:  # surfaced on the consumer thread
                 if not put(e):
                     return
+            finally:
+                # a generator's own cleanup (the streaming loader's decode
+                # pool) runs here, on the thread that iterated it
+                close = getattr(iterator, "close", None)
+                if close is not None:
+                    close()
             put(_STOP)
 
         self._thread = threading.Thread(target=produce, daemon=True)

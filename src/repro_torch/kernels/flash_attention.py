@@ -26,7 +26,8 @@ in {32, 64} and contiguous, and 16-byte aligned rows for ``cp.async``
 
 Dispatch: a tensor on the CPU takes the plain version
 (``flash_attention_ref``); a CUDA tensor launches the kernel or raises.
-``flash_attention.launches`` counts kernel launches (both entry points).
+``flash_attention.launches`` counts kernel launches (both entry points),
+``flash_attention.launches_by_seq`` the same launches by (Sq, Sk).
 
 Gradients: on the card both entry points are a ``torch.autograd.Function``
 whose forward is the kernel (saving q, k, v) and whose backward
@@ -37,6 +38,7 @@ backward kernel either, so the backward launches no kernel.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -137,6 +139,7 @@ def _launch(q, k, v, out, causal, window):
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_seq[Sq, k.shape[2]] += 1
 
 
 class _FlashMHA(torch.autograd.Function):
@@ -173,6 +176,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_seq = collections.Counter()
 
 
 def flash_mha(q, k, v, *, causal=True, window=0):

@@ -40,6 +40,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from repro_torch import device as D
 from repro_torch.launch import mesh as MS
 
 _SRC = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -71,15 +72,18 @@ def make_store(coordinator: str, num_processes: int, process_id: int,
 
 
 def initialize(coordinator: Optional[str], num_processes: int = 1,
-               process_id: int = 0, device="cpu",
+               process_id: int = 0, device=D.DEFAULT,
                timeout: float = GROUP_TIMEOUT) -> torch.device:
     """Join the process group as rank ``process_id`` of
     ``num_processes``; returns this rank's device (the card of its own,
-    or the shared one) and makes it the current CUDA device.  A run
-    with one process and no coordinator gets a one-rank group behind a
-    FileStore in a fresh temporary directory."""
+    or the shared one) and makes it the current CUDA device.  The
+    device defaults to the card, and a missing card raises before the
+    group is joined (``repro_torch.device.resolve``); pass ``"cpu"`` for
+    a CPU rank.  A run with one process and no coordinator gets a
+    one-rank group behind a FileStore in a fresh temporary directory."""
     import torch.distributed as dist
     global _RDZV_TMP
+    want = D.resolve(device)
     if not coordinator:
         if num_processes > 1:
             raise ValueError("--num-processes > 1 requires --coordinator "
@@ -87,7 +91,6 @@ def initialize(coordinator: Optional[str], num_processes: int = 1,
         _RDZV_TMP = tempfile.mkdtemp(prefix="rdzv-")
         coordinator = f"file://{os.path.join(_RDZV_TMP, 'store')}"
     store = make_store(coordinator, num_processes, process_id, timeout)
-    want = torch.device(device)
     cards = torch.cuda.device_count() if want.type == "cuda" else 0
     store.set(f"rank_host/{process_id}",
               json.dumps([socket.gethostname(), cards]))

@@ -44,11 +44,44 @@ batch; only rank 0 writes the heartbeat.  ``--microbatch N`` splits a
 rank's rows into N micro-steps with their own weight gathers.
 ``--reduction allgather_ad`` is the DDP-style baseline loss.
 
-``--local-devices`` is refused with exit code 2: it forces CPU devices
-per process in JAX, and a rank here is one process with one device.
-Not ported yet, and refused with exit code 2: ``--objective lm``,
-``--data streaming:*``, the curricula, ``--chaos``,
-``--rollback-after``, ``--ckpt-async`` and ``--ckpt-keep*``.
+Resilience, as the JAX launcher drives it:
+
+  ``--rollback-after N``
+      Implies ``--guard``.  A robust-EMA loss spike detector
+      (``resilience.SpikeDetector``) counts consecutive bad steps
+      (skipped, non-finite or spiking); at N the run restores the newest
+      verified checkpoint, rebuilds the loader stream at its step (the
+      index-only fast-forward) and prints a ``rollback:`` line, so the
+      replay reproduces the uninterrupted run.  On a mesh every rank
+      takes the same decision at the same step.
+  ``--ckpt-async``
+      The host snapshot is taken synchronously (owned copies; a sharded
+      save's gathers on the calling thread), compression and the atomic
+      writes run on a worker thread (``checkpoint.AsyncCheckpointer``).
+  ``--ckpt-keep K [--ckpt-keep-every N]``
+      Retention: keep the newest K checkpoints (plus every N-th).
+  ``--chaos SPEC``
+      Deterministic fault injection (``resilience.chaos``): NaN-poison
+      a batch, raise in the loader or a decode worker, SIGKILL or
+      SIGTERM before a step, SIGKILL at a checkpoint write stage.
+  ``--data streaming:DIR``
+      Batches from a shard directory (``python -m
+      repro_torch.data.streaming`` or the JAX package's writer), decoded
+      and augmented on ``--decode-workers`` threads, ``--decode-ahead``
+      batches ahead; the index plan is the in-memory loader's, and a
+      stream written from the synthetic dataset trains bitwise like the
+      in-memory run.  ``--n-samples`` follows the shard index;
+      ``--prefetch`` defaults to 4 (2 otherwise).
+  ``--image-size-schedule 0:16,300:32`` / ``--context-schedule 0:8``
+      Step-keyed curricula on the host batch (exact block-mean image
+      shrink, context prefix); the towers adapt their position tables.
+
+The final checkpoint at ``--steps`` (and the one a preemption writes) is
+skipped when the loop has just saved that step, which holds the same
+state.  ``--local-devices`` is refused with exit code 2: it forces CPU
+devices per process in JAX, and a rank here is one process with one
+device.  Not ported yet, and refused with exit code 2: ``--objective
+lm``.
 """
 from __future__ import annotations
 
@@ -70,8 +103,10 @@ from repro_torch.core import shard_state as SS
 from repro_torch.core import train_step as TS
 from repro_torch.core.schedules import lr_warmup_cosine
 from repro_torch.data import (
-    ContrastiveDataset, DevicePrefetcher, ShardedLoader, ZeroShotEvalDataset,
+    ContrastiveDataset, DevicePrefetcher, ShardedLoader, StreamingDataset,
+    StreamingLoader, ZeroShotEvalDataset,
 )
+from repro_torch.data import curriculum as CU
 from repro_torch.eval import ClipEvaluator
 from repro_torch.launch import mesh as MS
 from repro_torch.launch import multiprocess as MP
@@ -82,14 +117,6 @@ from repro_torch.optim import OPTIMIZERS, get_optimizer
 # flag -> (value that means "unset", what it belongs to)
 _NOT_PORTED = {
     "objective": ("contrastive", "the LM objective"),
-    "data": ("synthetic", "the streaming data pipeline"),
-    "image_size_schedule": (None, "the curricula"),
-    "context_schedule": (None, "the curricula"),
-    "chaos": (None, "fault injection"),
-    "rollback_after": (0, "rollback"),
-    "ckpt_async": (False, "async checkpoints"),
-    "ckpt_keep": (0, "checkpoint retention"),
-    "ckpt_keep_every": (0, "checkpoint retention"),
 }
 
 
@@ -149,16 +176,45 @@ def parse_args(argv=None):
                     help="ranks in the group (= data * fsdp)")
     ap.add_argument("--process-id", type=int, default=0,
                     help="this process's rank in [0, --num-processes)")
-    ap.add_argument("--prefetch", type=int, default=2,
-                    help="host->device prefetch depth (0 disables)")
+    ap.add_argument("--data", default="synthetic",
+                    help="'synthetic' (in-memory, default) or "
+                         "'streaming:<dir>', a shard directory written by "
+                         "python -m repro_torch.data.streaming")
+    ap.add_argument("--decode-workers", type=int, default=4,
+                    help="streaming decode worker threads")
+    ap.add_argument("--decode-ahead", type=int, default=4,
+                    help="streaming batches decoded ahead of the step loop")
+    ap.add_argument("--image-size-schedule", default=None,
+                    help="resolution curriculum 'STEP:SIZE[,...]' (sizes "
+                         "must divide the native image size)")
+    ap.add_argument("--context-schedule", default=None,
+                    help="text-context curriculum 'STEP:LEN[,...]'")
+    ap.add_argument("--prefetch", type=int, default=None,
+                    help="host->device prefetch depth (0 disables; default "
+                         "2, or 4 under --data streaming)")
     ap.add_argument("--device", default=D.DEFAULT,
                     help="torch device (default: the card)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--ckpt-async", action="store_true",
+                    help="write checkpoints on a worker thread (synchronous "
+                         "host snapshot, async compress and atomic write)")
+    ap.add_argument("--ckpt-keep", type=int, default=0,
+                    help="retention: keep only the newest K checkpoints "
+                         "(0 keeps all)")
+    ap.add_argument("--ckpt-keep-every", type=int, default=0,
+                    help="with --ckpt-keep: also keep every N-th step")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--guard", action="store_true",
                     help="non-finite step guard: a bad step becomes a "
                          "bitwise no-op update")
+    ap.add_argument("--rollback-after", type=int, default=0,
+                    help="roll back to the last checkpoint after N "
+                         "consecutive bad steps (0 disables; implies "
+                         "--guard)")
+    ap.add_argument("--chaos", default=None,
+                    help="fault-injection spec (repro_torch.resilience."
+                         "chaos), e.g. 'nan_batch@5,kill_save@mid_npz'")
     ap.add_argument("--heartbeat-file", default=None,
                     help="liveness file (default: <ckpt-dir>/heartbeat.json "
                          "when --ckpt-dir is set)")
@@ -177,14 +233,6 @@ def parse_args(argv=None):
     # flags of the JAX launcher that are not ported yet (refused)
     ap.add_argument("--objective", default="contrastive")
     ap.add_argument("--local-devices", type=int, default=None)
-    ap.add_argument("--data", default="synthetic")
-    ap.add_argument("--image-size-schedule", default=None)
-    ap.add_argument("--context-schedule", default=None)
-    ap.add_argument("--chaos", default=None)
-    ap.add_argument("--rollback-after", type=int, default=0)
-    ap.add_argument("--ckpt-async", action="store_true")
-    ap.add_argument("--ckpt-keep", type=int, default=0)
-    ap.add_argument("--ckpt-keep-every", type=int, default=0)
     args = ap.parse_args(argv)
     for key, (unset, what) in _NOT_PORTED.items():
         if getattr(args, key) != unset:
@@ -203,6 +251,22 @@ def parse_args(argv=None):
     if args.microbatch != 1 and not args.mesh:
         ap.error("--microbatch needs --mesh: micro-steps belong to the "
                  "mesh step")
+    if args.data != "synthetic" and not args.data.startswith("streaming:"):
+        ap.error(f"--data {args.data!r}: want 'synthetic' or "
+                 "'streaming:<shard-dir>'")
+    try:
+        image_sched = CU.parse_schedule(args.image_size_schedule)
+        CU.parse_schedule(args.context_schedule)
+        RS.parse_chaos(args.chaos, seed=args.seed)
+    except ValueError as e:
+        ap.error(str(e))
+    if image_sched:
+        cfg = get_arch(args.arch)
+        native = (cfg.reduced() if args.reduced else cfg).clip.image_size
+        bad = [v for _, v in image_sched if native % v]
+        if bad:
+            ap.error(f"--image-size-schedule: curriculum image sizes {bad} "
+                     f"must divide the stored size ({native}x{native})")
     return args
 
 
@@ -252,16 +316,38 @@ def main(argv=None, record=None):
 
 def _train(args, device, mesh, record):
     rank = mesh.rank if mesh is not None else 0
+    world = mesh.world_size if mesh is not None else 1
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    ds = ContrastiveDataset(n=args.n_samples, image_size=cfg.clip.image_size,
-                            context_length=cfg.clip.context_length,
-                            vocab_size=cfg.vocab_size, n_classes=64)
-    loader = ShardedLoader(
-        ds, global_batch=args.global_batch,
-        n_shards=mesh.world_size if mesh is not None else 1, seed=args.seed,
-        owned_shards=(rank,) if mesh is not None else None)
+    streaming = args.data.startswith("streaming:")
+    if streaming:
+        try:
+            ds = StreamingDataset(args.data.split(":", 1)[1])
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"--data {args.data}: {e}")
+        args.n_samples = ds.n    # FCCO u sizing follows the shard index
+    else:
+        ds = ContrastiveDataset(n=args.n_samples,
+                                image_size=cfg.clip.image_size,
+                                context_length=cfg.clip.context_length,
+                                vocab_size=cfg.vocab_size, n_classes=64)
+    if args.prefetch is None:
+        args.prefetch = 4 if streaming else 2
+    image_sched = CU.parse_schedule(args.image_size_schedule)
+    context_sched = CU.parse_schedule(args.context_schedule)
+    chaos = RS.parse_chaos(args.chaos, seed=args.seed)
+    owned = (rank,) if mesh is not None else None
+    if streaming:
+        loader = StreamingLoader(
+            ds, global_batch=args.global_batch, n_shards=world,
+            seed=args.seed, owned_shards=owned,
+            workers=args.decode_workers, decode_ahead=args.decode_ahead,
+            fault_hook=chaos.on_decode if chaos is not None else None)
+    else:
+        loader = ShardedLoader(ds, global_batch=args.global_batch,
+                               n_shards=world, seed=args.seed,
+                               owned_shards=owned)
     fc = FC.FastCLIPConfig(
         version=args.version, n_samples=args.n_samples, rho=args.rho,
         eps=args.eps, gamma_min=args.gamma_min,
@@ -275,13 +361,13 @@ def _train(args, device, mesh, record):
         lr_fn=lr_warmup_cosine(args.lr, min(500, args.steps // 10 + 1),
                                args.steps),
         wd=args.wd, loss_impl=args.loss_impl, impl=args.impl,
-        precision=args.precision, guard=args.guard,
+        precision=args.precision,
+        guard=args.guard or args.rollback_after > 0,
         reduction=args.reduction,
         mesh_axes=MS.TRAIN_AXES if mesh is not None else None,
         fsdp=mesh is not None, microbatch=args.microbatch)
     gen = torch.Generator().manual_seed(args.seed)
     start = 0
-    latest = CK.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if mesh is None:
         state = TS.init_train_state(gen, tc, device)
         step_fn = TS.make_train_step(tc, device)
@@ -295,17 +381,41 @@ def _train(args, device, mesh, record):
         # every rank builds the same full state on the host and keeps its
         # shards (a resume restores the merged checkpoint first)
         tree = bridge.state_to_tree(TS.init_train_state(gen, tc, "cpu"))
-    if args.resume and latest:
-        # the run shape first: a v2 state does not fit a v3 run
-        check_resume_metadata(CK.read_metadata(args.ckpt_dir, latest),
-                              args.arch, args.version)
-        like = bridge.state_to_tree(state) if mesh is None else tree
-        tree, start, _ = CK.restore(args.ckpt_dir, like, step=latest)
+        # the full shapes, for the merged restores of a rollback
+        full_like = CK.unflatten({
+            k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+            for k, v in CK.flatten(tree).items()})
+
+    def restore(step=None):
+        """(this run's state from a checkpoint, its step, its metadata),
+        or None when no step loads and verifies.  ``step=None`` reads the
+        newest step that does, once (``latest_step`` would read it a
+        second time).  On a mesh every rank reads the merged checkpoint
+        and keeps its shards."""
+        like = bridge.state_to_tree(state) if mesh is None else full_like
+        try:
+            got, at, meta = CK.restore(args.ckpt_dir, like, step=step)
+        except FileNotFoundError:
+            return None
         if mesh is None:
-            state = bridge.state_from_tree(state, tree)
+            return bridge.state_from_tree(state, got), at, meta
+        return SS.shard_train_state(got, mesh, p_dims), at, meta
+
+    resumed = None
+    steps_saved = CK.available_steps(args.ckpt_dir) if args.ckpt_dir else []
+    if args.resume and steps_saved:
+        # the run shape first: a v2 state does not fit a v3 run
+        check_resume_metadata(CK.read_metadata(args.ckpt_dir,
+                                               steps_saved[-1]),
+                              args.arch, args.version)
+        resumed = restore()
+    if resumed is not None:
+        state, start, ck_meta = resumed
+        check_resume_metadata(ck_meta, args.arch, args.version)
         print(f"resumed from step {start}")
-    if mesh is not None:
+    elif mesh is not None:
         state = SS.shard_train_state(tree, mesh, p_dims)
+    if mesh is not None:
         del tree
 
     evaluator = None
@@ -326,29 +436,62 @@ def _train(args, device, mesh, record):
         print(f"eval  {step:5d} " + json.dumps(
             {k: round(v, 5) for k, v in sorted(em.items())}), flush=True)
 
-    def own_rows(item):
-        # the step takes this rank's rows of the global index plan
-        epoch, step, idx, batch = item
-        return epoch, step, loader._owned_rows(idx), batch
+    def host_stream(from_step):
+        # chaos, then the curricula, on the host batch before the H2D
+        # copy; the step takes this rank's rows of the global index plan
+        for epoch, step, idx, batch in loader.steps(args.steps,
+                                                    start=from_step):
+            if chaos is not None:
+                chaos.on_loader(step)
+                batch = chaos.poison_batch(step, batch)
+            batch = CU.apply_curriculum(batch, step, image_sched,
+                                        context_sched)
+            if mesh is not None:
+                idx = loader._owned_rows(idx)
+            yield epoch, step, idx, batch
+
+    def unprefetched(it):
+        try:
+            for item in it:
+                yield _to_device(item, device)
+        finally:
+            it.close()
 
     def make_stream(from_step):
-        it = loader.steps(args.steps, start=from_step)
-        if mesh is not None:
-            it = map(own_rows, it)
+        it = host_stream(from_step)
         if args.prefetch > 0:
             return DevicePrefetcher(it, depth=args.prefetch,
                                     transform=lambda x: _to_device(x, device))
-        return (_to_device(x, device) for x in it)
+        return unprefetched(it)
 
     meta = {"arch": args.arch, "version": args.version}
+    saver = (CK.AsyncCheckpointer(args.ckpt_dir, keep_last=args.ckpt_keep,
+                                  keep_every=args.ckpt_keep_every,
+                                  process_index=rank, process_count=world)
+             if args.ckpt_dir and args.ckpt_async else None)
+    saved = {"step": None}    # the step of the newest save of this run
 
-    def save_ckpt(step_no):
+    def save_ckpt(step_no, sync=False):
+        saved["step"] = step_no
+        if saver is not None and not sync:
+            if mesh is not None:
+                saver.save(state, step_no, metadata=meta, mesh=mesh,
+                           param_dims=p_dims)
+            else:
+                saver.save(bridge.state_to_tree(state), step_no,
+                           metadata=meta)
+            return
+        if saver is not None:
+            saver.wait()
         if mesh is not None:
             CK.save_sharded(args.ckpt_dir, state, step_no, mesh, p_dims,
                             metadata=meta)
         else:
             CK.save(args.ckpt_dir, bridge.state_to_tree(state), step_no,
                     metadata=meta)
+        if args.ckpt_keep > 0 and rank == 0:
+            CK.prune_checkpoints(args.ckpt_dir, keep_last=args.ckpt_keep,
+                                 keep_every=args.ckpt_keep_every)
 
     hb_path = args.heartbeat_file or (
         f"{args.ckpt_dir}/heartbeat.json" if args.ckpt_dir else None)
@@ -357,18 +500,50 @@ def _train(args, device, mesh, record):
     hb = RS.Heartbeat(hb_path) if hb_path and rank == 0 else None
     wd = (RS.StepWatchdog(args.hang_timeout)
           if args.hang_timeout > 0 else None)
+    detector = RS.SpikeDetector(rollback_after=args.rollback_after)
     received = {"sig": None}
 
     def on_signal(signum, frame):
         received["sig"] = signum    # honoured between steps: clean exit
 
-    def preempt_now():
+    def any_rank(flag: bool) -> bool:
+        """True on every rank when ``flag`` is True on any rank (a
+        collective on a mesh: every rank calls it at the same point)."""
         if mesh is None:
-            return received["sig"] is not None
+            return flag
+        t = torch.tensor([float(flag)], device=device)
+        return bool(SS.staged_psum(t, mesh).item() > 0)
+
+    def preempt_now():
         # every rank stops at the same step when any rank was signalled
-        flag = torch.tensor([float(received["sig"] is not None)],
-                            device=device)
-        return bool(SS.staged_psum(flag, mesh).item() > 0)
+        return any_rank(received["sig"] is not None)
+
+    def rollback_due(m) -> bool:
+        due = detector.update(float(m["loss"]),
+                              float(m.get("skipped", 0.0)) >= 0.5)
+        if args.rollback_after <= 0:
+            return False
+        # the loss and the skip flag are global, so every rank's detector
+        # sees the same values; the decision still goes through an
+        # all-reduce, as preempt_now's does: ranks that disagreed would
+        # wait in the next collective for each other forever
+        return any_rank(due)
+
+    def rollback_restore():
+        """(state, step) of the newest verified checkpoint, or None; on a
+        mesh rank 0 picks the step, so that every rank restores the same
+        one."""
+        if saver is not None:
+            saver.wait()
+        if not args.ckpt_dir:
+            return None
+        if mesh is None:
+            got = restore()
+            return None if got is None else got[:2]
+        rb = CK.latest_step(args.ckpt_dir) if rank == 0 else 0
+        rb = int(SS.staged_psum(torch.tensor(
+            [float(-1 if rb is None else rb)], device=device), mesh).item())
+        return None if rb < 0 else restore(rb)[:2]
 
     prev_handlers = {}
     for s in (signal.SIGTERM, signal.SIGINT):
@@ -376,6 +551,8 @@ def _train(args, device, mesh, record):
             prev_handlers[s] = signal.signal(s, on_signal)
         except ValueError:          # not the main thread (embedded call)
             pass
+    if chaos is not None:
+        CK.set_fault_hook(chaos.checkpoint_event)
 
     t0 = time.time()
     first = True
@@ -383,46 +560,76 @@ def _train(args, device, mesh, record):
     preempted = False
     stream = make_stream(start)
     try:
-        for epoch, step, idx, batch in stream:
-            if preempt_now():
-                preempted = True
-                break
-            state, m = step_fn(state, batch, idx)
-            done = step + 1
-            if first:
-                # params, moments and FCCO state stay f32 masters
-                TS.check_state_dtypes(state)
-                first = False
-            if hb is not None:
-                hb.beat(step)
-            if wd is not None:
-                wd.beat()
-            if step % args.log_every == 0 or step == args.steps - 1:
-                # sorted keys: the JAX launcher's jitted metrics dict
-                msg = {k: round(float(m[k]), 5) for k in sorted(m)}
-                print(f"step {step:5d} epoch {epoch} {json.dumps(msg)}",
-                      flush=True)
-            if record is not None:
-                vals = {k: float(v) for k, v in m.items()}
-                record.append({"step": step, "epoch": epoch,
-                               "time": time.monotonic(), **vals})
-            if evaluator is not None and (step + 1) % args.eval_every == 0:
-                run_eval(step + 1)
-            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                save_ckpt(step + 1)
+        running = True
+        while running:
+            running = False         # re-armed only by a rollback
+            for epoch, step, idx, batch in stream:
+                if preempt_now():
+                    preempted = True
+                    break
+                if chaos is not None:
+                    chaos.pre_step(step)
+                state, m = step_fn(state, batch, idx)
+                done = step + 1
+                if first:
+                    # params, moments and FCCO state stay f32 masters
+                    TS.check_state_dtypes(state)
+                    first = False
+                if hb is not None:
+                    hb.beat(step)
+                if wd is not None:
+                    wd.beat()
+                if step % args.log_every == 0 or step == args.steps - 1:
+                    # sorted keys: the JAX launcher's jitted metrics dict
+                    msg = {k: round(float(m[k]), 5) for k in sorted(m)}
+                    print(f"step {step:5d} epoch {epoch} {json.dumps(msg)}",
+                          flush=True)
+                if record is not None:
+                    vals = {k: float(v) for k, v in m.items()}
+                    record.append({"step": step, "epoch": epoch,
+                                   "time": time.monotonic(), **vals})
+                if rollback_due(m):
+                    got = rollback_restore()
+                    if got is None:
+                        print(f"step {step:5d} {detector.consecutive_bad} "
+                              "consecutive bad steps but no checkpoint to "
+                              "roll back to; continuing", flush=True)
+                        detector.reset()
+                    else:
+                        state, rb = got
+                        detector.reset()
+                        stream.close()
+                        stream = make_stream(rb)
+                        done = rb
+                        saved["step"] = rb
+                        print(f"rollback: {args.rollback_after} "
+                              "consecutive bad steps; restored verified "
+                              f"step {rb}, replaying the deterministic "
+                              "stream from there", flush=True)
+                        running = True
+                        break
+                if evaluator is not None and (step + 1) % args.eval_every == 0:
+                    run_eval(step + 1)
+                if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                    save_ckpt(step + 1)
     finally:
-        if isinstance(stream, DevicePrefetcher):
-            stream.close()
+        stream.close()
         if wd is not None:
             wd.close()
         if hb is not None:
             hb.close()
+        if chaos is not None:
+            CK.set_fault_hook(None)
         for s, h in prev_handlers.items():
             signal.signal(s, h)
 
     if preempted:
-        if args.ckpt_dir:
-            save_ckpt(done)
+        # a final synchronous checkpoint, then a clean exit: the resumed
+        # run replays from `done`
+        if args.ckpt_dir and saved["step"] != done:
+            save_ckpt(done, sync=True)
+        if saver is not None:
+            saver.close()
         print(f"preempted (signal {received['sig']}): saved synchronous "
               f"checkpoint at step {done}, exiting cleanly", flush=True)
         return state
@@ -441,8 +648,10 @@ def _train(args, device, mesh, record):
     print(f"retrieval accuracy: {acc:.4f}")
     if evaluator is not None and args.steps % args.eval_every != 0:
         run_eval(args.steps)   # final eval unless the loop just ran it
-    if args.ckpt_dir:
-        save_ckpt(args.steps)
+    if args.ckpt_dir and saved["step"] != args.steps:
+        save_ckpt(args.steps, sync=True)
+    if saver is not None:
+        saver.close()
     return state
 
 

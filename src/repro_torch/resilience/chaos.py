@@ -1,9 +1,13 @@
 """Seeded, deterministic fault injection for the crash-recovery battery
 (the port's own copy of ``repro.resilience.chaos``, which imports no JAX:
 the same spec and seed give the same decision at every step or
-occurrence).  The port wires the serving hooks (``repro_torch.serve``,
-``launch/serve_embed.py --chaos``); the training hooks are not wired yet
-(the trainer refuses ``--chaos``).
+occurrence, and ``nan_batch`` poisons the same row).  Both sets of hooks
+are wired: the training hooks by ``repro_torch.launch.train --chaos``
+(``on_loader`` and ``poison_batch`` in the host stream before the H2D
+copy, ``on_decode`` in the streaming loader's decode workers,
+``pre_step`` before each step, ``checkpoint_event`` as the checkpoint
+writer's fault hook), the serving hooks by ``repro_torch.serve`` and
+``launch/serve_embed.py --chaos``.
 
 A chaos spec is a comma-separated list of faults, each firing **at most
 once per process** (so a rollback replay inside one process does not

@@ -14,6 +14,17 @@ from repro.models import attention as JA
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.models import attention as TA
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 

@@ -17,6 +17,17 @@ from repro_torch import checkpoint as TCK
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.models import backbones as TBB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 ARCH = "clip-vitb32-cc12m"
 
 

@@ -10,6 +10,7 @@ attention f32 1e-5, bf16 1e-2, as tests/test_precision_flash.py; the loss
 kernels those of tests/test_kernels.py; K4 ``TOL_SSD`` below."""
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -50,6 +51,8 @@ def _qkv(gen, B, H, Sq, Sk, hd, dtype):
     (3, 2, 10, 10, 32, True, 0),
     (256, 12, 50, 50, 64, False, 0),    # ViT training shape (batch 256)
     (256, 8, 77, 77, 64, True, 0),      # text training shape
+    (256, 12, 2, 2, 64, False, 0),      # curriculum: a 32 px image (1 patch)
+    (256, 8, 32, 32, 64, True, 0),      # curriculum: a 32-token context
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, Sq, Sk, hd, causal, window,
                                     dtype):
@@ -619,6 +622,41 @@ def test_eval_loss_fused_is_k1_and_matches_dense_on_card(cuda, n):
     want = GL.gcl_pair_stats_plain(e1a, e2a, ta[0], ta[1])
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The async checkpointer's snapshot of tensors on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_async_snapshot_on_the_card_is_mutation_safe(cuda, tmp_path):
+    """``AsyncCheckpointer.save`` copies the leaves to the host after the
+    work queued on them (a multiply launched just before) and before any
+    later change (in-place writes launched just after, while the writer
+    is held at its first stage): the checkpoint holds the values of the
+    moment of the save."""
+    from repro_torch import checkpoint as CK
+    live = {"w": torch.randn((1024, 1024), generator=cuda, device="cuda"),
+            "t": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    want = {"w": live["w"].cpu().numpy() * np.float32(2.0),
+            "t": live["t"].cpu().numpy()}
+    block = threading.Event()
+    CK.set_fault_hook(lambda ev: block.wait(30.0) if ev == "pre_npz"
+                      else None)
+    try:
+        ac = CK.AsyncCheckpointer(str(tmp_path))
+        live["w"].mul_(2.0)
+        ac.save(live, 1)
+        live["w"].fill_(-777.0)
+        live["t"].fill_(-1)
+        block.set()
+        ac.close()
+    finally:
+        CK.set_fault_hook(None)
+    got, step, _ = CK.restore(str(tmp_path), live)
+    assert step == 1
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes(), k
 
 
 # ---------------------------------------------------------------------------

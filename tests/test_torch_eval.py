@@ -56,6 +56,17 @@ from repro_torch.launch import eval as teval
 from repro_torch.models import backbones as BB
 from repro_torch.optim import adamw
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 ARCH = "clip-vitb32-cc12m"
 CPU = "cpu"
 RTOL_LOSS = 1e-5     # K1 f32, tests/test_kernels.py

@@ -24,6 +24,17 @@ import torch
 from repro.kernels import flash_attention as JFA
 from repro_torch.kernels import flash_attention as TFA
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL = 1e-5
 NEG = -1e30
 BK = 64        # the kernel's key tile

@@ -33,6 +33,17 @@ from repro.kernels import gcl_loss as JGL
 from repro_torch.core.losses import MASK_NEG
 from repro_torch.kernels import gcl_loss as TGL
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL_K1, TOL_K1_BF16_LOG = 1e-5, 1e-2
 TOL_K2 = dict(rtol=1e-4, atol=1e-5)
 

@@ -24,6 +24,17 @@ from repro_torch.launch import serve, steps
 from repro_torch.models import backbones as TBB
 from repro_torch.models import ssm as TS
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 ARCH = "zamba2-1.2b"
 B, T = 2, 24
 CASES = ["reduced", "tail"]

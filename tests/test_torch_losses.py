@@ -22,6 +22,17 @@ from repro_torch.optim import base as TOB
 from repro_torch.optim import optimizers as TOPT
 from repro_torch.resilience import guard as TRG
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

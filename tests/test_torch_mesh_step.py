@@ -24,6 +24,17 @@ sys.path.insert(0, os.path.join(ROOT, "tests", "helpers"))
 import torch_mesh_check as H  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def step_checks(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh_step")

@@ -32,6 +32,17 @@ from repro_torch.serve import (
     bucket_sizes, content_hash, pick_bucket, stack_pad,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 ARCH = "clip-vitb32-cc12m"
 
 

@@ -39,6 +39,17 @@ from repro_torch.serve import (
     CheckpointWatcher, EmbedServer, RetryPolicy, ServeConfig, ServeRejection,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 CPU = "cpu"
 DS = ZeroShotEvalDataset(n_classes=4, n_per_class=2, seed=0)
 PARAMS0 = PL.planted_params(DS, CPU)

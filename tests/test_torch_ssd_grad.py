@@ -20,6 +20,17 @@ import torch
 from repro.models import ssm as JS
 from repro_torch.kernels import ssd_chunk as K4
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL, TOL_JAX = 1e-5, 1e-4
 PASSES = ("ssd_chunk_cb", "ssd_chunk_state", "ssd_state_pass",
           "ssd_chunk_scan")

@@ -30,6 +30,17 @@ from repro.kernels.ssd_chunk import ssd_chunked_pallas
 from repro.models import ssm as JS
 from repro_torch.kernels import ssd_chunk as K4
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL = 1e-5
 TOL_ORACLE = 2e-4
 TOL_SSD = 5e-5

@@ -22,6 +22,17 @@ from repro_torch.kernels import ssd_chunk as K4
 from repro_torch.models import ssm as TS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(B=2, T=48, H=3, P=8, N=4, seed=0, dt_scale=1.0):
     """test_ssm.py's shapes and distributions, drawn with numpy."""
     rng = np.random.default_rng(seed)

@@ -25,6 +25,17 @@ from repro_torch.models import clip as TC
 from repro_torch.models import layers as TL
 from repro_torch.models import precision as TPR
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite's workers
+    share the host's cores, and torch's default of one thread per core
+    in each of them oversubscribes the host many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 ARCH = "clip-vitb32-cc12m"
 
 
