@@ -6,7 +6,9 @@
 Phases, each printing JSON lines (``{"phase": ...}``):
 
 1. device  -- requires CUDA, prints the card's name and power limit
-   (``nvidia-smi``), turns TF32 off for matmuls and convolutions;
+   (``nvidia-smi``), sets the port's numerics policy (TF32 off for
+   matmuls and convolutions, deterministic cuDNN), as every entry
+   point of the port does when it resolves the card;
 2. build   -- builds the port's kernels from ``src/repro_torch/kernels/
    csrc/*.cu`` with nvcc for sm_90a, one nvcc per source, in parallel;
    prints ptxas's registers / spills and counts the tensor-core
@@ -14,7 +16,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    -sass``): none, or a spill, fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card through both entry points at the serving,
-   training, eval-head (f32) and hybrid shapes (f32 and bf16), at
+   training, eval-head (f32), hybrid and ``clip-vitb16-laion`` image
+   tower (256 x 12 x 197 x 197) shapes (f32 and bf16), at
    the curricula's training shapes (S = 2 and a causal S = 32, f32) and
    at edge cases, and times kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
@@ -29,10 +32,11 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    a column split with no unmasked column, d = 3072, per-row taus down
    to 0.01, a clamped row); two calls bitwise equal; times both (with
    and without the wrapper's torch ops, and per pass) at the training
-   and sharded shapes, f32 and bf16;
+   and sharded shapes, f32 and bf16, and at ``clip-rn50-cc3m``'s 256 x
+   256 x 1024 (f32);
 6. slice   -- builds full-width ``clip-vitb32-cc12m`` params from a seeded
    generator, saves them in the checkpoint format (phase eval reuses
-   it), and runs
+   it; on a thread, beside phases 3-9), and runs
    ``repro_torch.launch.serve_embed.main`` with ``--impl flash`` for the
    image tower and the text tower; holds every response against the same
    payload's solo forward through the plain attention, every cache hit
@@ -85,11 +89,26 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
    ``eval`` line the evaluator's on the final params, its eval_loss the
    dense loss's within rtol 1e-5;
-12. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
+12. clip_family -- the paper's other two CLIP settings at full width and
+   depth (v3, AdamW, global batch 256, seeded random weights):
+   ``clip-rn50-cc3m`` trained 3 f32 steps by the launcher in a process
+   of its own that sets no backend flag (the port's device policy alone:
+   no TF32, deterministic cuDNN), 36 K3 and 3 + 3 K1 / K2 calls, held to
+   the plain path here (trajectory and log-u rtol 1e-4, step-1 gradients
+   1e-4 relative L2), one bf16 step, two identical steps bitwise, a
+   profile of one step by kind of kernel (cuDNN convs, GroupNorm, K3,
+   K1/K2, GEMMs, the rest); its step-3 checkpoint served (both towers,
+   0 K3 per image batch) and evaluated (3072 pairs, 156 K3, K1 once,
+   fused vs dense) by the launchers; ``data:1,fsdp:2`` (2 gloo ranks on
+   the card) held to one device (loss 1e-5, params 5e-5, log-u 1e-4);
+   ``clip-vitb16-laion`` 3 f32 steps (36 K3 at S = 197, 36 at 77) with
+   the same checks;
+13. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
    shape of data:2,fsdp:2 at global batch 256 (64 rows x 256 gathered
    columns x 512, row offsets 0, 64, 128, 192) against their plain
    versions, timed; ``--mesh data:1,fsdp:1`` (a one-rank NCCL group)
-   through the launcher, held to phase train's run; ``--mesh
+   through the launcher in a process of its own, held to phase train's
+   run, its checkpoint write beside the 4-rank run below; ``--mesh
    data:2,fsdp:2`` as 4 ranks sharing the card (gloo), spawned through
    ``repro_torch.launch.multiprocess`` (this script's ``--mesh-worker``
    ranks): 3 steps with ``--eval-every 2`` and a sharded checkpoint,
@@ -101,7 +120,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the trajectory at the same bounds; 48 K3 launches per rank per
    step), the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
-13. resilience -- the trainer's recovery paths at full width (v3, f32,
+14. resilience -- the trainer's recovery paths at full width (v3, f32,
    batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
    state compared by the sha256 of every leaf with the oracle's (4
    steps, synchronous saves at 2 and 4): ``nan_batch@2`` under
@@ -119,7 +138,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-14. report -- the kernels JSON line, the card line, and the last line
+15. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -182,7 +201,9 @@ TRAIN_ARGS = ["--arch", ARCH, "--version", "v3", "--optimizer", "adamw",
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}, sort_keys=True), flush=True)
+    # one write per line: a thread may emit beside the main one
+    print(json.dumps({"phase": phase, **kw}, sort_keys=True) + "\n", end="",
+          flush=True)
 
 
 class Checks:
@@ -267,15 +288,15 @@ def phase_device():
               "of a checkout of the repository", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, SRC)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import device as D
+    D.set_numerics_policy()      # as every entry point of the port does
     card = card_line()
     print(card, flush=True)
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
          capability=list(torch.cuda.get_device_capability(0)),
-         nvidia_smi=card, tf32_matmul=False, tf32_cudnn=False)
+         nvidia_smi=card, backend_flags=_backend_flags())
 
 
 def tensor_core_ops(lib):
@@ -330,6 +351,9 @@ KERNEL_CASES = [
     ("vit_train", 256, 12, 50, 50, 64, False, 0, "bfloat16", True),
     ("text_train", 256, 8, 77, 77, 64, True, 0, "float32", True),
     ("text_train", 256, 8, 77, 77, 64, True, 0, "bfloat16", True),
+    # clip-vitb16-laion's image tower at batch 256: 14 x 14 patches + CLS
+    ("vitb16_train", 256, 12, 197, 197, 64, False, 0, "float32", True),
+    ("vitb16_train", 256, 12, 197, 197, 64, False, 0, "bfloat16", True),
     ("text_head", 768, 8, 77, 77, 64, True, 0, "float32", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "float32", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "bfloat16", True),
@@ -618,6 +642,97 @@ def _signed_zero_rows():
             for w in (10 + EVAL_CHUNK, 10 + RETRIEVAL_CHUNK, 3072)}
 
 
+def _k1_f64(e1, e2, tau):
+    """K1's square-case statistics (g1, g2, dg1, dg2, m1, m2) evaluated in
+    f64, similarities and diagonal included: the plain version's formulas
+    with no f32 rounding, the yardstick of both versions."""
+    import torch
+    e1, e2 = e1.double(), e2.double()
+    N = e1.shape[0]
+    sd = (e1 * e2).sum(dim=-1)
+    eye = torch.eye(N, dtype=torch.bool, device=e1.device)
+    out = []
+    for s in (e1 @ e2.T, e2 @ e1.T):
+        diff = s - sd[:, None]
+        z = (diff / tau).masked_fill(eye, float("-inf"))
+        m = z.amax(dim=1)
+        p = (z - m[:, None]).exp()
+        out.append((p.sum(dim=1) / (N - 1),
+                    (p * -diff).sum(dim=1) / (tau * tau) / (N - 1), m))
+    (g1, dg1, m1), (g2, dg2, m2) = out
+    return g1, g2, dg1, dg2, m1, m2
+
+
+def _tol_k1_ratio(got, ref):
+    """Largest |got - ref| / (TOL_K1 + TOL_K1 |ref|): at most 1 is within
+    K1's tolerances of ``ref``."""
+    return ((got.double() - ref).abs() / (TOL_K1 + TOL_K1 * ref.abs())
+            ).max().item()
+
+
+# K1's similarities carry 21 bits of each f32 operand (split TF32,
+# csrc/mma_tf32.cuh) where an f32 product carries 24: against the f64
+# evaluation the kernel may stand up to 2^3 times as far as the plain
+# version does
+K1_SPLIT_VS_F32 = 8.0
+
+
+def _eval_k1(checks, name, e1, e2, counts, against_f64=False):
+    """K1 on an eval pass's embeddings (square N x N x d, tau 0.07), the
+    kernel against its plain version at TOL_K1, and timed; ``counts``:
+    the launches of the pass.  With ``against_f64`` (embeddings so nearly
+    collinear that f32 rounding of the similarities moves dg past TOL_K1
+    in the plain version too): each output of both versions against the
+    f64 evaluation, the kernel within TOL_K1 of it or no farther than
+    K1_SPLIT_VS_F32 times the plain version.  Emits and returns its
+    timings."""
+    import torch
+    from repro_torch.kernels import gcl_loss as GL
+    N, d = e1.shape
+    t = torch.full((N,), 0.07, device="cuda")
+    e1a, e2a, sd, v1, v2, denom = GL._stats_args(e1, e2, t, t, None, None)
+    got = GL.gcl_pair_stats(e1, e2, t, t)
+    ref = GL.gcl_pair_stats_plain(e1, e2, t, t)
+    k1_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    extra = {}
+    if against_f64:
+        exact = _k1_f64(e1, e2, 0.07)
+        names = ("g1", "g2", "dg1", "dg2", "m1", "m2")
+        ratio = {n: [_tol_k1_ratio(k, x), _tol_k1_ratio(p, x)]
+                 for n, k, p, x in zip(names, got, ref, exact)}
+        extra = dict(
+            tol_k1_ratio_vs_f64_kernel_plain=ratio,
+            max_abs_vs_f64_kernel_plain={
+                n: [(k.double() - x).abs().max().item(),
+                    (p.double() - x).abs().max().item()]
+                for n, k, p, x in zip(names, got, ref, exact)},
+            mean_offdiag_cosine_e1=((e1 @ e1.T).sum().item() - N)
+            / (N * (N - 1)), split_vs_f32=K1_SPLIT_VS_F32)
+        checks.check(all(rk <= max(1.0, K1_SPLIT_VS_F32 * rp)
+                         for rk, rp in ratio.values()),
+                     f"{name}: K1 at {N} x {N} x {d} against f64, TOL_K1 "
+                     f"ratio (kernel, plain) {ratio}")
+        del exact
+    else:
+        checks.check(all(torch.allclose(a, b, rtol=TOL_K1, atol=TOL_K1)
+                         for a, b in zip(got, ref)),
+                     f"{name}: K1 at {N} x {N} x {d}, max abs err {k1_err}")
+    del got, ref
+    b_ms, b_by = gcl_bound("stats", N, N, d, "float32", True)
+    k1 = dict(shape=[N, N, d], dtype="float32",
+              ms=device_ms(lambda: GL.gcl_pair_stats(e1, e2, t, t)),
+              kernel_only_ms=device_ms(lambda: GL.stats_merge(
+                  GL.stats_partial(e1, e2, e1a, e2a, sd, v1, v2, 0), denom)),
+              plain_ms=device_ms(lambda: GL.gcl_pair_stats_plain(
+                  e1, e2, t, t), 20),
+              bound_ms=b_ms, bound_by=b_by,
+              tc_floor_ms=gcl_tc_floor("stats", N, N, d, "float32", True),
+              max_abs_err=k1_err, launches=counts["gcl_pair_stats"],
+              cuda_launches=counts["gcl_pair_stats_cuda"])
+    emit(f"{name}_k1", **k1, **extra)
+    return k1
+
+
 def phase_eval(checks, ckpt, model):
     """The zero-shot eval engine at full width: the eval launcher on the
     clip checkpoint (K3 through both towers and the prompt head, K1
@@ -725,28 +840,7 @@ def phase_eval(checks, ckpt, model):
          topk_vs_dense=topk, score_tol=EVAL_TOPK_SCORE_TOL)
 
     # K1 at the eval shape (square N x N x 512), kernel vs plain version
-    t = torch.full((N,), 0.07, device="cuda")
-    e1a, e2a, sd, v1, v2, denom = GL._stats_args(e1, e2, t, t, None, None)
-    got = GL.gcl_pair_stats(e1, e2, t, t)
-    ref = GL.gcl_pair_stats_plain(e1, e2, t, t)
-    k1_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
-    checks.check(all(torch.allclose(a, b, rtol=TOL_K1, atol=TOL_K1)
-                     for a, b in zip(got, ref)),
-                 f"eval: K1 at {N} x {N} x 512, max abs err {k1_err}")
-    b_ms, b_by = gcl_bound("stats", N, N, e1.shape[1], "float32", True)
-    k1 = dict(shape=[N, N, e1.shape[1]], dtype="float32",
-              ms=device_ms(lambda: GL.gcl_pair_stats(e1, e2, t, t)),
-              kernel_only_ms=device_ms(lambda: GL.stats_merge(
-                  GL.stats_partial(e1, e2, e1a, e2a, sd, v1, v2, 0), denom)),
-              plain_ms=device_ms(lambda: GL.gcl_pair_stats_plain(
-                  e1, e2, t, t), 20),
-              bound_ms=b_ms, bound_by=b_by,
-              tc_floor_ms=gcl_tc_floor("stats", N, N, e1.shape[1],
-                                       "float32", True),
-              max_abs_err=k1_err, launches=counts["gcl_pair_stats"],
-              cuda_launches=counts["gcl_pair_stats_cuda"])
-    emit("eval_k1", **k1)
-    del got, ref, e1a, e2a
+    k1 = _eval_k1(checks, "eval", e1, e2, counts)
 
     # exactness: the planted known answers at 192 x 16 through the
     # launcher (K1 for eval_loss); streaming == dense bitwise on
@@ -912,6 +1006,12 @@ GCL_CASES = [
     ("main_bf16", 256, 256, 512, 0, "bfloat16", 0.07, False, True),
     ("rect_paper", 256, 2048, 512, 768, "float32", 0.07, False, True),
     ("rect_paper_bf16", 256, 2048, 512, 768, "bfloat16", 0.07, False, True),
+    # clip-rn50-cc3m's training shape: embed_dim 1024; and its rank's
+    # shape on data:1,fsdp:2 (phase clip_family): 128 rows against the 256
+    # gathered columns at each row offset
+    ("rn50", 256, 256, 1024, 0, "float32", 0.07, False, True),
+    ("rn50_rank0", 128, 256, 1024, 0, "float32", 0.07, False, True),
+    ("rn50_rank1", 128, 256, 1024, 128, "float32", 0.07, False, True),
     ("ragged", 200, 200, 128, 0, "float32", 0.05, False, False),
     ("rect", 64, 256, 512, 128, "float32", 0.07, False, False),
     ("d37", 33, 33, 37, 0, "float32", 0.07, False, False),
@@ -1346,10 +1446,13 @@ def phase_ssd_grad(checks):
     checks.end_phase("ssd_grad")
 
 
-def _profile(fn, match=None):
+def _profile(fn, match=None, categories=()):
     """torch.profiler over one call: device time by kernel, launches and
     the device's idle share of the call's wall time; with ``match``, also
-    every kernel whose name holds that string."""
+    every kernel whose name holds that string; with ``categories``
+    (``(name, substrings)`` pairs), the device ms and launches of each,
+    a kernel counted in the first whose substring its name holds, the
+    rest under ``other``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1374,6 +1477,15 @@ def _profile(fn, match=None):
                top=[[k[:80], t, c] for k, t, c in rows[:15]])
     if match:
         out["matched"] = [[k[:80], t, c] for k, t, c in rows if match in k]
+    if categories:
+        cat = {name: [0.0, 0] for name, _ in categories}
+        cat["other"] = [0.0, 0]
+        for key, t, c in rows:
+            name = next((n for n, subs in categories
+                         if any(x in key for x in subs)), "other")
+            cat[name][0] += t
+            cat[name][1] += c
+        out["by_category_ms_launches"] = cat
     return out
 
 
@@ -1550,37 +1662,6 @@ def _train_config(cfg, impl, loss_impl):
                               loss_impl=loss_impl)
 
 
-def _device_steps(cfg, state, idx, batch):
-    """Steps on a batch already on the card (no host data pipeline): ms
-    per step of the kernel path and of the plain path, in turns, and a
-    torch.profiler breakdown of one kernel-path step."""
-    import torch
-    from repro_torch.core import train_step as TS
-    steps = {impl: TS.make_train_step(_train_config(cfg, impl, loss_impl))
-             for impl, loss_impl in (("flash", "fused"), ("naive", "dense"))}
-    ms = {k: [] for k in steps}
-    for impl in ("flash", "naive", "naive", "flash"):
-        state, _ = steps[impl](state, batch, idx)       # warm-up
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        for _ in range(2):
-            state, m = steps[impl](state, batch, idx)
-        torch.cuda.synchronize()
-        ms[impl].append((time.monotonic() - t0) / 2 * 1e3)
-    emit("train_device_steps", batch_on_device=True,
-         ms_per_step_kernel_path=ms["flash"],
-         ms_per_step_plain_path=ms["naive"])
-    held = [state]
-
-    def one():
-        held[0], _ = steps["flash"](held[0], batch, idx)
-    try:       # a measurement only; checks do not depend on it
-        emit("train_profile", **_profile(one))
-    except Exception as e:
-        emit("train_profile", error=repr(e))
-    return held[0]
-
-
 def _step1_grads(cfg, impl, loss_impl, state, idx, batch):
     from repro_torch.core import train_step as TS
     tc = _train_config(cfg, impl, loss_impl)
@@ -1590,161 +1671,429 @@ def _step1_grads(cfg, impl, loss_impl, state, idx, batch):
     return grads
 
 
-def phase_train(checks):
-    """Full-width v3 training steps through the port's launcher; returns
-    the kernels' launch counts in the kernel path's run."""
-    import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.core import train_step as TS
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import gcl_loss as GL
-    from repro_torch.launch import train
+# the port's numerics policy (repro_torch.device.set_numerics_policy)
+POLICY_FLAGS = dict(matmul_tf32=False, cudnn_tf32=False,
+                    cudnn_deterministic=True, cudnn_benchmark=False)
+# a step's kernels by what they compute (the first match names a kernel)
+STEP_CATEGORIES = (
+    ("k3_flash_attention", ("flash",)),
+    ("k1_k2_fcco", ("stats_partial", "stats_merge", "grads_weights",
+                    "grads_product")),
+    ("cudnn_conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit",
+                    "winograd")),
+    ("group_norm", ("RowwiseMoments", "FusedParams", "GroupNorm",
+                    "group_norm", "InternalGradients", "GammaBeta")),
+    ("gemm", ("gemm", "gemv")),
+)
 
-    cfg = get_arch(ARCH)
-    # step-1 gradients from one init, kernel path vs plain path
-    state = TS.init_train_state(torch.Generator().manual_seed(0),
-                                _train_config(cfg, "flash", "fused"))
-    idx, batch, host_s = _first_batch(cfg)
-    emit("train_host_batch", global_batch=256, host_seconds=host_s)
-    g_kernel = _step1_grads(cfg, "flash", "fused", state, idx, batch)
-    g_plain = _step1_grads(cfg, "naive", "dense", state, idx, batch)
-    rel = {k: ((g_kernel[k] - g_plain[k]).norm()
-               / g_plain[k].norm().clamp_min(1e-30)).item()
-           for k in g_plain}
+
+def _family_argv(arch, *extra):
+    argv = list(TRAIN_ARGS)
+    argv[argv.index("--arch") + 1] = arch
+    return argv + list(extra)
+
+
+def _backend_flags():
+    import torch
+    return dict(matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
+                cudnn_tf32=torch.backends.cudnn.allow_tf32,
+                cudnn_deterministic=torch.backends.cudnn.deterministic,
+                cudnn_benchmark=torch.backends.cudnn.benchmark)
+
+
+def _by_seq():
+    """K3's launches by (Sq, Sk) since the counts were set to 0."""
+    from repro_torch.kernels import flash_attention as FA
+    return {f"{q}x{k}": n for (q, k), n in
+            sorted(FA.flash_attention.launches_by_seq.items())}
+
+
+def _k3_by_seq(cfg, steps):
+    """K3's launches by (Sq, Sk) in ``steps`` training steps: each text
+    layer at the context length, each ViT layer at its patches and CLS
+    (the ResNet has none)."""
+    ctx = cfg.clip.context_length
+    want = {f"{ctx}x{ctx}": steps * cfg.n_layers}
+    if cfg.clip.vision_arch == "vit":
+        S = (cfg.clip.image_size // cfg.clip.patch_size) ** 2 + 1
+        want[f"{S}x{S}"] = (want.get(f"{S}x{S}", 0)
+                            + steps * cfg.clip.vision_layers)
+    return want
+
+
+def _dtype_error(state):
+    """None when every float leaf of a train state is f32 (f32 masters
+    under any tower precision), else why not."""
+    from repro_torch.core import train_step as TS
+    try:
+        TS.check_state_dtypes(state)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def _launcher_worker(argv):
+    """The training launcher's ``main`` in a process of its own (spawned by
+    ``_LauncherProcess``, never by hand) that sets no backend flag, so the
+    run starts from the port's device policy alone.  ``argv[0]``: an npz
+    path for the final log-u; prints the launches, the backend flags
+    before and after, the f32-master check, the step records and the peak
+    memory on one JSON line."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch.launch import train
+    out, argv = argv[0], argv[1:]
+    # the allocator's cached blocks go back to the card as a checkpoint
+    # write (host work) begins, so that the work beside it has the memory
+    CK.set_fault_hook(lambda event: torch.cuda.empty_cache()
+                      if event == "pre_npz" else None)
+    before = _backend_flags()
+    record = []
+    st = train.main(argv, record=record)
+    np.savez(out, **{u: st["fc"][u].cpu().numpy() for u in ("u1", "u2")})
+    print(json.dumps({"launcher_worker": dict(
+        launches=_counters(), by_seq=_by_seq(), flags_before=before,
+        flags_after=_backend_flags(), dtype_error=_dtype_error(st),
+        record=record,
+        max_memory_allocated=torch.cuda.max_memory_allocated())}),
+        flush=True)
+
+
+class _LauncherProcess:
+    """``_launcher_worker`` on ``argv`` in a child process whose output a
+    thread reads as it comes: ``wait_for`` a line, then ``finish`` for
+    (exit code, its report or None, {u1, u2} or None, stderr's tail)."""
+
+    def __init__(self, argv):
+        import threading
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_lw_")
+        self.out = os.path.join(self.dir, "u.npz")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "chip_smoke", "--launcher-worker",
+             self.out, *argv], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=self.err, text=True,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join([SRC, ROOT])})
+        self.lines = []
+        self.cond = threading.Condition()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for ln in self.proc.stdout:
+            with self.cond:
+                self.lines.append(ln.rstrip("\n"))
+                self.cond.notify_all()
+        with self.cond:
+            self.lines.append(None)          # end of output
+            self.cond.notify_all()
+
+    def wait_for(self, pred, timeout):
+        """Block until a line satisfies ``pred`` (True) or the output ends
+        or ``timeout`` passes (False)."""
+        with self.cond:
+            return self.cond.wait_for(
+                lambda: any(ln is None or pred(ln) for ln in self.lines),
+                timeout) and any(ln is not None and pred(ln)
+                                 for ln in self.lines)
+
+    def finish(self, timeout):
+        import numpy as np
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self.reader.join(60)
+        rep = [ln for ln in self.lines
+               if ln and ln.startswith('{"launcher_worker"')]
+        rep = json.loads(rep[-1])["launcher_worker"] if rep else None
+        u = dict(np.load(self.out)) if os.path.exists(self.out) else None
+        self.err.seek(0)
+        err = self.err.read()[-3000:]
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return rc, rep, u, err
+
+
+def _run_here(argv):
+    """The launcher in this process: (state, record, launches, launches by
+    (Sq, Sk), wall seconds, peak memory, its standard output), the counts
+    set to 0 just before and read just after."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import train
+    record, out = [], io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        st = train.main(argv, record=record)
+    torch.cuda.synchronize()
+    return (st, record, _counters(), _by_seq(), time.monotonic() - t0,
+            torch.cuda.max_memory_allocated(), out.getvalue())
+
+
+def _traj_rel(rec_a, rec_b):
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+               for a, b in zip(rec_a, rec_b)
+               for k in ("loss", "tau", "loss_value", "u_mean"))
+
+
+def _log_u_rel(checks, name, u_a, u_b):
+    """Largest error of the touched log-u rows of ``u_a`` against
+    ``u_b`` (relative, floor 0.1); untouched rows are -inf in both."""
+    import torch
+    err = 0.0
+    for k in ("u1", "u2"):
+        a, b = torch.as_tensor(u_a[k]).cpu(), torch.as_tensor(u_b[k]).cpu()
+        fin = torch.isfinite(b)
+        checks.check(bool((torch.isfinite(a) == fin).all()),
+                     f"{name}: touched log-u rows differ")
+        err = max(err, ((a[fin] - b[fin]).abs()
+                        / b[fin].abs().clamp_min(1e-1)).max().item())
+    return err
+
+
+def _device_checks(checks, cfg, name, idx, batch):
+    """Untimed, on a batch on the card: step-1 gradients of the kernel
+    path against the plain path (relative L2 per leaf), and two identical
+    kernel-path steps from one init, bitwise (sha256 per leaf).  Returns
+    the state after those steps."""
+    import torch
+    from repro_torch.checkpoint import bridge
+    from repro_torch.core import train_step as TS
+    tc = _train_config(cfg, "flash", "fused")
+    state = TS.init_train_state(torch.Generator().manual_seed(0), tc,
+                                "cuda")
+    g_k = _step1_grads(cfg, "flash", "fused", state, idx, batch)
+    g_p = _step1_grads(cfg, "naive", "dense", state, idx, batch)
+    rel = {k: ((g_k[k] - g_p[k]).norm()
+               / g_p[k].norm().clamp_min(1e-30)).item() for k in g_p}
+    del g_k, g_p, state
     worst = max(rel, key=rel.get)
     checks.check(all(math.isfinite(v) and v <= TOL_TRAIN_GRAD
                      for v in rel.values()),
-                 f"train: step-1 grads, worst leaf {worst} rel L2 "
+                 f"{name}: step-1 grads, worst leaf {worst} rel L2 "
                  f"{rel[worst]}")
-    emit("train_grads", leaves=len(rel), worst_leaf=worst,
-         worst_rel_l2=rel[worst], tol=TOL_TRAIN_GRAD)
-    del g_kernel, g_plain
-    state = _device_steps(cfg, state, idx, batch)
-    del state, batch
+    step = TS.make_train_step(tc, "cuda")
+    digests = []
+    for _ in range(2):
+        state = TS.init_train_state(torch.Generator().manual_seed(0), tc,
+                                    "cuda")
+        state, _ = step(state, batch, idx)
+        digests.append(_state_digests(bridge.state_to_tree(state)))
+    bitwise = digests[0] == digests[1]
+    differ = [k for k in digests[0] if digests[0][k] != digests[1].get(k)]
+    checks.check(bitwise, f"{name}: two identical steps differ in "
+                 f"{differ[:8]}")
+    emit(f"{name}_device_checks", grad_leaves=len(rel),
+         grad_worst_leaf=worst, grad_worst_rel_l2=rel[worst],
+         tol=TOL_TRAIN_GRAD, two_steps_bitwise=bitwise,
+         leaves_hashed=len(digests[0]))
+    return state
 
-    def run(extra, counted=False):
-        record = []
+
+def _device_timing(cfg, name, state, idx, batch):
+    """Steps on a batch already on the card (no host data pipeline): ms
+    per step of the kernel path and of the plain path in turns (kernel,
+    plain, kernel: a warm-up and 2 timed steps each), and a
+    torch.profiler breakdown of one kernel-path step by kind of kernel."""
+    import torch
+    from repro_torch.core import train_step as TS
+    steps = {impl: TS.make_train_step(_train_config(cfg, impl, loss_impl),
+                                      "cuda")
+             for impl, loss_impl in (("flash", "fused"), ("naive", "dense"))}
+    ms = {k: [] for k in steps}
+    for impl in ("flash", "naive", "flash"):
+        state, _ = steps[impl](state, batch, idx)       # warm-up
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if counted:
-            FA.flash_attention.launches = 0
-            for fn in (GL.gcl_pair_stats, GL.gcl_pair_grads):
-                fn.launches = fn.cuda_launches = 0
         t0 = time.monotonic()
-        st = train.main(TRAIN_ARGS + extra, record=record)
-        wall = time.monotonic() - t0
-        counts = (dict(flash_attention=FA.flash_attention.launches,
-                       gcl_pair_stats=GL.gcl_pair_stats.launches,
-                       gcl_pair_grads=GL.gcl_pair_grads.launches,
-                       gcl_pair_stats_cuda=GL.gcl_pair_stats.cuda_launches,
-                       gcl_pair_grads_cuda=GL.gcl_pair_grads.cuda_launches)
-                  if counted else None)
-        return st, record, counts, wall, torch.cuda.max_memory_allocated()
+        for _ in range(2):
+            state, _ = steps[impl](state, batch, idx)
+        torch.cuda.synchronize()
+        ms[impl].append((time.monotonic() - t0) / 2 * 1e3)
+    held = [state]
+    del state
 
-    steps = 3
-    st_k, rec_k, counts, wall_k, mem_k = run(
-        ["--steps", str(steps), "--precision", "f32"], counted=True)
-    n_layers = cfg.n_layers + cfg.clip.vision_layers
-    want = dict(flash_attention=n_layers * steps, gcl_pair_stats=steps,
-                gcl_pair_grads=steps, gcl_pair_stats_cuda=2 * steps,
-                gcl_pair_grads_cuda=2 * steps)
-    checks.check(counts == want, f"train: launches {counts}, want {want}")
-    checks.check(len(rec_k) == steps and all(
-        math.isfinite(r["loss"]) for r in rec_k),
-        f"train: losses {[r['loss'] for r in rec_k]}")
-    try:
-        TS.check_state_dtypes(st_k)
-        dtypes_ok = True
-    except AssertionError as e:
-        dtypes_ok = checks.check(False, f"train: dtypes {e}")
-    ms_step = (rec_k[-1]["time"] - rec_k[0]["time"]) / (steps - 1) * 1e3
-    emit("train_kernel_path", steps=steps, launches=counts,
-         launches_want=want, losses=[r["loss"] for r in rec_k],
-         taus=[r["tau"] for r in rec_k], sat_rate=[r["sat_rate"]
-                                                   for r in rec_k],
-         ms_per_step_after_warmup=ms_step, wall_seconds=wall_k,
-         max_memory_allocated=mem_k, f32_masters=dtypes_ok)
-    u_k = [st_k["fc"][u].clone() for u in ("u1", "u2")]
-    # phase mesh holds its data:1,fsdp:1 run to this run
-    from repro_torch.checkpoint import bridge, flatten
-    ref_tree = {k: v.detach().cpu().numpy() for k, v in flatten(
-        bridge.state_to_tree(st_k)).items()}
-    del st_k
+    def one():
+        held[0], _ = steps["flash"](held[0], batch, idx)
+    prof = _profile(one, categories=STEP_CATEGORIES)
+    del held
+    torch.cuda.empty_cache()
+    emit(f"{name}_device_steps", batch_on_device=True,
+         ms_per_step_kernel_path=ms["flash"],
+         ms_per_step_plain_path=ms["naive"], profile=prof)
 
-    st_p, rec_p, _, wall_p, mem_p = run(
-        ["--steps", str(steps), "--precision", "f32", "--impl", "naive",
-         "--loss-impl", "dense"])
-    worst_traj = 0.0
-    for rk, rp in zip(rec_k, rec_p):
-        for key in ("loss", "tau", "loss_value", "u_mean"):
-            worst_traj = max(worst_traj, abs(rk[key] - rp[key])
-                             / max(abs(rp[key]), 1e-30))
-    u_err = 0.0
-    for uk, up in zip(u_k, (st_p["fc"]["u1"], st_p["fc"]["u2"])):
-        fin = torch.isfinite(up)
-        checks.check(bool((torch.isfinite(uk) == fin).all()),
-                     "train: touched log-u rows differ between the paths")
-        u_err = max(u_err, ((uk[fin] - up[fin]).abs()
-                            / up[fin].abs().clamp_min(1e-1)).max().item())
-    checks.check(len(rec_p) == steps and worst_traj <= TOL_TRAIN_TRAJ
-                 and u_err <= TOL_TRAIN_TRAJ,
-                 f"train: kernel vs plain trajectory rel {worst_traj}, "
-                 f"log-u rel {u_err}")
-    emit("train_plain_path", losses=[r["loss"] for r in rec_p],
-         taus=[r["tau"] for r in rec_p], worst_rel_traj=worst_traj,
+
+def _kernel_run_checks(checks, cfg, name, run, steps=3):
+    """The kernel path's launcher run (``run``: its record, launches,
+    launches by (Sq, Sk), f32-master check): launches exact, losses
+    finite, f32 masters."""
+    want = _train_launches(cfg, steps, 0, 0, 1)
+    want_seq = _k3_by_seq(cfg, steps)
+    rec = run["record"]
+    checks.check(run["launches"] == want and run["by_seq"] == want_seq,
+                 f"{name}: launches {run['launches']} {run['by_seq']}, "
+                 f"want {want} {want_seq}")
+    checks.check(len(rec) == steps and all(math.isfinite(r["loss"])
+                                           for r in rec),
+                 f"{name}: losses {[r['loss'] for r in rec]}")
+    checks.check(run["dtype_error"] is None,
+                 f"{name}: dtypes {run['dtype_error']}")
+    emit(f"{name}_kernel_path", steps=steps, launches=run["launches"],
+         launches_want=want, by_seq=run["by_seq"], by_seq_want=want_seq,
+         losses=[r["loss"] for r in rec], taus=[r["tau"] for r in rec],
+         sat_rate=[r["sat_rate"] for r in rec],
+         ms_per_step_after_warmup=(rec[-1]["time"] - rec[0]["time"])
+         / (steps - 1) * 1e3, max_memory_allocated=run[
+             "max_memory_allocated"], f32_masters=run["dtype_error"] is None,
+         **run["extra"])
+
+
+def _plain_path(checks, arch, name, run):
+    """The plain path's launcher run (``--impl naive --loss-impl dense``)
+    against the kernel path's ``run``: each logged loss, tau, loss value
+    and mean log-u, and the final log-u rows, within rtol
+    TOL_TRAIN_TRAJ."""
+    import torch
+    st, rec_p, _, _, wall, mem, _ = _run_here(_family_argv(
+        arch, "--steps", "3", "--precision", "f32", "--impl", "naive",
+        "--loss-impl", "dense"))
+    u_err = _log_u_rel(checks, name, run["u"], st["fc"])
+    del st
+    torch.cuda.empty_cache()
+    rec_k = run["record"]
+    traj = _traj_rel(rec_k, rec_p) if len(rec_p) == len(rec_k) == 3 else 1.0
+    checks.check(traj <= TOL_TRAIN_TRAJ and u_err <= TOL_TRAIN_TRAJ,
+                 f"{name}: kernel vs plain trajectory rel {traj}, log-u "
+                 f"rel {u_err}")
+    emit(f"{name}_plain_path", losses=[r["loss"] for r in rec_p],
+         taus=[r["tau"] for r in rec_p], worst_rel_traj=traj,
          log_u_rel_err=u_err, tol=TOL_TRAIN_TRAJ,
          ms_per_step_after_warmup=(rec_p[-1]["time"] - rec_p[0]["time"])
-         / (steps - 1) * 1e3, wall_seconds=wall_p,
-         max_memory_allocated=mem_p)
-    del st_p
+         / 2 * 1e3, wall_seconds=wall, max_memory_allocated=mem)
 
-    st_b, rec_b, _, wall_b, mem_b = run(["--steps", "1", "--precision",
-                                         "bf16"])
-    try:
-        TS.check_state_dtypes(st_b)
-        bf16_masters = True
-    except AssertionError as e:
-        bf16_masters = checks.check(False, f"train bf16: dtypes {e}")
-    checks.check(len(rec_b) == 1 and math.isfinite(rec_b[0]["loss"]),
-                 f"train bf16: loss {rec_b}")
-    emit("train_bf16", loss=rec_b[0]["loss"], f32_masters=bf16_masters,
-         wall_seconds=wall_b, max_memory_allocated=mem_b)
-    del st_b
-    _train_eval_every(checks, cfg, run)
+
+def _bf16_step(checks, arch, name):
+    """One bf16 step of the launcher: a finite loss, f32 masters."""
+    import torch
+    st, rec, _, _, wall, mem, _ = _run_here(_family_argv(
+        arch, "--steps", "1", "--precision", "bf16"))
+    err = _dtype_error(st)
+    del st
+    torch.cuda.empty_cache()
+    checks.check(err is None, f"{name} bf16: dtypes {err}")
+    checks.check(len(rec) == 1 and math.isfinite(rec[0]["loss"]),
+                 f"{name} bf16: loss {rec}")
+    emit(f"{name}_bf16", loss=rec[0]["loss"] if rec else None,
+         f32_masters=err is None, wall_seconds=wall,
+         max_memory_allocated=mem)
+
+
+def _train_arch(checks, arch, name, ckpt=None, keep_tree=False,
+                beside_write=None):
+    """One CLIP setting at full width, v3, AdamW, global batch 256: 3 f32
+    steps of the launcher on the kernel path, held to the plain path's
+    run; step-1 gradients and two identical steps on one batch (untimed);
+    a bf16 step; then the device-resident timings.  With ``ckpt``, the
+    kernel path runs in a child process that sets no backend flag (the
+    device policy alone decides them) and writes its step-3 checkpoint
+    there; that write is host work, and only untimed work runs beside
+    it: those checks, then ``beside_write()``.  Returns the kernel run's
+    record, launches and launches by (Sq, Sk), with ``keep_tree`` its
+    final state as a flat host tree."""
+    import torch
+    from repro_torch.checkpoint import bridge, flatten
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    idx, batch, host_s = _first_batch(cfg)
+    emit(f"{name}_host_batch", global_batch=256, host_seconds=host_s)
+    argv = _family_argv(arch, "--steps", "3", "--precision", "f32")
+    out = {}
+    if ckpt is None:
+        st, rec, counts, by_seq, wall, mem, _ = _run_here(argv)
+        run = dict(record=rec, launches=counts, by_seq=by_seq,
+                   max_memory_allocated=mem, dtype_error=_dtype_error(st),
+                   u={u: st["fc"][u].cpu() for u in ("u1", "u2")},
+                   extra=dict(wall_seconds=wall))
+        if keep_tree:
+            out["tree"] = {k: v.detach().cpu().numpy() for k, v in flatten(
+                bridge.state_to_tree(st)).items()}
+        del st
+        torch.cuda.empty_cache()
+        state = _device_checks(checks, cfg, name, idx, batch)
+        _bf16_step(checks, arch, name)
+    else:
+        t0 = time.monotonic()
+        child = _LauncherProcess(argv + ["--ckpt-dir", ckpt, "--ckpt-every",
+                                         "3"])
+        try:
+            # the child's last step is logged before its checkpoint write
+            # begins
+            child.wait_for(lambda ln: ln.startswith("step     2 "), 600)
+            state = _device_checks(checks, cfg, name, idx, batch)
+            _bf16_step(checks, arch, name)
+            if beside_write is not None:
+                beside_write()
+        finally:
+            rc, rep, u, err = child.finish(600)
+        if rc or rep is None:
+            print(err, file=sys.stderr, flush=True)
+        checks.check(rc == 0 and rep is not None and u is not None,
+                     f"{name}: launcher process exit code {rc}")
+        checks.end_phase(name)
+        checks.check(rep["flags_after"] == POLICY_FLAGS,
+                     f"{name}: backend flags after the run "
+                     f"{rep['flags_after']}, want {POLICY_FLAGS}")
+        run = dict(rep, u=u, extra=dict(
+            flags_before=rep["flags_before"], flags_after=rep["flags_after"],
+            wall_seconds_with_the_checks_here=time.monotonic() - t0))
+    _kernel_run_checks(checks, cfg, name, run)
+    _plain_path(checks, arch, name, run)
+    _device_timing(cfg, name, state, idx, batch)
+    del state, batch
+    torch.cuda.empty_cache()
+    out.update(record=run["record"], launches=run["launches"],
+               by_seq=run["by_seq"])
+    return out
+
+
+def phase_train(checks):
+    """Full-width ``clip-vitb32-cc12m`` v3 training through the port's
+    launcher (``_train_arch``) and its periodic eval; returns the kernel
+    run's launches, record and final state tree (phase mesh holds its
+    data:1,fsdp:1 run to them)."""
+    from repro_torch.configs import get_arch
+    out = _train_arch(checks, ARCH, "train", keep_tree=True)
+    _train_eval_every(checks, get_arch(ARCH))
     checks.end_phase("train")
-    return counts, rec_k, ref_tree
+    return out["launches"], out["record"], out["tree"]
 
 
-def _train_eval_every(checks, cfg, run):
+def _train_eval_every(checks, cfg):
     """The trainer's periodic eval on the card: ``--eval-every 2`` over 3
     steps evals at steps 2 and 3 (the final eval), each through K3 (both
     towers, the prompt head) and K1 (``eval_loss``, the trainer's default
     ``--loss-impl fused``); launches exact; the last ``eval`` line is the
     evaluator's on the final params, whose ``eval_loss`` is the dense
     loss's within rtol TOL_K1."""
-    import contextlib
-    import io
     import torch
     from repro_torch.data import ZeroShotEvalDataset
     from repro_torch.eval import ClipEvaluator
     steps, every, classes, per_class, batch = 3, 2, 8, 8, 64
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        st, _, counts, wall, mem = run(
-            ["--steps", str(steps), "--precision", "f32", "--eval-every",
-             str(every), "--eval-classes", str(classes), "--eval-per-class",
-             str(per_class), "--eval-batch", str(batch)], counted=True)
+    st, _, counts, _, wall, mem, out = _run_here(
+        TRAIN_ARGS + ["--steps", str(steps), "--precision", "f32",
+                      "--eval-every", str(every), "--eval-classes",
+                      str(classes), "--eval-per-class", str(per_class),
+                      "--eval-batch", str(batch)])
     evals = [(int(m.group(1)), json.loads(m.group(2))) for m in map(
         re.compile(r"^eval  ([ \d]{5}) (\{.*\})$").match,
-        out.getvalue().splitlines()) if m]
-    n_layers = cfg.n_layers + cfg.clip.vision_layers
-    n_evals = 2
-    want = dict(flash_attention=n_layers * steps + n_evals * (
-                    n_layers * -(-classes * per_class // batch)
-                    + cfg.n_layers),
-                gcl_pair_stats=steps + n_evals, gcl_pair_grads=steps,
-                gcl_pair_stats_cuda=2 * (steps + n_evals),
-                gcl_pair_grads_cuda=2 * steps)
+        out.splitlines()) if m]
+    want = _train_launches(cfg, steps, 2, classes * per_class, batch)
     checks.check(counts == want and [s for s, _ in evals] == [2, 3],
                  f"train --eval-every: launches {counts}, want {want}; "
                  f"eval steps {[s for s, _ in evals]}")
@@ -1772,6 +2121,381 @@ def _train_eval_every(checks, cfg, run):
          evals=evals, eval_loss_fused=fused["eval_loss"],
          eval_loss_dense=dense["eval_loss"], eval_loss_rel=rel, rtol=TOL_K1,
          wall_seconds=wall, max_memory_allocated=mem)
+
+
+# ---------------------------------------------------------------------------
+# phase clip_family: the paper's other two CLIP settings
+# ---------------------------------------------------------------------------
+
+RN50, VITB16 = "clip-rn50-cc3m", "clip-vitb16-laion"
+# the eval pass of the ResNet-50 CLIP, as phase eval's
+FAMILY_EVAL_ARGS = ["--impl", "flash", "--classes", str(EVAL_CLASSES),
+                    "--per-class", str(EVAL_PER_CLASS), "--batch-size",
+                    str(EVAL_BATCH), "--chunk", str(EVAL_CHUNK), "--device",
+                    "cuda"]
+
+
+def _mesh_worker_family(argv):
+    """One rank of ``clip-rn50-cc3m`` on data:1,fsdp:2 (2 ranks sharing
+    the card; spawned by phase clip_family, never by hand): 2 ZeRO steps
+    over the rank's rows, the launches per step; on rank 0 each step
+    against one single-device step on the same global batch from the same
+    state (the init, then the mesh's gathered state after step 1), so
+    that no step inherits the other's rounding.  The lr has no warm-up,
+    so that both steps move the params."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import bridge, flatten, unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.core import shard_state as SS
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import multiprocess as MP
+    rank = int(argv[argv.index("--process-id") + 1])
+    dev = MP.initialize(argv[argv.index("--coordinator") + 1],
+                        int(argv[argv.index("--num-processes") + 1]), rank,
+                        "cuda")
+    rep = {"mesh_rank": rank, "steps": []}
+    try:
+        mesh = MS.make_train_mesh(1, 2, device=dev)
+        rep["backend"] = mesh.backend
+        cfg = get_arch(RN50)
+        tc1 = dataclasses.replace(_train_config(cfg, "flash", "fused"),
+                                  lr_fn=lr_warmup_cosine(1e-3, 0, 2))
+        step = TS.make_train_step(dataclasses.replace(
+            tc1, fsdp=True, mesh_axes=MESH_AXES))
+        dims = step.param_dims
+        rep["leaves"] = {g: len(ps) for g, ps in _leaf_groups(dims).items()}
+        st1 = TS.init_train_state(torch.Generator().manual_seed(0), tc1,
+                                  "cpu")
+        tree = unflatten({k: v.clone() for k, v in flatten(
+            bridge.state_to_tree(st1)).items()})
+        s = SS.shard_train_state(tree, mesh, dims)
+        local = _mesh_batches(cfg, rank, 2, full=False, n_shards=2)
+        full = (_mesh_batches(cfg, rank, 2, full=True, n_shards=2)
+                if rank == 0 else None)
+        fn1 = TS.make_train_step(tc1, "cuda") if rank == 0 else None
+        for k, (idx, batch) in enumerate(local):
+            _zero_counters()
+            s, m = step(s, batch, idx)
+            res = dict(launches=_counters(), loss=float(m["loss"]),
+                       lr=float(m["lr"]))
+            after = {p: v.cpu() for p, v in flatten(
+                SS.gather_train_state(s, mesh, dims)).items()}
+            if rank == 0:
+                # one device, one step from the state the mesh started at
+                st1 = bridge.state_from_tree(
+                    {**st1, "params": st1["params"].cuda()}, tree)
+                if k == 0:
+                    rep["grad_sensitivity"] = _grad_sensitivity(
+                        tc1, st1, full[k][1], full[k][0], dims)
+                st1, m1 = fn1(st1, full[k][1], full[k][0])
+                one = {p: v.cpu() for p, v in flatten(
+                    bridge.state_to_tree(st1)).items()}
+                res.update(_mesh_vs_one(after, one, tree, float(m1["loss"]),
+                                        res["loss"], dims))
+                del one
+            rep["steps"].append(res)
+            tree = unflatten(after)           # the next step's start
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    finally:
+        MS.set_mesh(None)
+        MP.shutdown()
+    print(json.dumps(rep), flush=True)
+
+
+def _leaf_groups(dims):
+    """The params' JAX paths in two groups: sharded over fsdp (their
+    gradients reduce-scattered) and replicated (all-reduced)."""
+    return {"sharded": sorted(p for p, d in dims.items() if d is not None),
+            "replicated": sorted(p for p, d in dims.items() if d is None)}
+
+
+def _rel_tree(pairs):
+    """Relative L2 over a whole group of (got, want) pairs."""
+    num = sum(float((a - b).double().square().sum()) for a, b in pairs)
+    den = sum(float(b.double().square().sum()) for _, b in pairs)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _grad_sensitivity(tc, state, batch, idx, dims):
+    """Relative L2, over each group of leaves and over the whole tree, by
+    which one device's step gradients move when its images move by 1e-7
+    (relative, seeded noise): how far the step amplifies a rounding of
+    its forward."""
+    import torch
+    from repro_torch.checkpoint import bridge, flatten
+    from repro_torch.core import train_step as TS
+    core = TS.make_loss_core(tc.fc, tc.loss_impl)
+    gamma = tc.fc.gamma_fn()(state["step"])
+    img = batch["images"]
+    gen = torch.Generator(device=img.device).manual_seed(0)
+    noise = torch.randn(img.shape, device=img.device, generator=gen)
+    g = [flatten(bridge.named_to_tree(state["params"], TS.step_grads(
+        tc, core, state, {**batch, "images": im}, idx, gamma)[2]))
+        for im in (img, img * (1 + 1e-7 * noise))]
+    out = {grp: _rel_tree([(g[1][p], g[0][p]) for p in ps])
+           for grp, ps in _leaf_groups(dims).items()}
+    out["tree"] = _rel_tree([(g[1][p], g[0][p]) for p in g[0]])
+    return out
+
+
+def _mesh_vs_one(mesh, one, start, loss_one, loss_mesh, dims):
+    """One step on the mesh against one step on one device from the same
+    ``start`` (flat state trees on the host): loss, log-u and params by
+    max abs error; the first moments (the reduced gradients' running
+    mean) and the step's update by relative L2 over each group of leaves
+    (``_leaf_groups``), and the worst leaf of each."""
+    import torch
+    from repro_torch.checkpoint import flatten
+    start = flatten(start)
+    groups = _leaf_groups(dims)
+
+    def maxdiff(prefix):
+        out = 0.0
+        for k in one:
+            if k.startswith(prefix):
+                a, b = mesh[k].double(), one[k].double()
+                d = (a - b).abs()
+                d[a == b] = 0.0                  # matching -inf log-u rows
+                out = max(out, float(d.max()) if d.numel() else 0.0)
+        return out
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def upd(side, p):
+        return side[f"params/{p}"] - start[f"params/{p}"]
+    params = [p for ps in groups.values() for p in ps]
+    leaf_upd = {p: rel(upd(mesh, p), upd(one, p)) for p in params}
+    leaf_mom = {p: rel(mesh[f"opt/m/{p}"], one[f"opt/m/{p}"])
+                for p in params}
+    return dict(
+        moment_rel_l2={g: _rel_tree([(mesh[f"opt/m/{p}"], one[f"opt/m/{p}"])
+                                     for p in ps])
+                       for g, ps in groups.items()},
+        update_rel_l2={g: _rel_tree([(upd(mesh, p), upd(one, p))
+                                     for p in ps])
+                       for g, ps in groups.items()},
+        same_keys=(sorted(mesh) == sorted(one) and sorted(
+            f"params/{p}" for p in params) == sorted(
+                k for k in one if k.startswith("params/"))),
+        dloss=abs(loss_mesh - loss_one), dparam=maxdiff("params/"),
+        dlogu=max(maxdiff("fc/u1"), maxdiff("fc/u2")),
+        params_over_5e_5=sum(int(((mesh[f"params/{p}"] - one[f"params/{p}"])
+                                  .abs() > 5e-5).sum()) for p in params),
+        params_moved=sum(not torch.equal(one[f"params/{p}"],
+                                         start[f"params/{p}"])
+                         for p in params),
+        params=len(params),
+        update_worst_leaf=max(leaf_upd, key=leaf_upd.get),
+        update_worst_rel_l2=max(leaf_upd.values()),
+        moment_worst_leaf=max(leaf_mom, key=leaf_mom.get),
+        moment_worst_rel_l2=max(leaf_mom.values()))
+
+
+# the mesh's steps against one device's: relative L2 over each group of
+# leaves, of the first moments (the reduced gradients) and of the update
+# at each step (AdamW's first step moves each entry by lr times the sign
+# of its gradient, so there an entry whose sign rounding decides moves
+# by 2 lr)
+TOL_MESH_MOMENT, TOL_MESH_UPDATE = 1e-2, (5e-2, 1e-2)
+
+
+def _rn50_mesh(checks):
+    """``clip-rn50-cc3m`` on data:1,fsdp:2, 2 steps that both move the
+    params, each against one device from the same state: loss 1e-5 and
+    log-u 1e-4 by max abs error; exact launches per rank.  The gradients
+    (first moments) and the update are held by relative L2 over each
+    group of leaves, the sharded ones (reduce-scatter) and the replicated
+    ones (all-reduce) apart, not per entry: at its random init the
+    ResNet's step moves its gradients by ~1e-3 when its images move by
+    1e-7 (``grad_sensitivity``, measured here), a half batch runs other
+    conv algorithms than a whole one, and AdamW's first steps move each
+    entry by about lr times the sign of its gradient, so an entry whose
+    sign that rounding decides moves by up to 2 lr.  A lost reduction
+    moves a group's moments and update by ~1; a doubled one its moments
+    by 1."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(RN50)
+    t0 = time.monotonic()
+    res, reps = _spawn_mesh("family", [], 600, nproc=2)
+    wall = time.monotonic() - t0
+    rcs = [r.returncode for r in res]
+    for r in res:
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr, flush=True)
+    checks.check(rcs == [0, 0] and all(reps),
+                 f"rn50_mesh: exit codes {rcs}")
+    checks.end_phase("clip_family")
+    want = _train_launches(cfg, 1, 0, 0, 1)
+    per_step = [[st["launches"] for st in rp["steps"]] for rp in reps]
+    checks.check(per_step == [[want] * 2] * 2,
+                 f"rn50_mesh: launches per step {per_step}, want {want}")
+    steps = reps[0]["steps"]
+    for k, st in enumerate(steps):
+        ok = (st["same_keys"] and st["lr"] > 0
+              and st["params_moved"] == st["params"]
+              and st["dloss"] <= 1e-5 and st["dlogu"] <= 1e-4
+              and all(v <= TOL_MESH_MOMENT
+                      for v in st["moment_rel_l2"].values())
+              and all(v <= TOL_MESH_UPDATE[k]
+                      for v in st["update_rel_l2"].values()))
+        checks.check(ok, f"rn50_mesh: step {k} vs one device {st}")
+    emit("rn50_mesh", mesh="data:1,fsdp:2", exit_codes=rcs,
+         backend=reps[0].get("backend"), launches_per_step=per_step[0],
+         launches_want=want, steps=steps,
+         bounds=dict(loss=1e-5, log_u=1e-4,
+                     moments_group_rel_l2=TOL_MESH_MOMENT,
+                     update_group_rel_l2_per_step=TOL_MESH_UPDATE),
+         grad_sensitivity_1e_7=reps[0].get("grad_sensitivity"),
+         leaves=reps[0].get("leaves"),
+         max_memory_allocated_per_rank=[rp.get("max_memory_allocated")
+                                        for rp in reps],
+         wall_seconds=wall)
+
+
+def _rn50_serve_eval(checks, ckpt):
+    """Both launchers on the step-3 checkpoint of the ResNet-50 launcher
+    run (``_train_arch`` with ``ckpt``): serving of both towers (nothing
+    dropped, within 1e-5 of the solo forward, cache hits bitwise; 0 K3
+    per image batch, 12 per text batch), the eval pass (fused vs dense)
+    and K1 on its embeddings against the plain version.  Returns the
+    launch counts and K1's timings."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch.configs import get_arch
+    from repro_torch.eval import extraction as EX
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gcl_loss as GL
+    from repro_torch.launch import eval as EV
+    from repro_torch.launch import serve_embed
+    from repro_torch.models import backbones as BB
+    from repro_torch.models import clip as C
+    from repro_torch.models import precision as PR
+    from repro_torch.serve import content_hash
+    cfg = get_arch(RN50)
+    tree, step, _ = CK.restore_subtree(ckpt, BB.param_shapes(cfg), "params")
+    checks.check(step == 3, f"rn50_serve: checkpoint step {step}, want 3")
+    model = BB.params_from_tree(cfg, tree, "cuda")
+    del tree
+    out = {}
+    for tower, modality, key, per_batch in (
+            ("resnet", "image", "images", 0),
+            ("text", "text", "texts", cfg.n_layers)):
+        record = []
+        _zero_counters()
+        t0 = time.monotonic()
+        stats = serve_embed.main(
+            ["--ckpt-dir", ckpt, "--arch", RN50, "--impl", "flash",
+             "--device", "cuda", "--modality", modality, "--requests",
+             str(SERVE_REQUESTS), "--classes", "32", "--per-class", "1",
+             "--payload-pool", "24", "--offered-rate", "100"],
+            record=record)
+        wall = time.monotonic() - t0
+        n_launch = FA.flash_attention.launches
+        out[f"serve_{tower}"] = n_launch
+        worst, computed = 0.0, {}
+        for payload, res in record:
+            if res.path == "compute":
+                computed.setdefault(content_hash(payload), set()).add(
+                    res.embedding.tobytes())
+                solo = _solo_embedding(model, payload, key, "naive", PR.F32)
+                worst = max(worst, float(np.abs(solo - res.embedding).max()))
+        cache_exact = all(
+            res.embedding.tobytes() in computed[content_hash(payload)]
+            for payload, res in record if res.path == "cache")
+        checks.check(stats["dropped"] == 0 and stats["completed"] > 0
+                     and stats["served_cache"] > 0 and cache_exact
+                     and worst <= TOL_EMBED["float32"],
+                     f"rn50_serve {tower}: dropped {stats['dropped']}, "
+                     f"hits {stats['served_cache']} exact {cache_exact}, "
+                     f"vs solo {worst}")
+        checks.check(n_launch == per_batch * stats["batches"],
+                     f"rn50_serve {tower}: {n_launch} K3 launches for "
+                     f"{stats['batches']} batches, want {per_batch} each")
+        emit("rn50_serve", tower=tower, checkpoint_step=step,
+             batches=stats["batches"], completed=stats["completed"],
+             served_cache=stats["served_cache"], dropped=stats["dropped"],
+             flash_launches=n_launch, launches_per_batch_want=per_batch,
+             served_vs_solo_naive_max_abs=worst, tol=TOL_EMBED["float32"],
+             cache_hits_bitwise=cache_exact, wall_seconds=wall)
+    # K1 on the pass's embeddings (the launcher's extraction: the same
+    # params, split and batches), against its plain version
+    ds = EV.build_eval_dataset(argparse.Namespace(
+        classes=EVAL_CLASSES, per_class=EVAL_PER_CLASS, flip_frac=0.0,
+        seed=0), cfg)
+    e1, e2 = (torch.from_numpy(e).to("cuda") for e in
+              EX.extract_pair_embeddings(
+                  lambda p, b: C.encode_pair(p, b, impl="flash"), model, ds,
+                  batch_size=EVAL_BATCH, device="cuda"))
+    del model
+    torch.cuda.empty_cache()
+    N = EVAL_CLASSES * EVAL_PER_CLASS
+    metrics = {}
+    for impl in ("fused", "dense"):
+        _zero_counters()
+        t0 = time.monotonic()
+        metrics[impl] = EV.main(["--ckpt-dir", ckpt, "--arch", RN50,
+                                 "--loss-impl", impl] + FAMILY_EVAL_ARGS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if impl == "fused":
+            counts = dict(flash_attention=FA.flash_attention.launches,
+                          gcl_pair_stats=GL.gcl_pair_stats.launches,
+                          gcl_pair_stats_cuda=GL.gcl_pair_stats.cuda_launches)
+            wall_fused = wall
+    want = dict(flash_attention=cfg.n_layers * (-(-N // EVAL_BATCH) + 1),
+                gcl_pair_stats=1, gcl_pair_stats_cuda=2)
+    f, d = metrics["fused"], metrics["dense"]
+    # K1's rtol and atol: at this init the O(1) log-sum-exp terms of the
+    # loss cancel to ~3e-6, where a relative bound alone measures rounding
+    rel = abs(f["eval_loss"] - d["eval_loss"]) / max(abs(d["eval_loss"]),
+                                                     1.0)
+    checks.check(counts == want, f"rn50_eval: launches {counts}, want {want}")
+    checks.check(rel <= TOL_K1 and all(f[k] == d[k] for k in f
+                                       if k != "eval_loss")
+                 and all(math.isfinite(v) for v in f.values()),
+                 f"rn50_eval: fused {f} vs dense {d}")
+    emit("rn50_eval", N=N, batch=EVAL_BATCH, launches=counts,
+         launches_want=want, metrics_fused=f, metrics_dense=d,
+         eval_loss_err_vs_max_1=rel, rtol_atol=TOL_K1,
+         wall_seconds_fused=wall_fused,
+         wall_seconds_dense=wall)
+    out["eval"] = counts
+    out["eval_k1"] = _eval_k1(checks, "rn50_eval", e1, e2, counts,
+                              against_f64=True)
+    return out
+
+
+def phase_clip_family(checks, beside=None):
+    """The paper's other two CLIP settings at full width and depth, seeded
+    random weights, v3, AdamW, global batch 256 on the card: the ResNet-50
+    (train, serve, eval; on the mesh and ``beside()``, both untimed,
+    beside its launcher's checkpoint write), ViT-B/16 (train).  Returns
+    the launch counts of their runs and K1's timings at the ResNet-50's
+    eval shape."""
+    import torch
+
+    def untimed():
+        if beside is not None:
+            beside()
+        _rn50_mesh(checks)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_rn50_")
+    try:
+        out = {"rn50_train": _train_arch(checks, RN50, "rn50", ckpt=ckpt,
+                                         beside_write=untimed)}
+        checks.end_phase("clip_family")
+        out.update(_rn50_serve_eval(checks, ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    checks.end_phase("clip_family")
+    out["vitb16_train"] = _train_arch(checks, VITB16, "vitb16")
+    checks.end_phase("clip_family")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1806,11 +2530,18 @@ def _zero_counters():
         fn.launches = fn.cuda_launches = 0
 
 
+def _k3_layers(cfg):
+    """Attention layers of one pass through both towers (the ResNet has
+    none)."""
+    return cfg.n_layers + (cfg.clip.vision_layers
+                           if cfg.clip.vision_arch == "vit" else 0)
+
+
 def _train_launches(cfg, steps, evals, eval_pairs, eval_batch, mb=1):
     """Launches of one rank's (or one device's) launcher run: K3 in both
     towers per step (per micro-step), K1 and K2 once per step; an eval
     pass runs K3 over its batches and the prompt head, K1 once."""
-    n_layers = cfg.n_layers + cfg.clip.vision_layers
+    n_layers = _k3_layers(cfg)
     flash = n_layers * steps * mb + evals * (
         n_layers * -(-eval_pairs // eval_batch) + cfg.n_layers)
     return dict(flash_attention=flash, gcl_pair_stats=steps + evals,
@@ -1885,17 +2616,17 @@ def _mesh_worker_train(argv):
                       "state_sha256": _state_digests(state)}), flush=True)
 
 
-def _mesh_batches(cfg, rank, steps, full):
-    """The first ``steps`` (idx, batch) of the launcher's 4-shard loader
-    at MESH_ARGS: this rank's rows, or (``full``) the whole global batch,
-    on the card."""
+def _mesh_batches(cfg, rank, steps, full, n_shards=4):
+    """The first ``steps`` (idx, batch) of the launcher's ``n_shards``
+    loader at MESH_ARGS: this rank's rows, or (``full``) the whole global
+    batch, on the card."""
     import numpy as np
     import torch
     from repro_torch.data import ContrastiveDataset, ShardedLoader
     ds = ContrastiveDataset(n=2048, image_size=cfg.clip.image_size,
                             context_length=cfg.clip.context_length,
                             vocab_size=cfg.vocab_size, n_classes=64)
-    loader = ShardedLoader(ds, global_batch=256, n_shards=4, seed=0,
+    loader = ShardedLoader(ds, global_batch=256, n_shards=n_shards, seed=0,
                            owned_shards=None if full else (rank,))
     out = []
     for _, _, idx, batch in loader.steps(steps):
@@ -2034,12 +2765,12 @@ def _mesh_worker_step(argv):
     print(json.dumps(rep), flush=True)
 
 
-def _spawn_mesh(kind, args, timeout):
-    """4 ranks of this script's worker ``kind`` on the card; returns
-    (harness results, one report dict per rank)."""
+def _spawn_mesh(kind, args, timeout, nproc=4):
+    """``nproc`` ranks of this script's worker ``kind`` on the card;
+    returns (harness results, one report dict per rank)."""
     from repro_torch.launch import multiprocess as MP
     res = MP.run_train_multiprocess(
-        ["--mesh-worker", kind, *args], num_processes=4, timeout=timeout,
+        ["--mesh-worker", kind, *args], num_processes=nproc, timeout=timeout,
         module="chip_smoke",
         env_extra={"PYTHONPATH": os.pathsep.join([SRC, ROOT])})
     reports = []
@@ -2053,16 +2784,15 @@ def _spawn_mesh(kind, args, timeout):
 def phase_mesh(checks, train_rec, train_tree):
     """The (data, fsdp) mesh on the card; returns the kernels' per-rank
     launches of the data:2,fsdp:2 launcher run and the K1/K2 timings at
-    the per-rank shape."""
-    import contextlib
-    import io
+    the per-rank shape.  Each launcher's steps run alone; their
+    checkpoint writes and the checks of what they wrote run beside the
+    step-level checks, which time nothing."""
+    import concurrent.futures
     import numpy as np
     import torch
     from repro_torch import checkpoint as CK
-    from repro_torch.checkpoint import bridge, flatten
+    from repro_torch.checkpoint import flatten
     from repro_torch.configs import get_arch
-    from repro_torch.core import train_step as TS
-    from repro_torch.launch import train
 
     cfg = get_arch(ARCH)
     # K1 / K2 at the per-rank shape, each row offset
@@ -2071,22 +2801,63 @@ def phase_mesh(checks, train_rec, train_tree):
     for case in MESH_GCL_CASES:
         _gcl_case(checks, gen, case, timings, phase="mesh_gcl")
 
-    # data:1,fsdp:1: a one-rank group (NCCL), held to phase train's run
+    # data:2,fsdp:2: four ranks sharing the card (gloo), through the
+    # multi-process launcher, with --eval-every and a sharded checkpoint
+    d4 = tempfile.mkdtemp(prefix="chip_smoke_mesh4_")
     d1 = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
     try:
-        _zero_counters()
-        record, out = [], io.StringIO()
+        torch.cuda.empty_cache()
         t0 = time.monotonic()
-        with contextlib.redirect_stdout(out):
-            train.main(MESH_ARGS + ["--mesh", "data:1,fsdp:1", "--ckpt-dir",
-                                    d1, "--ckpt-every", "100"], record=record)
-        wall = time.monotonic() - t0
-        counts = _counters()
-        first = out.getvalue().splitlines()[0]
+        res4, reps4 = _spawn_mesh("train", MESH_ARGS + [
+            "--mesh", "data:2,fsdp:2", "--eval-every", "2",
+            "--eval-classes", "8", "--eval-per-class", "8",
+            "--eval-batch", "64", "--ckpt-dir", d4, "--ckpt-every",
+            "100"], 900)
+        wall4 = time.monotonic() - t0
+        rcs4 = [r.returncode for r in res4]
+        for r in res4:
+            if r.returncode:
+                print(r.stderr[-3000:], file=sys.stderr, flush=True)
+        lines = [[ln for ln in r.stdout.splitlines()
+                  if ln.startswith(("step ", "eval "))] for r in res4]
+        want4 = _train_launches(cfg, 3, 2, 64, 64)
+        launches = [rp["launches"] if rp else None for rp in reps4]
+
+        # data:1,fsdp:1: a one-rank group (NCCL) in a process of its own,
+        # held to phase train's run; its checkpoint write (~80 s of host
+        # compression) and the check of the 2x2 checkpoint run beside the
+        # step-level checks
+        t1 = time.monotonic()
+        child = _LauncherProcess(MESH_ARGS + ["--mesh", "data:1,fsdp:1",
+                                              "--ckpt-dir", d1,
+                                              "--ckpt-every", "100"])
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            try:
+                child.wait_for(lambda ln: ln.startswith("step     2 "), 900)
+                verified = pool.submit(_mesh_ckpt_check, d4, train_tree,
+                                       [(rp or {}).get("state_sha256")
+                                        for rp in reps4])
+                # step-level parity, microbatch 2, the sharded eval forms
+                torch.cuda.empty_cache()
+                t0 = time.monotonic()
+                res, reps = _spawn_mesh("step", [], 900)
+                wall = time.monotonic() - t0
+            finally:
+                rc1, rep1, _, err1 = child.finish(900)
+            ok_ckpt, differ, finite = verified.result()
+        wall1 = time.monotonic() - t1
+        if rc1 or rep1 is None:
+            print(err1, file=sys.stderr, flush=True)
+        checks.check(rc1 == 0 and rep1 is not None,
+                     f"mesh 1x1: launcher process exit code {rc1}")
+        checks.end_phase("mesh")
+        counts, record = rep1["launches"], rep1["record"]
+        first = next(ln for ln in child.lines if ln)
         tree, step, _ = CK.restore(d1, CK.unflatten(
             {k: v for k, v in train_tree.items()}))
     finally:
         shutil.rmtree(d1, ignore_errors=True)
+        shutil.rmtree(d4, ignore_errors=True)
     tree = flatten(tree)
     want = _train_launches(cfg, 3, 0, 0, 1)
     traj = max(abs(r[k] - w[k]) / max(abs(w[k]), 1e-30)
@@ -2109,69 +2880,9 @@ def phase_mesh(checks, train_rec, train_tree):
          losses=[r["loss"] for r in record], worst_rel_traj=traj,
          tol=TOL_TRAIN_TRAJ, log_lines_bitwise=lines_bitwise,
          final_state_bitwise=state_bitwise, final_state_max_abs_err=state_err,
-         ms_step_gaps=_step_gaps_ms(record, 0, 100), wall_seconds=wall)
+         ms_step_gaps=_step_gaps_ms(record, 0, 100), wall_seconds=wall1)
     del tree
 
-    # data:2,fsdp:2: four ranks sharing the card (gloo), through the
-    # multi-process launcher, with --eval-every and a sharded checkpoint
-    torch.cuda.empty_cache()
-    d4 = tempfile.mkdtemp(prefix="chip_smoke_mesh4_")
-    try:
-        t0 = time.monotonic()
-        res, reps = _spawn_mesh("train", MESH_ARGS + [
-            "--mesh", "data:2,fsdp:2", "--eval-every", "2",
-            "--eval-classes", "8", "--eval-per-class", "8", "--eval-batch",
-            "64", "--ckpt-dir", d4, "--ckpt-every", "100"], 900)
-        wall = time.monotonic() - t0
-        rcs = [r.returncode for r in res]
-        for r in res:
-            if r.returncode:
-                print(r.stderr[-3000:], file=sys.stderr, flush=True)
-        lines = [[ln for ln in r.stdout.splitlines()
-                  if ln.startswith(("step ", "eval "))] for r in res]
-        want4 = _train_launches(cfg, 3, 2, 64, 64)
-        launches = [rp["launches"] if rp else None for rp in reps]
-        ok_ckpt = CK.latest_step(d4) == 3
-        tree, _, _ = CK.restore(d4, CK.unflatten(
-            {k: v for k, v in train_tree.items()}))
-        # bitwise: the merged restore against every rank's final shards
-        differ = _restore_vs_rank_shards(
-            tree, [(rp or {}).get("state_sha256") for rp in reps], 2, 2)
-        # merged on one device: a single-device state on the card
-        st = TS.init_train_state(torch.Generator().manual_seed(1),
-                                 _train_config(cfg, "flash", "fused"), "cuda")
-        st = bridge.state_from_tree(st, tree)
-        finite = all(bool(torch.isfinite(p).all())
-                     for p in st["params"].parameters())
-        del st, tree
-    finally:
-        shutil.rmtree(d4, ignore_errors=True)
-    checks.check(rcs == [0] * 4, f"mesh 2x2 launcher: exit codes {rcs}")
-    checks.check(all(ln == lines[0] for ln in lines)
-                 and len([x for x in lines[0] if x.startswith("step ")]) == 3
-                 and len([x for x in lines[0] if x.startswith("eval ")]) == 2,
-                 f"mesh 2x2 launcher: rank lines differ {lines}")
-    checks.check(launches == [want4] * 4,
-                 f"mesh 2x2 launcher: launches {launches}, want {want4}")
-    checks.check(ok_ckpt and finite and not differ,
-                 "mesh 2x2 launcher: the sharded checkpoint does not verify "
-                 f"or restore merged (leaves differing from the ranks' "
-                 f"final shards: {differ[:8]})")
-    emit("mesh_2x2_launcher", exit_codes=rcs, step_lines=lines[0],
-         launches_per_rank=launches, launches_want=want4,
-         max_memory_allocated_per_rank=[
-             rp["max_memory_allocated"] if rp else None for rp in reps],
-         ms_step_gaps_without_eval_per_rank=[
-             rp["ms_step_gaps_without_eval"] if rp else None for rp in reps],
-         checkpoint_verified=ok_ckpt, restored_merged_finite=finite,
-         restored_merged_equals_rank_shards_bitwise=not differ,
-         wall_seconds=wall)
-
-    # step-level parity, microbatch 2, the sharded eval forms
-    torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    res, reps = _spawn_mesh("step", [], 900)
-    wall = time.monotonic() - t0
     rcs = [r.returncode for r in res]
     for r in res:
         if r.returncode:
@@ -2222,8 +2933,53 @@ def phase_mesh(checks, train_rec, train_tree):
          max_memory_allocated_per_rank=[
              (rp or {}).get("max_memory_allocated") for rp in reps],
          wall_seconds=wall)
+
+    checks.check(rcs4 == [0] * 4, f"mesh 2x2 launcher: exit codes {rcs4}")
+    checks.check(all(ln == lines[0] for ln in lines)
+                 and len([x for x in lines[0] if x.startswith("step ")]) == 3
+                 and len([x for x in lines[0] if x.startswith("eval ")]) == 2,
+                 f"mesh 2x2 launcher: rank lines differ {lines}")
+    checks.check(launches == [want4] * 4,
+                 f"mesh 2x2 launcher: launches {launches}, want {want4}")
+    checks.check(ok_ckpt and finite and not differ,
+                 "mesh 2x2 launcher: the sharded checkpoint does not verify "
+                 f"or restore merged (leaves differing from the ranks' "
+                 f"final shards: {differ[:8]})")
+    emit("mesh_2x2_launcher", exit_codes=rcs4, step_lines=lines[0],
+         launches_per_rank=launches, launches_want=want4,
+         max_memory_allocated_per_rank=[
+             rp["max_memory_allocated"] if rp else None for rp in reps4],
+         ms_step_gaps_without_eval_per_rank=[
+             rp["ms_step_gaps_without_eval"] if rp else None for rp in reps4],
+         checkpoint_verified=ok_ckpt, restored_merged_finite=finite,
+         restored_merged_equals_rank_shards_bitwise=not differ,
+         wall_seconds=wall4)
     checks.end_phase("mesh")
     return {"launches_per_rank": launches[0], "gcl": timings}
+
+
+def _mesh_ckpt_check(d4, train_tree, rank_digests):
+    """The data:2,fsdp:2 launcher's checkpoint: the latest step is 3; its
+    merged restore, cut into each rank's shards, equals bitwise the
+    shards each rank held at the end (``rank_digests``); the merged
+    state loads into a single-device state on the card, all finite.
+    Returns (latest is 3, the leaves that differ, finite)."""
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch.checkpoint import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    ok_ckpt = CK.latest_step(d4) == 3
+    tree, _, _ = CK.restore(d4, CK.unflatten(
+        {k: v for k, v in train_tree.items()}))
+    differ = _restore_vs_rank_shards(tree, rank_digests, 2, 2)
+    st = TS.init_train_state(torch.Generator().manual_seed(1),
+                             _train_config(get_arch(ARCH), "flash", "fused"),
+                             "cuda")
+    st = bridge.state_from_tree(st, tree)
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in st["params"].parameters())
+    return ok_ckpt, differ, finite
 
 
 # ---------------------------------------------------------------------------
@@ -2256,7 +3012,6 @@ def _res_run(argv, on_step=None):
     import io
     import torch
     from repro_torch.checkpoint import bridge
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
 
     class Record(list):
@@ -2275,10 +3030,8 @@ def _res_run(argv, on_step=None):
         st = train.main(argv, record=record)
     sync()
     wall = time.monotonic() - t0
-    res = dict(launches=_counters(), by_seq={
-        f"{q}x{k}": n for (q, k), n in
-        sorted(FA.flash_attention.launches_by_seq.items())},
-        record=list(record), out=out.getvalue(), wall=wall)
+    res = dict(launches=_counters(), by_seq=_by_seq(), record=list(record),
+               out=out.getvalue(), wall=wall)
     res["digests"] = _state_digests(bridge.state_to_tree(st))
     del st
     torch.cuda.empty_cache()
@@ -2619,39 +3372,73 @@ def main(argv=None):
     ap.add_argument("--only", default=None,
                     help="a partial run: device, build, then these phases "
                          "(comma-separated: kernel, gcl, train, "
-                         "resilience); no report and no last line")
+                         "clip_family, mesh after train, resilience); no "
+                         "report and no last line")
     args = ap.parse_args(argv)
     checks = Checks()
+    t_start = time.monotonic()
+
+    def mark(phase):
+        emit("timeline", after=phase,
+             seconds_since_start=time.monotonic() - t_start)
     phase_device()
-    phase_build(checks)
     if args.only:
+        phase_build(checks)
+        out = {}
         for name in args.only.split(","):
-            {"kernel": phase_kernel, "gcl": phase_gcl, "train": phase_train,
-             "resilience": phase_resilience}[name](checks)
+            if name == "mesh":       # held to phase train's run
+                out["mesh"] = phase_mesh(checks, *out["train"][1:])
+            else:
+                out[name] = {
+                    "kernel": phase_kernel, "gcl": phase_gcl,
+                    "train": phase_train, "clip_family": phase_clip_family,
+                    "resilience": phase_resilience}[name](checks)
+            mark(name)
         print(f"chip_smoke: partial run of {args.only} passed; no report",
               flush=True)
         return
-    timings = phase_kernel(checks)
+    phase_build(checks)
     phase_attn_grad(checks)
-    gcl_timings = phase_gcl(checks)
-    ssd_timings = phase_ssd(checks)
     phase_ssd_grad(checks)
+    mark("build, attn_grad, ssd_grad")
+    timings = phase_kernel(checks)
+    mark("kernel")
+    gcl_timings = phase_gcl(checks)
+    mark("gcl")
+    ssd_timings = phase_ssd(checks)
+    mark("ssd")
     hybrid_launches, ssd_cuda_launches = phase_hybrid(checks)
-    ckpt, model = make_clip_checkpoint()
+    mark("hybrid")
+    import torch
+    train_launches, train_rec, train_tree = phase_train(checks)
+    torch.cuda.empty_cache()
+    mark("train")
+    import concurrent.futures
+    # phases slice and eval's checkpoint (host compression, ~35 s) is
+    # written on a thread beside the ResNet-50 launcher's write, where
+    # nothing is timed
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        made = []
+        family = phase_clip_family(checks, beside=lambda: made.append(
+            pool.submit(make_clip_checkpoint)))
+        ckpt, model = made[0].result()
+    torch.cuda.empty_cache()
+    mark("clip_family")
     try:
         launches = phase_slice(checks, ckpt, model)
+        mark("slice")
         eval_launches, k1_eval = phase_eval(checks, ckpt, model)
+        mark("eval")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    import torch
     del model
-    torch.cuda.empty_cache()
-    train_launches, train_rec, train_tree = phase_train(checks)
     torch.cuda.empty_cache()
     mesh_out = phase_mesh(checks, train_rec, train_tree)
     del train_tree
     torch.cuda.empty_cache()
+    mark("mesh")
     res_launches = phase_resilience(checks)
+    mark("resilience")
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -2659,6 +3446,10 @@ def main(argv=None):
         # (both towers over 3072 pairs and the prompt head)
         if case == "hybrid":
             path, n_launch = "prefill", hybrid_launches["flash_attention"]
+        elif case == "vitb16_train":
+            # clip-vitb16-laion's 3 steps: its image tower's launches
+            path = "clip_family"
+            n_launch = family["vitb16_train"]["by_seq"]["197x197"]
         elif case.endswith("_train"):
             path, n_launch = "train", train_launches["flash_attention"]
         elif case == "text_head":
@@ -2682,7 +3473,16 @@ def main(argv=None):
                 "flash_attention"],
             # each full-width run of phase resilience
             "resilience_launches": {c: n["flash_attention"]
-                                    for c, n in res_launches.items()}})
+                                    for c, n in res_launches.items()},
+            # phase clip_family: ResNet-50 3 steps (text tower only), its
+            # serving runs and eval pass; ViT-B/16 3 steps
+            "clip_family_launches": {
+                "rn50_train": family["rn50_train"]["launches"][
+                    "flash_attention"],
+                "rn50_serve_image": family["serve_resnet"],
+                "rn50_serve_text": family["serve_text"],
+                "rn50_eval": family["eval"]["flash_attention"],
+                "vitb16_train": family["vitb16_train"]["by_seq"]}})
     for name, kernel, line in (("gcl_pair_stats", "stats", 169),
                                ("gcl_pair_grads", "grads", 362)):
         t = gcl_timings["main", kernel]
@@ -2713,6 +3513,21 @@ def main(argv=None):
                 f"{name}_cuda"],
             "resilience_launches": {c: n[name]
                                     for c, n in res_launches.items()},
+            "clip_family_launches": {
+                "rn50_train": family["rn50_train"]["launches"][name],
+                "vitb16_train": family["vitb16_train"]["launches"][name],
+                **({"rn50_eval": family["eval"][name]}
+                   if name == "gcl_pair_stats" else {})},
+            # clip-rn50-cc3m's shape, 256 x 256 x 1024, and its ranks'
+            # on data:1,fsdp:2, 128 x 256 x 1024 at row offsets 0 and 128
+            **{f"{case}_{k}": gcl_timings[case, kernel][k]
+               for case in ("rn50", "rn50_rank0", "rn50_rank1")
+               for k in ("shape", "row_offset", "ms", "kernel_only_ms",
+                         "plain_ms", "bound_ms", "bound_by", "tc_floor_ms",
+                         "max_abs_err")},
+            # K1 on the ResNet-50's eval pass, 3072 x 3072 x 1024
+            **({f"rn50_eval_{k}": v for k, v in family["eval_k1"].items()}
+               if name == "gcl_pair_stats" else {}),
             **{f"{case[0]}_{k}": mesh_out["gcl"][case[0], kernel][k]
                for case in MESH_GCL_CASES
                for k in ("shape", "row_offset", "ms", "kernel_only_ms",
@@ -2752,17 +3567,16 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         # one rank of phase mesh (spawned by it, never by hand)
         sys.path.insert(0, SRC)
-        import torch
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        {"train": _mesh_worker_train, "step": _mesh_worker_step}[
-            sys.argv[2]](sys.argv[3:])
+        {"train": _mesh_worker_train, "step": _mesh_worker_step,
+         "family": _mesh_worker_family}[sys.argv[2]](sys.argv[3:])
+    elif sys.argv[1:2] == ["--launcher-worker"]:
+        # one launcher run of phase clip_family (spawned by it); it sets
+        # no backend flag: the port's device policy alone decides them
+        sys.path.insert(0, SRC)
+        _launcher_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--res-worker"]:
         # one full-width run of phase resilience (spawned by it)
         sys.path.insert(0, SRC)
-        import torch
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         _res_worker(sys.argv[2:])
     else:
         main()

@@ -7,9 +7,12 @@ stack holds one array with a leading layer axis.  The port's modules
 name their parameters the same way, with a stack as an ``nn.ModuleList``
 (``vision.blocks.3.attn.wq``); a stack of stacks, such as the hybrid
 LM's ``supers.2.mambas.4.w_in``, is one JAX array with two leading axes
-(``supers/mambas/w_in``).  ``model_to_tree`` stacks the layers back
+(``supers/mambas/w_in``).  A ``layers.BlockList`` (a ResNet stage) is
+not a stack: the JAX tree holds it as a list, each block under its index
+(``vision/stage0/1/c1``).  ``model_to_tree`` stacks the layers back
 into the JAX form and ``load_tree`` splits them; both copy values bit for
-bit (weights keep the JAX (in, out) layout).  ``state_to_tree`` /
+bit (weights keep the JAX layout: (in, out) dense, HWIO conv).
+``state_to_tree`` /
 ``state_from_tree`` do the same for a whole train state, optimizer
 moments included, so a train state saved by either package restores in
 the other.
@@ -23,11 +26,12 @@ import torch
 from torch import nn
 
 from repro_torch.checkpoint.checkpoint import flatten, unflatten
+from repro_torch.models.layers import BlockList
 
 
 def _stacks(model: nn.Module) -> set:
     return {name for name, m in model.named_modules()
-            if isinstance(m, nn.ModuleList)}
+            if isinstance(m, nn.ModuleList) and not isinstance(m, BlockList)}
 
 
 def _split_name(stacks: set, name: str):
@@ -53,7 +57,7 @@ def named_to_tree(model: nn.Module, named: Dict[str, Any]) -> Dict[str, Any]:
     """Tensors keyed by ``model``'s parameter names (its parameters, or
     optimizer moments of them) -> nested dict in the JAX params layout,
     each layer stack stacked along a new leading axis (a stack of stacks
-    along two)."""
+    along two), each ``BlockList`` a list."""
     stacks = _stacks(model)
     per_path: Dict[str, Dict[tuple, Any]] = {}
     for name, _ in model.named_parameters():

@@ -10,8 +10,10 @@ write goes tmp-file then ``os.replace``, in the order arrays, sidecar,
 marker, so a crash leaves the previous step intact.  A checkpoint the
 JAX package wrote restores here and the reverse.
 
-Trees are nested ``dict``s (sorted key order, as JAX flattens them)
-whose leaves are numpy arrays or tensors; restores return numpy arrays.
+Trees are nested ``dict``s (sorted key order, as JAX flattens them) and
+``list``s (index order, the index a part of the path, as in the JAX
+package's ``vision/stage0/1/c1``) whose leaves are numpy arrays or
+tensors; restores return numpy arrays.
 
 Sharded saves (``save_sharded``, the (data, fsdp) mesh of
 ``core.shard_state``) write the JAX package's format: shard file ``k``
@@ -60,16 +62,23 @@ _CKPT_RE = re.compile(r"^ckpt_(\d{8})\.(npz|json)$")
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {path: leaf}, keys sorted at every level."""
+    """Nested dicts and lists -> {path: leaf}: dict keys sorted at every
+    level, list items in order under their index."""
     if isinstance(tree, dict):
-        out = {}
-        for k in sorted(tree):
-            out.update(flatten(tree[k], f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}{k}/"))
+    return out
 
 
 def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``flatten``: a level whose keys are exactly ``0``
+    ... ``n-1`` becomes a list."""
     out: Dict[str, Any] = {}
     for path, leaf in flat.items():
         node = out
@@ -77,7 +86,16 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
         for part in head:
             node = node.setdefault(part, {})
         node[last] = leaf
-    return out
+    return _lists(out)
+
+
+def _lists(node: Any) -> Any:
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and set(node) == {str(i) for i in range(len(node))}:
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 _FAULT_HOOK: Optional[Callable[[str], None]] = None

@@ -2,8 +2,8 @@
 
 An own copy of ``ArchConfig``/``CLIPConfig``/``SSMConfig``, the input
 shapes and the registry: the port imports nothing of the JAX package.
-The CLIP two-tower config and the hybrid ``zamba2-1.2b`` are registered
-here; ``reduced()`` gives the same small shapes as the JAX package's
+The paper's three CLIP settings (ResNet-50 on CC3M, ViT-B/32 on CC12M,
+ViT-B/16 on LAION) and the hybrid ``zamba2-1.2b`` are registered here; ``reduced()`` gives the same small shapes as the JAX package's
 ``reduced()``, which is what lets the tests load one set of params into
 both packages.
 """
@@ -46,9 +46,9 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     """Two-tower CLIP settings (paper Table 2)."""
-    vision_arch: str = "vit"       # only "vit" is ported
+    vision_arch: str = "vit"       # "vit" | "resnet"
     image_size: int = 224
-    patch_size: int = 32
+    patch_size: int = 32           # vit only
     vision_layers: int = 12
     vision_width: int = 768
     vision_heads: int = 12
@@ -124,7 +124,8 @@ class ArchConfig:
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
-_ARCH_MODULES = ["clip_vitb32_cc12m", "zamba2_1p2b"]
+_ARCH_MODULES = ["clip_rn50_cc3m", "clip_vitb32_cc12m", "clip_vitb16_laion",
+                 "zamba2_1p2b"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -1,9 +1,10 @@
 """Two-tower CLIP model (port of ``repro.models.clip``).
 
 Text tower: pre-norm causal transformer (rmsnorm, gelu MLP, RoPE), pooled
-at the last token.  Vision tower: the ViT.  Both take ``impl`` (the
-attention core) and ``precision`` (the activation policy) and return
-unnormalised f32 embeddings.
+at the last token.  Vision tower: the ViT or the ResNet-50, per
+``cfg.clip.vision_arch``.  Both take ``impl`` (the attention core; the
+ResNet has none, so it does not reach it) and ``precision`` (the
+activation policy) and return unnormalised f32 embeddings.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import precision as PR
+from repro_torch.models import resnet as R
 from repro_torch.models import transformer as T
 from repro_torch.models import vit as V
 
@@ -25,11 +27,14 @@ class CLIP(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         c = cfg.clip
-        if c.vision_arch != "vit":
-            raise NotImplementedError(
-                f"vision_arch {c.vision_arch!r} is not ported (only vit)")
+        if c.vision_arch == "vit":
+            vision = V.ViT(c)
+        elif c.vision_arch == "resnet":
+            vision = R.ResNet(c)
+        else:
+            raise ValueError(c.vision_arch)
         self.cfg = cfg
-        self.vision = V.ViT(c)
+        self.vision = vision
         self.tok_embed = L.param(cfg.vocab_size, cfg.d_model)
         self.pos_embed = L.param(1, c.context_length, cfg.d_model)
         self.text_blocks = T.make_stack(cfg, cfg.n_layers)
@@ -44,9 +49,9 @@ class CLIP(nn.Module):
 
 def init_clip(cfg: ArchConfig, gen: torch.Generator) -> CLIP:
     """Random params from ``gen`` (on the CPU): normal(0, 1/sqrt(fan_in))
-    dense weights, N(0, 0.02) embeddings/CLS/positions (0.01 for the text
-    positions), unit norms, zero biases: the JAX package's recipe, but
-    not its random numbers."""
+    dense and conv weights (fan_in kh*kw*cin for HWIO), N(0, 0.02)
+    embeddings/CLS/positions (0.01 for the text positions), unit norms,
+    zero biases: the JAX package's recipe, but not its random numbers."""
     model = CLIP(cfg)
     for m in model.modules():
         if hasattr(m, "reset_parameters"):
@@ -55,6 +60,9 @@ def init_clip(cfg: ArchConfig, gen: torch.Generator) -> CLIP:
 
 
 def encode_image(model: CLIP, images, *, impl="flash", precision=PR.F32):
+    if model.cfg.clip.vision_arch == "resnet":
+        # no attention in the ResNet: impl is a no-op for it, as in JAX
+        return R.apply_resnet(model.vision, images, precision=precision)
     return V.apply_vit(model.vision, images, impl=impl, precision=precision)
 
 

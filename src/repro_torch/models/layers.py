@@ -32,6 +32,14 @@ def param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape))
 
 
+class BlockList(nn.ModuleList):
+    """Blocks that the JAX params tree keeps as a Python list, each under
+    its index (``vision/stage0/1/c1``), such as a ResNet stage whose
+    blocks differ in shape.  An ``nn.ModuleList`` is a layer stack, one
+    leaf per parameter with a leading layer axis (``checkpoint.bridge``);
+    a ``BlockList`` is not."""
+
+
 # ---------------------------------------------------------------------------
 # Norms (f32 inside, output in the input dtype)
 # ---------------------------------------------------------------------------

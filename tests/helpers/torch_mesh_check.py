@@ -22,6 +22,8 @@ Batteries:
   cuda   (a card, 2 ranks sharing it over gloo) all-gather,
          reduce-scatter and all-reduce on CUDA tensors, and the backward
          of the differentiable gathers
+  rn50   (2 ranks, data:1,fsdp:2) one ZeRO step of the narrow ResNet-50
+         CLIP (``narrow_rn50``) against the single-device step
 
     PYTHONPATH=src:tests/helpers python -m torch_mesh_check <battery> \\
         OUT [IN] \\
@@ -135,13 +137,22 @@ def battery_loss(mesh, out, inp):
 # step (the fsdp_check battery)
 # ---------------------------------------------------------------------------
 
-def _setup(version="v3"):
+def narrow_rn50(get_arch):
+    """The reduced ``clip-rn50-cc3m`` with a narrow ResNet (stem width 16,
+    32 px, embed 64; the stage depths stay), from either package's
+    ``get_arch``."""
+    cfg = get_arch("clip-rn50-cc3m").reduced()
+    return cfg.replace(clip=dataclasses.replace(
+        cfg.clip, vision_width=16, image_size=32, embed_dim=64))
+
+
+def _setup(version="v3", cfg=None, n_shards=4, steps=3):
     from repro_torch.configs import get_arch
     from repro_torch.core import fastclip as FC
     from repro_torch.core.schedules import lr_warmup_cosine
     from repro_torch.data import ContrastiveDataset, ShardedLoader
     from repro_torch.optim import adamw
-    cfg = get_arch("clip-vitb32-cc12m").reduced()
+    cfg = cfg or get_arch("clip-vitb32-cc12m").reduced()
     fc = FC.FastCLIPConfig(version=version, n_samples=N_SAMPLES,
                            steps_per_epoch=2, gamma_decay_epochs=2)
     # guard=True runs the axis-aware global norm (the sharded squares
@@ -152,10 +163,10 @@ def _setup(version="v3"):
     ds = ContrastiveDataset(n=N_SAMPLES, image_size=cfg.clip.image_size,
                             context_length=cfg.clip.context_length,
                             vocab_size=cfg.vocab_size, n_classes=8)
-    loader = ShardedLoader(ds, global_batch=GLOBAL_BATCH, n_shards=4)
+    loader = ShardedLoader(ds, global_batch=GLOBAL_BATCH, n_shards=n_shards)
     batches = [(torch.from_numpy(idx),
                 {k: torch.from_numpy(v) for k, v in batch.items()})
-               for _, _, idx, batch in loader.steps(3)]
+               for _, _, idx, batch in loader.steps(steps)]
     return kw, batches
 
 
@@ -262,6 +273,47 @@ def battery_step(mesh, out, inp):
                                 SS.per_device_bytes(full)]
     checks.update(_props(mesh))
     return res, checks
+
+
+def battery_rn50(mesh, out, inp):
+    from repro_torch import checkpoint as CK
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    kw, batches = _setup("v3", narrow_rn50(get_arch), n_shards=2, steps=1)
+    kw["lr_fn"] = lr_warmup_cosine(1e-3, 0, 10)    # the step moves params
+    tc = TS.TrainStepConfig(**kw, mesh_axes=AXES, fsdp=True)
+    st0 = TS.init_train_state(torch.Generator().manual_seed(1),
+                              TS.TrainStepConfig(**kw), "cpu")
+    tree0 = CK.unflatten({k: v.clone() for k, v in flatten(
+        bridge.state_to_tree(st0)).items()})
+    step_sh = TS.make_train_step(tc)
+    dims = step_sh.param_dims
+    st_sh, loss_sh, _ = _run3(step_sh, SS.shard_train_state(tree0, mesh),
+                              _local(batches, mesh))
+    full_sh = _flat_np(SS.gather_train_state(st_sh, mesh, dims))
+    st_1, loss_1, _ = _run3(TS.make_train_step(TS.TrainStepConfig(**kw),
+                                               "cpu"), st0, batches)
+    full_1 = _flat_np(bridge.state_to_tree(st_1))
+    start = _flat_np(tree0)
+    checks = {
+        "dloss": max(abs(a - b) for a, b in zip(loss_sh, loss_1)),
+        "dparam": _maxdiff(full_sh, full_1, "params/"),
+        "dlogu": max(_maxdiff(full_sh, full_1, "fc/u1"),
+                     _maxdiff(full_sh, full_1, "fc/u2")),
+        # the first moments: (1 - beta1) x the reduced gradients
+        "moment_rel_l2": max(
+            float(np.linalg.norm(full_sh[k] - full_1[k])
+                  / max(np.linalg.norm(full_1[k]), 1e-30))
+            for k in full_1 if k.startswith("opt/m/")),
+        "same_keys": sorted(full_sh) == sorted(full_1),
+        "params_unmoved": sorted(
+            k for k in full_1 if k.startswith("params/")
+            and np.array_equal(full_1[k], start[k])),
+        "sharded_conv_leaves": sorted(
+            k for k, d in dims.items() if d is not None
+            and k.startswith("vision/stage"))}
+    return {}, checks
 
 
 def _props(mesh):
@@ -430,7 +482,7 @@ def battery_cuda(mesh, out, inp):
 
 BATTERIES = {"loss": battery_loss, "step": battery_step,
              "ckpt": battery_ckpt, "eval": battery_eval,
-             "cuda": battery_cuda}
+             "cuda": battery_cuda, "rn50": battery_rn50}
 
 
 def main():
@@ -447,8 +499,8 @@ def main():
                         args.process_id,
                         "cuda" if args.battery == "cuda" else "cpu")
     try:
-        shape = {"ckpt": (1, 4), "cuda": (1, args.num_processes)}.get(
-            args.battery, (2, 2))
+        shape = {"ckpt": (1, 4), "cuda": (1, args.num_processes),
+                 "rn50": (1, 2)}.get(args.battery, (2, 2))
         mesh = MS.make_train_mesh(*shape, device=dev)
         res, checks = BATTERIES[args.battery](mesh, args.out, args.inp)
         if mesh.rank == 0:

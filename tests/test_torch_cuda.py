@@ -51,6 +51,8 @@ def _qkv(gen, B, H, Sq, Sk, hd, dtype):
     (3, 2, 10, 10, 32, True, 0),
     (256, 12, 50, 50, 64, False, 0),    # ViT training shape (batch 256)
     (256, 8, 77, 77, 64, True, 0),      # text training shape
+    (256, 12, 197, 197, 64, False, 0),  # ViT-B/16 training shape (14 x 14
+                                        # patches and the class token)
     (256, 12, 2, 2, 64, False, 0),      # curriculum: a 32 px image (1 patch)
     (256, 8, 32, 32, 64, True, 0),      # curriculum: a 32-token context
 ])
@@ -158,6 +160,7 @@ from repro_torch.kernels import gcl_loss as GL  # noqa: E402
 GCL_CASES = [
     ("main", 256, 256, 512, 0, torch.float32, 0.07),
     ("main_bf16", 256, 256, 512, 0, torch.bfloat16, 0.07),
+    ("rn50", 256, 256, 1024, 0, torch.float32, 0.07),   # embed_dim 1024
     ("ragged", 200, 200, 128, 0, torch.float32, 0.05),
     ("rect", 64, 256, 512, 128, torch.float32, 0.07),
     ("wide_d", 48, 48, 3072, 0, torch.float32, 0.06),

@@ -361,3 +361,54 @@ def test_truncated_sums_need_a_flush_per_chunk_at_wide_d(monkeypatch,
     got, want = _tc_results(monkeypatch, _wide_inputs(), flush=flush)
     k1, k2 = _misses(got, want)
     assert (k1 == []) == flush and k2 == []
+
+
+def _collinear_inputs(spread, n=256, d=1024, seed=15):
+    """Unit rows at ``spread`` around one direction: at 0.005 their
+    cosines are ~1, as a random-init ResNet-50's embeddings are."""
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal(d)
+
+    def rows():
+        x = c + spread * rng.standard_normal((n, d))
+        return t((x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
+            np.float32))
+    return rows(), rows(), torch.full((n,), 0.07)
+
+
+def _stats_f64(monkeypatch, e1, e2, tv):
+    """K1's statistics in f64, similarities included."""
+    e1, e2, tv = e1.double(), e2.double(), tv.double()
+    with monkeypatch.context() as m:
+        m.setattr(TGL, "_matmul", lambda a, b: a @ b)
+        out = TGL._stats_plain(e1, e2, e1, e2, (e1 * e2).sum(-1), tv, tv, 0)
+    return [x / (e1.shape[0] - 1) for x in out[:4]] + list(out[4:])
+
+
+def _tol_ratio(got, ref):
+    return ((got.double() - ref).abs() / (TOL_K1 + TOL_K1 * ref.abs())
+            ).max().item()
+
+
+@pytest.mark.parametrize("spread", [0.005, 1.0])
+def test_split_tf32_against_f64_on_near_collinear_rows(monkeypatch,
+                                                       spread):
+    """On rows near one direction the f32 rounding of the similarities
+    moves dg (divided by tau^2) past TOL_K1 in the plain version itself,
+    so ``chip_smoke.py`` holds K1 on the ResNet-50's eval embeddings to
+    an f64 evaluation: within TOL_K1 of it, or no farther than 2^3 times
+    the plain version (the split carries 21 bits of each f32 operand, an
+    f32 product 24).  The kernels' arithmetic, emulated, meets that; its
+    truncating split puts dg ~4x farther than the plain version."""
+    e1, e2, tv = _collinear_inputs(spread)
+    exact = _stats_f64(monkeypatch, e1, e2, tv)
+    plain = TGL.gcl_pair_stats_plain(e1, e2, tv, tv)
+    monkeypatch.setattr(TGL, "_matmul", tc_matmul())
+    kern = _stats_split(e1, e2, tv, tv, TGL.SPLIT)
+    ratio = {n: (_tol_ratio(k, x), _tol_ratio(p, x)) for n, k, p, x in zip(
+        ("g1", "g2", "dg1", "dg2", "m1", "m2"), kern, plain, exact)}
+    print(f"spread {spread}: TOL_K1 ratio against f64 (kernel, plain)",
+          {n: (round(a, 3), round(b, 3)) for n, (a, b) in ratio.items()})
+    assert all(rk <= max(1.0, 8.0 * rp) for rk, rp in ratio.values())
+    if spread < 0.01:
+        assert ratio["dg1"][1] > 1.0 and ratio["dg2"][1] > 1.0
