@@ -64,7 +64,23 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    tokens; ``repro_torch.launch.serve.main`` generating on the card
    (no kernel launches: decode runs none, as in JAX); ms per prefill,
    a torch.profiler breakdown, decode tokens/s, peak device memory;
-10. eval   -- the zero-shot eval engine at full width:
+10. hybrid_train -- full-width ``zamba2-1.2b`` trained (f32, seed 0)
+   under both objectives: ``repro_torch.launch.train --objective lm`` at
+   2 x 4096 and the contrastive (v3) run at 64 x 256, each launcher in a
+   child process for 3 steps (exit 0, step lines, ms per step, peak
+   memory, launches exact: 112 K4 calls, 448 CUDA launches and 12 K3
+   per step under the recompute, plus one K1 and one K2 call for the
+   contrastive loss; step-0 loss equal to this process's; every step's
+   loss, and the contrastive run's other metrics at steps 0 and 1,
+   within rtol 1e-4 of the plain path); here, from the same
+   init and batches: step-0 gradients of every leaf held to a reference
+   whose SSD scans run in f64, within twice the plain path's
+   (``impl="chunked"``) worst leaf, two identical steps equal
+   (per-leaf fingerprints), 3 plain-path steps, one bf16 step (loss
+   within 1e-2 of f32), ms per step, peak memory, a profile by kind of
+   kernel with the idle share, the backward of K4's and K3's autograd
+   Functions timed at each objective's layer shapes;
+11. eval   -- the zero-shot eval engine at full width:
    ``repro_torch.launch.eval.main`` on the slice's checkpoint at 192
    classes x 16 (3072 pairs, 224 px, context 77), extraction batch 256,
    ``--impl flash --loss-impl fused``: exactly 300 K3 launches (24 per
@@ -79,7 +95,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    extra memory; planted serving under chaos (NaN batch, corrupt cache
    entry, stalled batch, corrupt reload candidate): nothing dropped,
    every completed response bitwise equal to the solo forward;
-11. train  -- three full-width FastCLIP v3 steps at global batch 256
+12. train  -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
    --loss-impl fused``): launch counts (3 calls of K1 and of K2, 2 CUDA
    launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
@@ -89,7 +105,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
    ``eval`` line the evaluator's on the final params, its eval_loss the
    dense loss's within rtol 1e-5;
-12. clip_family -- the paper's other two CLIP settings at full width and
+13. clip_family -- the paper's other two CLIP settings at full width and
    depth (v3, AdamW, global batch 256, seeded random weights):
    ``clip-rn50-cc3m`` trained 3 f32 steps by the launcher in a process
    of its own that sets no backend flag (the port's device policy alone:
@@ -103,7 +119,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the card) held to one device (loss 1e-5, params 5e-5, log-u 1e-4);
    ``clip-vitb16-laion`` 3 f32 steps (36 K3 at S = 197, 36 at 77) with
    the same checks;
-13. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
+14. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
    shape of data:2,fsdp:2 at global batch 256 (64 rows x 256 gathered
    columns x 512, row offsets 0, 64, 128, 192) against their plain
    versions, timed; ``--mesh data:1,fsdp:1`` (a one-rank NCCL group)
@@ -120,7 +136,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the trajectory at the same bounds; 48 K3 launches per rank per
    step), the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
-14. resilience -- the trainer's recovery paths at full width (v3, f32,
+15. resilience -- the trainer's recovery paths at full width (v3, f32,
    batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
    state compared by the sha256 of every leaf with the oracle's (4
    steps, synchronous saves at 2 and 4): ``nan_batch@2`` under
@@ -138,7 +154,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-15. report -- the kernels JSON line, the card line, and the last line
+16. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -357,6 +373,8 @@ KERNEL_CASES = [
     ("text_head", 768, 8, 77, 77, 64, True, 0, "float32", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "float32", True),
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "bfloat16", True),
+    # zamba2-1.2b's contrastive training (phase hybrid_train): 64 x 256
+    ("hybrid_ctr", 64, 32, 256, 256, 64, True, 0, "float32", True),
     ("sq_ne_sk", 2, 4, 64, 300, 64, False, 0, "float32", False),
     ("sq_ne_sk_causal", 2, 4, 200, 70, 64, True, 0, "bfloat16", False),
     ("window", 2, 4, 130, 130, 64, True, 17, "float32", False),
@@ -1012,6 +1030,9 @@ GCL_CASES = [
     ("rn50", 256, 256, 1024, 0, "float32", 0.07, False, True),
     ("rn50_rank0", 128, 256, 1024, 0, "float32", 0.07, False, True),
     ("rn50_rank1", 128, 256, 1024, 128, "float32", 0.07, False, True),
+    # zamba2-1.2b's contrastive training (phase hybrid_train): batch 64,
+    # CONTRASTIVE_DIM 512
+    ("hybrid_ctr", 64, 64, 512, 0, "float32", 0.07, False, True),
     ("ragged", 200, 200, 128, 0, "float32", 0.05, False, False),
     ("rect", 64, 256, 512, 128, "float32", 0.07, False, False),
     ("d37", 33, 33, 37, 0, "float32", 0.07, False, False),
@@ -1230,10 +1251,12 @@ def phase_gcl(checks):
 
 
 # name, B, T, H, P, N, chunk, B/C dtype, dt bias (dt = softplus(z + bias));
-# "main" marks the zamba2-1.2b prefill shape (timed)
+# "main" marks zamba2-1.2b's shapes (timed): the prefill and the LM step
+# at 2 x 4096, the contrastive step at 64 x 256 (phase hybrid_train)
 SSD_CASES = [
     ("prefill", 2, 4096, 64, 64, 64, 256, "float32", -2.0, True),
     ("prefill_bf16", 2, 4096, 64, 64, 64, 256, "bfloat16", -2.0, True),
+    ("hybrid_ctr", 64, 256, 64, 64, 64, 256, "float32", -2.0, True),
     ("ragged", 2, 4000, 64, 64, 64, 256, "float32", -2.0, False),
     ("short", 2, 100, 64, 64, 64, 256, "float32", -2.0, False),
     ("chunk64", 2, 4096, 64, 64, 64, 64, "float32", -2.0, False),
@@ -1310,7 +1333,7 @@ def _ssd_passes(checks, case, x, la, Bm, Cm, Lc):
 
 def phase_ssd(checks):
     """K4 vs its plain version; returns {case: timing dict} for the
-    prefill shape (f32 and bf16 B/C)."""
+    timed shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_chunk as K4
@@ -1431,8 +1454,9 @@ def phase_ssd_grad(checks):
     rel = {n: _rel_l2(grads["flash"][n], w)
            for n, w in grads["chunked"].items()}
     worst = max(rel, key=rel.get)
+    # under grad each layer runs K4 twice: forward and its recompute
     checks.check(grads["flash"].keys() == grads["chunked"].keys()
-                 and counts == dict(flash=cfg.n_layers, chunked=0)
+                 and counts == dict(flash=2 * cfg.n_layers, chunked=0)
                  and all(math.isfinite(v) and v <= TOL_SSD_GRAD
                          for v in rel.values()),
                  f"ssd_grad hybrid: worst leaf {worst} rel L2 {rel[worst]}, "
@@ -1446,19 +1470,21 @@ def phase_ssd_grad(checks):
     checks.end_phase("ssd_grad")
 
 
-def _profile(fn, match=None, categories=()):
+def _profile(fn, match=None, categories=(), host_ops=True):
     """torch.profiler over one call: device time by kernel, launches and
     the device's idle share of the call's wall time; with ``match``, also
     every kernel whose name holds that string; with ``categories``
     (``(name, substrings)`` pairs), the device ms and launches of each,
     a kernel counted in the first whose substring its name holds, the
-    rest under ``other``."""
+    rest under ``other``.  ``host_ops=False`` records the card's activity
+    only: a full-width zamba2 training step runs ~80,000 kernels, and
+    its host operators took about a minute to summarise."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
@@ -1631,6 +1657,519 @@ def phase_hybrid(checks):
     return counts, ssd_cuda_launches
 
 
+# ---------------------------------------------------------------------------
+# phase hybrid_train: zamba2-1.2b trained under both objectives
+# ---------------------------------------------------------------------------
+
+# the launchers' runs (full width, f32, seed 0; --impl flash and
+# --loss-impl fused are the defaults): the LM objective at the prefill
+# phase's 2 x 4096, the contrastive one at the JAX launcher's default
+# batch, 64, with one full 256-token chunk per row
+HYBRID_LM_ARGS = ["--arch", HYBRID_ARCH, "--objective", "lm",
+                  "--global-batch", "2", "--seq-len", "4096", "--steps",
+                  "3", "--log-every", "1", "--device", "cuda", "--seed",
+                  "0", "--precision", "f32"]
+HYBRID_CTR_ARGS = ["--arch", HYBRID_ARCH, "--version", "v3",
+                   "--global-batch", "64", "--seq-len", "256", "--steps",
+                   "3", "--log-every", "1", "--device", "cuda", "--seed",
+                   "0", "--precision", "f32"]
+# the launchers' defaults that the in-process runs repeat
+HYBRID_N_SAMPLES, HYBRID_LR = 2048, 1e-3
+# bf16 against f32, the step-0 loss: relative
+TOL_HYBRID_BF16 = 1e-2
+# zamba2's step-0 gradients are held to a reference whose SSD scans run
+# in f64 (the plain scan; every other op as the plain path in f32): each
+# leaf of the kernel path within this relative L2 of it, per objective.
+# TOL_TRAIN_GRAD against the plain path is below f32's floor at this
+# depth: two plain f32 paths, the SSD at chunk 256 and at 128, differ by
+# 1.07e-4 relative L2 per leaf (median; 259 of 356 leaves over 1e-4).
+# Readings (H100, full width, seed 0; PERF.md), kernel path / plain f32
+# path, worst leaf: LM 2.69e-4 / 1.61e-4; contrastive 1.23e-2 / 0.214
+# (its random-init loss cancels, so rounding in the towers is amplified;
+# the plain SSD's rounding most).  The readings repeat bit for bit from
+# run to run; the LM limit is 1.12x its reading (the run-time bound it
+# replaces, 2x the plain path's worst, was 3.23e-4), the contrastive one
+# 1.63x (that bound was 0.427)
+TOL_HYBRID_GRAD = {"lm": 3e-4, "contrastive": 2e-2}
+# a training step's kernels by what they compute
+HYBRID_CATEGORIES = (
+    ("k4_ssd_chunk", ("ssd_",)),
+    ("k3_flash_attention", ("flash",)),
+    ("k1_k2_fcco", ("stats_partial", "stats_merge", "grads_weights",
+                    "grads_product")),
+    ("gemm", ("gemm", "gemv")),
+)
+
+
+def _hybrid_step_launches(cfg, steps, contrastive):
+    """Launches of ``steps`` hybrid training steps under the recompute:
+    each Mamba2 layer runs forward and in its recompute (2 K4 calls, 4
+    CUDA launches each), each shared-block call twice (K3); the
+    contrastive loss adds one K1 and one K2 call (2 CUDA launches
+    each)."""
+    n_super = cfg.n_layers // cfg.hybrid_attn_every
+    k4 = 2 * cfg.n_layers
+    k12 = steps if contrastive else 0
+    return dict(flash_attention=steps * 2 * n_super, gcl_pair_stats=k12,
+                gcl_pair_grads=k12, gcl_pair_stats_cuda=2 * k12,
+                gcl_pair_grads_cuda=2 * k12, ssd_chunk=steps * k4,
+                ssd_chunk_cuda=4 * steps * k4)
+
+
+def _hybrid_counters():
+    from repro_torch.kernels import ssd_chunk as K4
+    return dict(_counters(), ssd_chunk=K4.ssd_chunk.launches,
+                ssd_chunk_cuda=K4.ssd_chunk.cuda_launches)
+
+
+def _zero_hybrid_counters():
+    from repro_torch.kernels import ssd_chunk as K4
+    _zero_counters()
+    K4.ssd_chunk.launches = K4.ssd_chunk.cuda_launches = 0
+
+
+def _state_leaves(state):
+    """{name: tensor} of a train state: the model's parameters, the
+    moments, the counters and the FCCO state."""
+    out = {f"params/{n}": p for n, p in state["params"].named_parameters()}
+    for k, v in state["opt"].items():
+        if isinstance(v, dict):
+            out.update({f"opt/{k}/{n}": t for n, t in v.items()})
+        else:
+            out[f"opt/{k}"] = v
+    for k, v in state.get("fc", {}).items():
+        if isinstance(v, dict):
+            out.update({f"fc/{k}/{n}": t for n, t in v.items()})
+        else:
+            out[f"fc/{k}"] = v
+    out["step"] = state["step"]
+    return out
+
+
+def _fingerprints(state):
+    """{leaf: (sum, sum of squares, position-weighted sum)} of each
+    leaf's 32-bit patterns as int64, wrapping; the third weighs entry i
+    by i mod 65521 (a prime), so entries that trade places within a leaf
+    change it too.  A leaf that differs in any bit or order changes them
+    unless its changes cancel in all three.  Computed on the card (14 GB
+    of state would take seconds to copy and hash)."""
+    import torch
+    out = {}
+    for k, t in _state_leaves(state).items():
+        x = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(x.numel(), device=x.device) % 65521
+        out[k] = (int(x.sum()), int((x * x).sum()), int((x * w).sum()))
+    return out
+
+
+def _fresh_state(model, host, fc_cfg=None):
+    """``model`` reset to the host copy of its init, zero AdamW moments,
+    step 0 (and, for the contrastive step, a fresh FCCO state): the
+    state ``init_train_state`` / ``init_lm_train_state`` build, without
+    drawing the 1.2 B random numbers again."""
+    import torch
+    from repro_torch.core import fastclip as FC
+    from repro_torch.optim import adamw
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(host[n], non_blocking=True)
+    state = {"params": model,
+             "opt": adamw().init({k: p.detach()
+                                  for k, p in model.named_parameters()}),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if fc_cfg is not None:
+        state["fc"] = FC.init_state(fc_cfg, dev)
+    return state
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    _zero_hybrid_counters()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - t0) * 1e3, _hybrid_counters()
+
+
+def _grads_rel(g_k, g_p):
+    """Per-leaf relative L2 of gradients ``g_k`` against ``g_p`` (0 where
+    both are 0: a leaf the loss does not reach)."""
+    return {k: ((g_k[k] - g_p[k]).norm()
+                / g_p[k].norm().clamp_min(1e-30)).item() for k in g_p}
+
+
+class _SSDInF64:
+    """Within the block, the plain path's SSD scans (``models.ssm.
+    ssd_chunked``) run in f64 on f64 copies of their inputs and return
+    f32: the gradients' reference."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_chunk as K4
+        from repro_torch.models import ssm as SSM
+        self.ssm, self.orig = SSM, SSM.ssd_chunked
+
+        def f64(x, log_a, Bm, Cm, S0=None, chunk=256):
+            y, S = K4.ssd_scan_plain(x.double(), log_a.double(),
+                                     Bm.double(), Cm.double(), chunk=chunk)
+            return y.float(), S.float()
+        SSM.ssd_chunked = f64
+
+    def __exit__(self, *exc):
+        self.ssm.ssd_chunked = self.orig
+
+
+def _leaf_summary(rel):
+    import statistics
+    worst = max(rel, key=rel.get)
+    return dict(worst_leaf=worst, worst=rel[worst],
+                median=statistics.median(rel.values()),
+                over_tol_train_grad=sum(v > TOL_TRAIN_GRAD
+                                        for v in rel.values()))
+
+
+def _backward_ms(B, T):
+    """CUDA events at one objective's layer shapes (``B`` rows of ``T``
+    tokens at full width): the backward of ``_SSDChunk`` (autograd of the
+    plain scan) and of ``_FlashMHA`` (the chunked recompute) per call,
+    as forward + backward minus forward."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_chunk as K4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    H, P, N, Ha, hd = 64, 64, 64, 32, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    ins = [randn(B, T, H, P),
+           -torch.nn.functional.softplus(randn(B, T, H) - 2.0),
+           randn(B, T, N), randn(B, T, N)]
+    ins = [t.requires_grad_(True) for t in ins]
+    gy = randn(B, T, H, P)
+    qkv = [randn(B, T, Ha, hd).requires_grad_(True) for _ in range(3)]
+    go = randn(B, T, Ha, hd)
+
+    def ssd_fwd():
+        with torch.no_grad():
+            K4.ssd_chunk(*ins, chunk=256)
+
+    def ssd_both():
+        torch.autograd.grad(K4.ssd_chunk(*ins, chunk=256), ins, gy)
+
+    def attn_fwd():
+        with torch.no_grad():
+            FA.flash_mha(*qkv, causal=True)
+
+    def attn_both():
+        torch.autograd.grad(FA.flash_mha(*qkv, causal=True), qkv, go)
+
+    out = {}
+    for name, fwd, both, shape in (
+            ("ssd_chunk", ssd_fwd, ssd_both, [B, T, H, P, N]),
+            ("flash_mha", attn_fwd, attn_both, [B, T, Ha, hd])):
+        f, b = device_ms(fwd, iters=5), device_ms(both, iters=5)
+        out[name] = dict(shape=shape, forward_ms=f, forward_backward_ms=b,
+                         backward_ms=b - f)
+    del ins, gy, qkv, go
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
+    """One objective in this process, from the launcher's init (``host``)
+    on its first 3 batches, already on the card: step-0 gradients of the
+    kernel path and the plain path against the f64-SSD reference
+    (``TOL_HYBRID_GRAD``), the launches of one step, two identical
+    kernel-path steps equal (fingerprints), the first timed, the second
+    profiled; 3 plain-path steps; one bf16 step; the backward of K4's and
+    K3's Functions timed at these shapes.  Returns the kernel path's
+    step-0 metrics, the plain path's record and its final log-u
+    (contrastive)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import train_step as TS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import backbones as BB
+    contrastive = kind == "contrastive"
+    dev = next(model.parameters()).device
+    if contrastive:
+        tcs = {impl: _hybrid_ctr_config(cfg, impl, loss_impl)
+               for impl, loss_impl in (("flash", "fused"),
+                                       ("chunked", "dense"))}
+        fc_cfg = tcs["flash"].fc
+        make = {impl: TS.make_train_step(tc, dev)
+                for impl, tc in tcs.items()}
+
+        def run(step, state, b):
+            return step(state, b[1], b[0])
+
+        def grads(impl, state, b):
+            tc = tcs[impl]
+            core = TS.make_loss_core(tc.fc, tc.loss_impl)
+            return TS.step_grads(tc, core, state, b[1], b[0],
+                                 tc.fc.gamma_fn()(state["step"]))[2]
+        bf16 = TS.make_train_step(
+            dataclasses.replace(tcs["flash"], precision="bf16"), dev)
+    else:
+        fc_cfg = None
+        make = {impl: ST.make_lm_train_step(
+            cfg, lr=HYBRID_LR, wd=0.1, total_steps=3, impl=impl,
+            device=dev)[0] for impl in ("flash", "chunked")}
+
+        def run(step, state, b):
+            return step(state, b[1])
+
+        def grads(impl, state, b):
+            with torch.enable_grad():
+                loss, _ = BB.lm_loss(state["params"], cfg, b[1], impl=impl)
+                return TS.param_grads(loss, state["params"])
+        bf16 = ST.make_lm_train_step(cfg, lr=HYBRID_LR, wd=0.1,
+                                     total_steps=3, precision="bf16",
+                                     device=dev)[0]
+    want1 = _hybrid_step_launches(cfg, 1, contrastive)
+    out = {}
+    seconds = {}
+    t0 = time.monotonic()
+
+    def lap(part):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[part] = time.monotonic() - t0
+        t0 = time.monotonic()
+    # step-0 gradients of the kernel path and the plain path against the
+    # f64-SSD reference, and the launches of one forward + backward
+    state = _fresh_state(model, host, fc_cfg)
+    g_k, ms_g, n_g = _timed(lambda: grads("flash", state, batches[0]))
+    g_p = grads("chunked", state, batches[0])
+    rel = _grads_rel(g_k, g_p)
+    lap("grads_kernel_plain")
+    with _SSDInF64():
+        g_r = grads("chunked", state, batches[0])
+    err_k, err_p = _grads_rel(g_k, g_r), _grads_rel(g_p, g_r)
+    del g_k, g_p, g_r
+    torch.cuda.empty_cache()
+    lap("grads_f64_ssd")
+    bound = TOL_HYBRID_GRAD[kind]
+    worst = max(err_k, key=err_k.get)
+    checks.check(all(math.isfinite(v) and v <= bound
+                     for v in err_k.values()),
+                 f"{name}: step-0 grads against the f64-SSD reference, "
+                 f"worst leaf {worst} rel L2 {err_k[worst]}, bound {bound}")
+    # two identical kernel-path steps: the first timed, the second
+    # profiled
+    fps, ms_k = [], []
+    for i in range(2):
+        state = _fresh_state(model, host, fc_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 0:
+            (state, m0), ms, n1 = _timed(lambda: run(make["flash"], state,
+                                                     batches[0]))
+            ms_k.append(ms)
+            peak = torch.cuda.max_memory_allocated()
+            out["metrics0"] = {k: float(v) for k, v in m0.items()}
+        else:
+            held = {}
+
+            def one():
+                held["out"] = run(make["flash"], state, batches[0])
+            prof = _profile(one, categories=HYBRID_CATEGORIES,
+                            host_ops=False)
+            state, _ = held.pop("out")
+        fps.append(_fingerprints(state))
+        del state
+        torch.cuda.empty_cache()
+    differ = [k for k in fps[0] if fps[0][k] != fps[1][k]]
+    checks.check(not differ, f"{name}: two identical steps differ in "
+                 f"{differ[:8]}")
+    lap("two_kernel_steps")
+    checks.check(n1 == want1 and n_g == want1,
+                 f"{name}: launches of one step {n1} (its forward and "
+                 f"backward alone {n_g}), want {want1}")
+    # the plain path, 3 steps
+    state = _fresh_state(model, host, fc_cfg)
+    rec_p, ms_p = [], []
+    for i, b in enumerate(batches):
+        (state, m), ms, _ = _timed(lambda: run(make["chunked"], state, b))
+        rec_p.append({k: float(v) for k, v in m.items()})
+        ms_p.append(ms)
+    if contrastive:
+        out["u_plain"] = {u: state["fc"][u].detach().cpu()
+                          for u in ("u1", "u2")}
+    del state
+    torch.cuda.empty_cache()
+    lap("plain_steps")
+    # one bf16 step
+    state = _fresh_state(model, host, fc_cfg)
+    state, mb = run(bf16, state, batches[0])
+    loss_b = float(mb["loss"])
+    err = _dtype_error(state)
+    del state
+    torch.cuda.empty_cache()
+    lap("bf16_step")
+    # the device's idle share of the timed (unprofiled) step
+    prof["idle_share_of_timed_step"] = max(
+        0.0, 1.0 - prof["device_busy_ms"] / ms_k[0])
+    B, T = batches[0][1]["tokens"].shape
+    backward = _backward_ms(B, T)
+    lap("backward_timings")
+    rel_b = abs(loss_b - out["metrics0"]["loss"]) / abs(
+        out["metrics0"]["loss"])
+    checks.check(math.isfinite(loss_b) and rel_b <= TOL_HYBRID_BF16
+                 and err is None,
+                 f"{name}: bf16 step-0 loss {loss_b} rel {rel_b} against "
+                 f"f32 {out['metrics0']['loss']}, dtypes {err}")
+    out["record_plain"] = rec_p
+    emit(f"{name}_device", batch_on_device=True, grad_leaves=len(rel),
+         grads_kernel_vs_f64_ssd=_leaf_summary(err_k),
+         grads_plain_vs_f64_ssd=_leaf_summary(err_p),
+         grads_kernel_vs_plain=_leaf_summary(rel), grad_bound=bound,
+         ms_grads_kernel_path=ms_g,
+         launches_one_step=n1, launches_want=want1,
+         two_steps_equal=not differ, leaves_compared=len(fps[0]),
+         ms_per_step_kernel_path=ms_k, ms_per_step_plain_path=ms_p,
+         max_memory_allocated_kernel_step=peak,
+         loss_kernel_step0=out["metrics0"]["loss"],
+         losses_plain=[r["loss"] for r in rec_p], loss_bf16=loss_b,
+         bf16_rel=rel_b, tol_bf16=TOL_HYBRID_BF16, profile=prof,
+         backward_per_call=backward, seconds=seconds)
+    return out
+
+
+def _hybrid_ctr_config(cfg, impl, loss_impl):
+    """The launcher's v3 step at HYBRID_CTR_ARGS."""
+    from repro_torch.core import fastclip as FC
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    from repro_torch.optim import adamw
+    fc = FC.FastCLIPConfig(version="v3", n_samples=HYBRID_N_SAMPLES,
+                           rho=6.5, eps=1e-14, gamma_min=0.2, tau_init=0.07,
+                           lr_tau=2e-4, steps_per_epoch=HYBRID_N_SAMPLES // 64,
+                           gamma_decay_epochs=1)
+    return TS.TrainStepConfig(arch=cfg, fc=fc, optimizer=adamw(),
+                              lr_fn=lr_warmup_cosine(HYBRID_LR, 1, 3),
+                              wd=0.1, impl=impl, loss_impl=loss_impl)
+
+
+def _hybrid_batches(cfg, kind):
+    """The launcher's first 3 (idx, batch) on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.data import (LMDataset, PairedEmbeddingDataset,
+                                  ShardedLoader)
+    if kind == "lm":
+        ds, gb = LMDataset(n=HYBRID_N_SAMPLES, seq_len=4096,
+                           vocab_size=cfg.vocab_size), 2
+    else:
+        ds, gb = PairedEmbeddingDataset(n=HYBRID_N_SAMPLES, seq_len=256,
+                                        vocab_size=cfg.vocab_size), 64
+    return [(torch.from_numpy(np.asarray(idx)).cuda(),
+             {k: torch.from_numpy(v).cuda() for k, v in b.items()})
+            for _, _, idx, b in ShardedLoader(ds, global_batch=gb,
+                                              seed=0).steps(3)]
+
+
+def _hybrid_launcher_checks(checks, name, cfg, finished, lines, inproc,
+                            contrastive):
+    """The launcher's child process (3 kernel-path steps): exit 0, its
+    step lines, launches exact, f32 masters, its step-0 loss equal to the
+    in-process run's, its trajectory against the in-process plain path
+    within rtol TOL_TRAIN_TRAJ (and the log-u rows), the retrieval line
+    of the contrastive run."""
+    rc, rep, u, err = finished
+    lines = [ln for ln in lines if ln]
+    if rc or rep is None:
+        print(err, file=sys.stderr, flush=True)
+    if not checks.check(rc == 0 and rep is not None,
+                        f"{name}: launcher process exit code {rc}"):
+        checks.end_phase("hybrid_train")
+    rec = rep["record"]
+    step_lines = [ln for ln in lines if ln.startswith("step ")]
+    want = _hybrid_step_launches(cfg, 3, contrastive)
+    got = dict(rep["launches"], **rep["k4"])
+    checks.check(got == want, f"{name}: launches {got}, want {want}")
+    checks.check(len(rec) == 3 and len(step_lines) == 3
+                 and all(math.isfinite(r["loss"]) for r in rec)
+                 and rep["dtype_error"] is None,
+                 f"{name}: steps {len(rec)}, lines {step_lines}, dtypes "
+                 f"{rep['dtype_error']}")
+    checks.check(rec[0]["loss"] == inproc["metrics0"]["loss"],
+                 f"{name}: the launcher's step-0 loss {rec[0]['loss']} is "
+                 f"not the in-process one {inproc['metrics0']['loss']}")
+    # the losses of every step; the contrastive run's other metrics at
+    # steps 0 and 1, whose params are the init (lr is 0 at step 0).  From
+    # step 2 on its params carry the first update, where AdamW moves every
+    # gradient entry whose sign rounding decides by +-lr (the plain f32
+    # path's own step-0 gradients sit ~2e-2 from the f64-SSD reference at
+    # this random init): those metrics and the final log-u are measured
+    keys = ("loss", "tau", "loss_value", "u_mean") if contrastive else (
+        "loss", "ce")
+    rel = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in keys}
+           for a, b in zip(rec, inproc["record_plain"])]
+    traj = max(r[k] for i, r in enumerate(rel) for k in keys
+               if k in ("loss", "ce") or i < 2)
+    u_err = (_log_u_rel(checks, name, u, inproc["u_plain"])
+             if contrastive else None)
+    checks.check(len(rel) == 3 and traj <= TOL_TRAIN_TRAJ,
+                 f"{name}: kernel vs plain trajectory rel {rel}")
+    acc = [ln for ln in lines if ln.startswith("retrieval accuracy: ")]
+    checks.check(bool(acc) == contrastive,
+                 f"{name}: retrieval lines {acc}")
+    emit(f"{name}_launcher", steps=3, lines=step_lines + acc,
+         launches=got, launches_want=want,
+         losses=[r["loss"] for r in rec],
+         losses_plain=[r["loss"] for r in inproc["record_plain"]],
+         worst_rel_traj_checked=traj, rel_by_step=rel,
+         log_u_rel_err_measured=u_err, tol=TOL_TRAIN_TRAJ,
+         ms_per_step_after_warmup=(rec[-1]["time"] - rec[0]["time"]) / 2
+         * 1e3, max_memory_allocated=rep["max_memory_allocated"],
+         wall_seconds=rep["wall_seconds"])
+    return got
+
+
+def phase_hybrid_train(checks):
+    """Full-width zamba2-1.2b trained under the LM and the contrastive
+    objective, f32, seed 0: each launcher in a child process (3 steps
+    through the kernels), and the same init and batches here
+    (``_hybrid_objective``).  Returns the kernels' launches per launcher
+    run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(HYBRID_ARCH)
+    out = {}
+    for kind, argv in (("lm", HYBRID_LM_ARGS), ("contrastive",
+                                                 HYBRID_CTR_ARGS)):
+        name = f"hybrid_train_{kind}"
+        t0 = time.monotonic()
+        child = _LauncherProcess(argv)
+        try:
+            if kind == "lm":
+                # the launcher's init, drawn on the host as the launcher
+                # draws it, while the child starts
+                model = BB.init_params(cfg, torch.Generator().manual_seed(0),
+                                       "cuda")
+                host = {n: p.detach().cpu().pin_memory()
+                        for n, p in model.named_parameters()}
+        finally:
+            finished = child.finish(1200)
+        t_child = time.monotonic() - t0
+        torch.cuda.empty_cache()
+        inproc = _hybrid_objective(checks, name, cfg, model, host,
+                                   _hybrid_batches(cfg, kind), kind)
+        out[kind] = _hybrid_launcher_checks(
+            checks, name, cfg, finished, child.lines, inproc,
+            kind == "contrastive")
+        emit(f"{name}_seconds", seconds=time.monotonic() - t0,
+             child_seconds=t_child)
+    del model, host
+    torch.cuda.empty_cache()
+    checks.end_phase("hybrid_train")
+    return out
+
+
 def _first_batch(cfg):
     """The launcher's first (idx, batch) at TRAIN_ARGS, on the card, and
     the host seconds that assembling the numpy batch took."""
@@ -1736,9 +2275,10 @@ def _launcher_worker(argv):
     """The training launcher's ``main`` in a process of its own (spawned by
     ``_LauncherProcess``, never by hand) that sets no backend flag, so the
     run starts from the port's device policy alone.  ``argv[0]``: an npz
-    path for the final log-u; prints the launches, the backend flags
-    before and after, the f32-master check, the step records and the peak
-    memory on one JSON line."""
+    path for the final log-u (a contrastive run); prints the launches (K4's
+    apart), the backend flags before and after, the f32-master check, the
+    step records, the run's seconds and the peak memory on one JSON
+    line."""
     import numpy as np
     import torch
     from repro_torch import checkpoint as CK
@@ -1748,14 +2288,21 @@ def _launcher_worker(argv):
     # write (host work) begins, so that the work beside it has the memory
     CK.set_fault_hook(lambda event: torch.cuda.empty_cache()
                       if event == "pre_npz" else None)
+    from repro_torch.kernels import ssd_chunk as K4
     before = _backend_flags()
     record = []
+    t0 = time.monotonic()
     st = train.main(argv, record=record)
-    np.savez(out, **{u: st["fc"][u].cpu().numpy() for u in ("u1", "u2")})
+    wall = time.monotonic() - t0
+    if "fc" in st:          # the LM objective has no FCCO state
+        np.savez(out, **{u: st["fc"][u].cpu().numpy()
+                         for u in ("u1", "u2")})
     print(json.dumps({"launcher_worker": dict(
-        launches=_counters(), by_seq=_by_seq(), flags_before=before,
-        flags_after=_backend_flags(), dtype_error=_dtype_error(st),
-        record=record,
+        launches=_counters(), by_seq=_by_seq(),
+        k4=dict(ssd_chunk=K4.ssd_chunk.launches,
+                ssd_chunk_cuda=K4.ssd_chunk.cuda_launches),
+        flags_before=before, flags_after=_backend_flags(),
+        dtype_error=_dtype_error(st), record=record, wall_seconds=wall,
         max_memory_allocated=torch.cuda.max_memory_allocated())}),
         flush=True)
 
@@ -3372,8 +3919,8 @@ def main(argv=None):
     ap.add_argument("--only", default=None,
                     help="a partial run: device, build, then these phases "
                          "(comma-separated: kernel, gcl, train, "
-                         "clip_family, mesh after train, resilience); no "
-                         "report and no last line")
+                         "clip_family, mesh after train, hybrid_train, "
+                         "resilience); no report and no last line")
     args = ap.parse_args(argv)
     checks = Checks()
     t_start = time.monotonic()
@@ -3392,6 +3939,7 @@ def main(argv=None):
                 out[name] = {
                     "kernel": phase_kernel, "gcl": phase_gcl,
                     "train": phase_train, "clip_family": phase_clip_family,
+                    "hybrid_train": phase_hybrid_train,
                     "resilience": phase_resilience}[name](checks)
             mark(name)
         print(f"chip_smoke: partial run of {args.only} passed; no report",
@@ -3439,6 +3987,8 @@ def main(argv=None):
     mark("mesh")
     res_launches = phase_resilience(checks)
     mark("resilience")
+    hybrid_train = phase_hybrid_train(checks)
+    mark("hybrid_train")
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -3446,6 +3996,10 @@ def main(argv=None):
         # (both towers over 3072 pairs and the prompt head)
         if case == "hybrid":
             path, n_launch = "prefill", hybrid_launches["flash_attention"]
+        elif case == "hybrid_ctr":
+            # the zamba2 contrastive launcher's 3 steps
+            path = "hybrid_train"
+            n_launch = hybrid_train["contrastive"]["flash_attention"]
         elif case == "vitb16_train":
             # clip-vitb16-laion's 3 steps: its image tower's launches
             path = "clip_family"
@@ -3474,6 +4028,11 @@ def main(argv=None):
             # each full-width run of phase resilience
             "resilience_launches": {c: n["flash_attention"]
                                     for c, n in res_launches.items()},
+            # phase hybrid_train: each launcher's 3 zamba2 training steps
+            # (the shared block's 6 calls, each recomputed once)
+            "hybrid_train_launches": {
+                kind: n["flash_attention"] for kind, n in
+                hybrid_train.items()},
             # phase clip_family: ResNet-50 3 steps (text tower only), its
             # serving runs and eval pass; ViT-B/16 3 steps
             "clip_family_launches": {
@@ -3513,15 +4072,21 @@ def main(argv=None):
                 f"{name}_cuda"],
             "resilience_launches": {c: n[name]
                                     for c, n in res_launches.items()},
+            # the zamba2 contrastive launcher's 3 steps
+            "hybrid_train_launches": hybrid_train["contrastive"][name],
+            "hybrid_train_cuda_launches": hybrid_train["contrastive"][
+                f"{name}_cuda"],
             "clip_family_launches": {
                 "rn50_train": family["rn50_train"]["launches"][name],
                 "vitb16_train": family["vitb16_train"]["launches"][name],
                 **({"rn50_eval": family["eval"][name]}
                    if name == "gcl_pair_stats" else {})},
             # clip-rn50-cc3m's shape, 256 x 256 x 1024, and its ranks'
-            # on data:1,fsdp:2, 128 x 256 x 1024 at row offsets 0 and 128
+            # on data:1,fsdp:2, 128 x 256 x 1024 at row offsets 0 and 128;
+            # zamba2's contrastive step, 64 x 64 x 512
             **{f"{case}_{k}": gcl_timings[case, kernel][k]
-               for case in ("rn50", "rn50_rank0", "rn50_rank1")
+               for case in ("rn50", "rn50_rank0", "rn50_rank1",
+                            "hybrid_ctr")
                for k in ("shape", "row_offset", "ms", "kernel_only_ms",
                          "plain_ms", "bound_ms", "bound_by", "tc_floor_ms",
                          "max_abs_err")},
@@ -3548,12 +4113,22 @@ def main(argv=None):
         "cuda_launches": ssd_cuda_launches,
         "cuda_launches_per_call": (ssd_cuda_launches
                                    / max(hybrid_launches["ssd_chunk"], 1)),
+        # phase hybrid_train: each launcher's 3 training steps (76 calls
+        # per step: each layer's forward and its recompute)
+        "hybrid_train_launches": {kind: n["ssd_chunk"]
+                                  for kind, n in hybrid_train.items()},
+        "hybrid_train_cuda_launches": {kind: n["ssd_chunk_cuda"]
+                                       for kind, n in hybrid_train.items()},
         "max_abs_err": max(t["max_abs_err"], t_bf16["max_abs_err"]),
         "ms": t["ms"], "ms_bf16_bc": t_bf16["ms"],
         "pass_ms": t["pass_ms"], "pass_ms_bf16_bc": t_bf16["pass_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "tc_floor_ms": t["tc_floor_ms"],
+        # zamba2's contrastive step, 64 x 256
+        **{f"hybrid_ctr_{k}": ssd_timings["hybrid_ctr"][k]
+           for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "tc_floor_ms")},
         # no single PyTorch call computes the SSD scan
         "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)

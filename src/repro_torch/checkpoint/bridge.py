@@ -127,14 +127,17 @@ def load_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
 
 def state_to_tree(state: Dict[str, Any]) -> Dict[str, Any]:
     """A train state (``core.train_step``: ``params`` the model, ``opt``
-    with per-parameter moments and ``t``, ``fc``, ``step``) -> the JAX
-    train state's tree: ``params/...``, ``opt/m/...``, ``opt/v/...``,
-    ``opt/t``, ``fc/u1``, ``fc/tau``, ``fc/tau_opt/...``, ``step``."""
+    with per-parameter moments and ``t``, ``fc``, ``step``; the LM state
+    of ``launch.steps`` has no ``fc``) -> the JAX train state's tree:
+    ``params/...``, ``opt/m/...``, ``opt/v/...``, ``opt/t``, ``fc/u1``,
+    ``fc/tau``, ``fc/tau_opt/...``, ``step``."""
     model = state["params"]
     opt = {k: (v if k == "t" else named_to_tree(model, v))
            for k, v in state["opt"].items()}
-    return {"params": model_to_tree(model), "opt": opt, "fc": state["fc"],
-            "step": state["step"]}
+    tree = {"params": model_to_tree(model), "opt": opt, "step": state["step"]}
+    if "fc" in state:
+        tree["fc"] = state["fc"]
+    return tree
 
 
 def state_from_tree(state: Dict[str, Any], tree: Dict[str, Any]
@@ -163,5 +166,8 @@ def state_from_tree(state: Dict[str, Any], tree: Dict[str, Any]
         else:
             named = tree_to_named(model, tree["opt"][k])
             opt[k] = {n: like(v[n], named[n]).contiguous() for n in v}
-    return {"params": model, "opt": opt, "fc": like(state["fc"], tree["fc"]),
-            "step": like(state["step"], tree["step"])}
+    out = {"params": model, "opt": opt,
+           "step": like(state["step"], tree["step"])}
+    if "fc" in state:
+        out["fc"] = like(state["fc"], tree["fc"])
+    return out

@@ -1,6 +1,7 @@
 """Checkpoints in the JAX package's on-disk format.
 
-A step is ``ckpt_XXXXXXXX.npz`` (``np.savez_compressed``, one array per
+A step is ``ckpt_XXXXXXXX.npz`` (``np.savez``, stored, not compressed:
+f32 weights barely compress, and zlib runs on one core; one array per
 leaf, keyed by its ``/``-joined path such as ``params/vision/blocks/
 attn/wq``) plus the sidecar ``ckpt_XXXXXXXX.json`` with ``order``,
 ``metadata``, per-leaf CRC32 ``digests`` and, for an fsdp-sharded save,
@@ -8,7 +9,8 @@ attn/wq``) plus the sidecar ``ckpt_XXXXXXXX.json`` with ``order``,
 the recorded dim).  A ``latest`` marker names the newest step.  Every
 write goes tmp-file then ``os.replace``, in the order arrays, sidecar,
 marker, so a crash leaves the previous step intact.  A checkpoint the
-JAX package wrote restores here and the reverse.
+JAX package wrote restores here and the reverse: ``np.load`` reads a
+stored npz as it reads the JAX package's compressed ones.
 
 Trees are nested ``dict``s (sorted key order, as JAX flattens them) and
 ``list``s (index order, the index a part of the path, as in the JAX
@@ -224,7 +226,7 @@ def _savez(path: str, arrays: Dict[str, np.ndarray]) -> None:
     def write(tmp):
         # through a handle: savez would append ".npz" to the tmp name
         with open(tmp, "wb") as f:
-            np.savez_compressed(f, **arrays)
+            np.savez(f, **arrays)
     _atomic_replace(path, write, "npz")
 
 
@@ -377,8 +379,7 @@ class AsyncCheckpointer:
     synchronously, into owned buffers (after it returns, the live state
     may change freely; a sharded snapshot's gathers run here, on the
     calling thread, never on the worker), and queues the write for one
-    worker thread, so the step loop does not wait for
-    ``np.savez_compressed``.
+    worker thread, so the step loop does not wait for the npz writes.
 
     Saves are written in submission order, each followed by retention
     (``keep_last`` / ``keep_every``, as ``prune_checkpoints``).  A writer

@@ -1,11 +1,12 @@
-"""Train-step assembly (port of ``repro.core.train_step``): CLIP towers
-+ FastCLIP objective + optimizer, on one device or on the (data, fsdp)
-mesh.
+"""Train-step assembly (port of ``repro.core.train_step``): the towers
+of ``backbones.encode_pair`` (CLIP's two, or an LM backbone against its
+paired embeddings) + FastCLIP objective + optimizer, on one device or
+(CLIP) on the (data, fsdp) mesh.
 
-The single-device train state is a dict: ``params`` (the ``CLIP``
-module), ``opt`` (f32 moments keyed by parameter name, and the step
-count ``t``), ``fc`` (``core.fastclip.init_state``: log-domain u, taus,
-tau moments, a step counter) and ``step`` (int32).
+The single-device train state is a dict: ``params`` (the ``CLIP`` or
+``HybridLM`` module), ``opt`` (f32 moments keyed by parameter name, and
+the step count ``t``), ``fc`` (``core.fastclip.init_state``: log-domain
+u, taus, tau moments, a step counter) and ``step`` (int32).
 ``make_train_step(tc)`` returns ``train_step(state, batch, idx) ->
 (state, metrics)``:
 
@@ -228,10 +229,26 @@ def step_grads(tc: TrainStepConfig, loss_core, state, batch, idx, gamma):
             loss, aux = loss_core(e1n, e2n, fcs["u1"], fcs["u2"], t1, t2,
                                   idx, gamma)
             wrt = params
-        gs = torch.autograd.grad(loss, wrt)
-    grads = dict(zip(names, gs[:len(names)]))
+        gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = _or_zeros(names, params, gs)
     gtau = gs[-1] if tau_diff is not None else None
     return loss.detach(), aux, grads, gtau
+
+
+def _or_zeros(names, params, gs):
+    """{name: gradient}, zeros for a parameter the loss does not reach (an
+    LM backbone's ``lm_head`` under the contrastive loss), as under
+    ``jax.grad``."""
+    return {n: torch.zeros_like(p) if g is None else g
+            for n, p, g in zip(names, params, gs)}
+
+
+def param_grads(loss, model):
+    """{parameter name: d loss / d parameter} of ``model``'s parameters,
+    zeros where the loss does not reach."""
+    names, params = zip(*model.named_parameters())
+    return _or_zeros(names, params,
+                     torch.autograd.grad(loss, params, allow_unused=True))
 
 
 def make_train_step(tc: TrainStepConfig, device=None):

@@ -6,5 +6,6 @@ from repro_torch.data.streaming import (  # noqa: F401
     write_shards,
 )
 from repro_torch.data.synthetic import (  # noqa: F401
-    ContrastiveDataset, ZeroShotEvalDataset,
+    ContrastiveDataset, LMDataset, PairedEmbeddingDataset,
+    ZeroShotEvalDataset,
 )

@@ -1,5 +1,6 @@
 """Synthetic datasets (port of ``repro.data.synthetic``: the contrastive
-training pairs and the eval split).  Numpy only: batches equal the JAX
+training pairs, the eval split, and the LM token stream and paired
+embeddings of the LM backbones).  Numpy only: batches equal the JAX
 package's bit for bit.
 
 Index-addressable: sample i's bytes are a pure function of (dataset
@@ -129,3 +130,76 @@ class ZeroShotEvalDataset:
     def batch(self, idx):
         idx = np.asarray(idx)
         return {"images": self.images(idx), "texts": self.texts(idx)}
+
+
+@dataclasses.dataclass
+class LMDataset:
+    """Synthetic token stream with learnable bigram structure: each token
+    has 4 likely successors, and sample i's chain is drawn from its own
+    per-sample generator.  ``labels`` are ``tokens`` shifted by one."""
+    n: int
+    seq_len: int
+    vocab_size: int
+    seed: int = 0
+
+    TOKEN_STREAM = "lm/tokens"
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self.next_tok = rng.randint(0, self.vocab_size,
+                                    size=(self.vocab_size, 4))
+        self._tok_key = R.stream_key(self.seed, self.TOKEN_STREAM)
+
+    def batch(self, idx):
+        idx = np.asarray(idx).reshape(-1)
+        b = len(idx)
+        first = np.empty((b,), np.int64)
+        choice = np.empty((b, self.seq_len), np.int64)
+        for j, i in enumerate(idx):
+            g = R.sample_generator(self._tok_key, i)
+            first[j] = g.integers(0, self.vocab_size)
+            choice[j] = g.integers(0, 4, size=self.seq_len)
+        toks = np.zeros((b, self.seq_len + 1), np.int64)
+        toks[:, 0] = first
+        for t in range(self.seq_len):
+            toks[:, t + 1] = self.next_tok[toks[:, t], choice[:, t]]
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+
+@dataclasses.dataclass
+class PairedEmbeddingDataset:
+    """Pairs for the contrastive objective on an LM backbone: tokens that
+    spell a latent class (the text side) and a noisy class prototype of
+    ``pair_dim`` (the stub paired modality), so the two can align."""
+    n: int
+    seq_len: int
+    vocab_size: int
+    pair_dim: int = 512
+    n_classes: int = 64
+    seed: int = 0
+
+    EMBED_STREAM = "paired/embeds"
+    noise: float = 0.3
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self.classes = rng.randint(0, self.n_classes, size=self.n)
+        self.protos = rng.randn(self.n_classes, self.pair_dim).astype(
+            np.float32)
+        self.tok_base = rng.randint(1, self.vocab_size,
+                                    size=(self.n_classes, 8))
+        self._emb_key = R.stream_key(self.seed, self.EMBED_STREAM)
+
+    def batch(self, idx):
+        idx = np.asarray(idx).reshape(-1)
+        b = len(idx)
+        cls = self.classes[idx]
+        emb = R.add_gaussian_noise(self.protos[cls], self.noise,
+                                   self._emb_key, idx)
+        toks = np.zeros((b, self.seq_len), np.int32)
+        ct = self.tok_base[cls]
+        for r in range(min(max(1, self.seq_len // 8), 8)):
+            toks[:, r * 8:(r + 1) * 8] = ct
+        return {"tokens": toks, "labels": np.roll(toks, -1, axis=1),
+                "pair_embeds": emb}

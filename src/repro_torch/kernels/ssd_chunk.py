@@ -83,9 +83,14 @@ def ssd_scan_plain(x, log_a, Bm, Cm, S0=None, chunk=256):
         xb, bb, cb = xc[:, c], bc[:, c], cc[:, c]
         Fc = torch.cumsum(lac[:, c], dim=1)                   # (B, Lc, H)
         G = torch.einsum("bin,bjn->bij", cb, bb)              # (B, Lc, Lc)
-        # exp(F_i - F_j) for j <= i: every exponent a difference, <= 0
-        D = torch.where(tril, torch.exp(Fc[:, :, None, :] - Fc[:, None, :, :]),
-                        0.0)                                  # (B, i, j, H)
+        # exp(F_i - F_j) for j <= i: every exponent a difference, <= 0.
+        # The masked exponents (j > i, up to the chunk's whole decay) go to
+        # -inf before the exp: exp of one past 88 is inf in f32, and its
+        # gradient, 0 * inf, would be NaN (the JAX package's ssd_chunked
+        # masks after the exp and has that NaN)
+        D = torch.exp(torch.where(
+            tril, Fc[:, :, None, :] - Fc[:, None, :, :],
+            -torch.inf))                                      # (B, i, j, H)
         y_intra = torch.einsum("bijh,bjhp->bihp", G[..., None] * D, xb)
         y_inter = torch.exp(Fc)[..., None] * torch.einsum(
             "bin,bhnp->bihp", cb, S)

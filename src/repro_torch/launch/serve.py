@@ -12,7 +12,7 @@ As in the JAX launcher, the prompt is prefilled by scanning
 prefill through the kernels is ``launch.steps.make_prefill_step``).  It
 runs on the card unless ``--device cpu`` is given.  Only the ``hybrid``
 family is ported, so ``--arch`` defaults to ``zamba2-1.2b`` (the JAX
-default, ``qwen3-1.7b``, is a dense model, ROADMAP queue P7); any other
+default, ``qwen3-1.7b``, is a dense model, ROADMAP queue P6b); any other
 family exits 2.
 
 Not to be confused with ``repro_torch.launch.serve_embed``, the online
@@ -76,7 +76,7 @@ def main(argv=None):
     if cfg is None or cfg.family != "hybrid":
         what = f"family {cfg.family!r}" if cfg else "its config"
         print(f"serve: {args.arch}: {what} is not ported (only the hybrid "
-              f"family; the other LM families are ROADMAP queue P7)",
+              f"family; the other LM families are ROADMAP queue P6b)",
               file=sys.stderr)
         sys.exit(2)
     if args.reduced:

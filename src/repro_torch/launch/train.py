@@ -1,11 +1,24 @@
-"""Training launcher (port of ``repro.launch.train``, the single-device
-contrastive trainer): FastCLIP on the synthetic contrastive pairs, with
+"""Training launcher (port of ``repro.launch.train``): FastCLIP on the
+synthetic contrastive pairs, or the LM objective of an LM backbone, with
 checkpoints, resume and the non-finite step guard.  It runs on the card
 unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch clip-vitb32-cc12m --version v3 --steps 200 \\
-        [--reduced] [--ckpt-dir ckpts] [--resume] [--device cpu]
+        [--objective contrastive|lm] [--reduced] [--ckpt-dir ckpts] \\
+        [--resume] [--device cpu]
+
+Objectives, as the JAX launcher picks them (``build_dataset``): a CLIP
+arch always trains FastCLIP on ``ContrastiveDataset`` (``--objective
+lm`` included); an LM backbone (``zamba2-1.2b``) trains FastCLIP on
+``PairedEmbeddingDataset`` (``backbones.encode_pair``: the mean-pooled
+backbone through ``ctr_proj`` against stub paired embeddings through
+``pair_proj``) by default, and ``--objective lm`` trains the next-token
+loss on ``LMDataset`` (``launch.steps.make_lm_train_step``: AdamW under a
+500-step warm-up, whatever ``--optimizer`` says; ``--version``,
+``--loss-impl`` and the guard do not apply to it).  ``--seq-len`` sets an
+LM backbone's sequence length.  Every contrastive run ends with the
+``retrieval accuracy:`` line; ``--eval-every`` evaluates CLIP archs only.
 
 The defaults reach the hand-written kernels: ``--impl flash`` (the
 attention in both towers) and ``--loss-impl fused`` (K1 and K2, the FCCO
@@ -56,7 +69,7 @@ Resilience, as the JAX launcher drives it:
       takes the same decision at the same step.
   ``--ckpt-async``
       The host snapshot is taken synchronously (owned copies; a sharded
-      save's gathers on the calling thread), compression and the atomic
+      save's gathers on the calling thread), the npz and the atomic
       writes run on a worker thread (``checkpoint.AsyncCheckpointer``).
   ``--ckpt-keep K [--ckpt-keep-every N]``
       Retention: keep the newest K checkpoints (plus every N-th).
@@ -80,8 +93,10 @@ The final checkpoint at ``--steps`` (and the one a preemption writes) is
 skipped when the loop has just saved that step, which holds the same
 state.  ``--local-devices`` is refused with exit code 2: it forces CPU
 devices per process in JAX, and a rank here is one process with one
-device.  Not ported yet, and refused with exit code 2: ``--objective
-lm``.
+device.  ``--mesh`` with ``--objective lm`` on an LM backbone exits as
+the JAX launcher does; ``--mesh`` with the contrastive objective on an
+LM backbone, which the JAX launcher runs, is not ported yet and is
+refused with exit code 2.
 """
 from __future__ import annotations
 
@@ -103,21 +118,35 @@ from repro_torch.core import shard_state as SS
 from repro_torch.core import train_step as TS
 from repro_torch.core.schedules import lr_warmup_cosine
 from repro_torch.data import (
-    ContrastiveDataset, DevicePrefetcher, ShardedLoader, StreamingDataset,
-    StreamingLoader, ZeroShotEvalDataset,
+    ContrastiveDataset, DevicePrefetcher, LMDataset, PairedEmbeddingDataset,
+    ShardedLoader, StreamingDataset, StreamingLoader, ZeroShotEvalDataset,
 )
 from repro_torch.data import curriculum as CU
 from repro_torch.eval import ClipEvaluator
 from repro_torch.launch import mesh as MS
 from repro_torch.launch import multiprocess as MP
+from repro_torch.launch import steps as ST
 from repro_torch.models import backbones as BB
 from repro_torch.models.precision import POLICIES
 from repro_torch.optim import OPTIMIZERS, get_optimizer
 
-# flag -> (value that means "unset", what it belongs to)
-_NOT_PORTED = {
-    "objective": ("contrastive", "the LM objective"),
-}
+def build_dataset(cfg, objective, n, seq_len, data="synthetic"):
+    """The JAX launcher's dataset for (arch, objective): a shard directory
+    for ``--data streaming:DIR``, else a CLIP arch's image-text pairs, an
+    LM backbone's paired embeddings (contrastive) or token stream (lm)."""
+    if data.startswith("streaming:"):
+        try:
+            return StreamingDataset(data.split(":", 1)[1])
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"--data {data}: {e}")
+    if cfg.family == "clip":
+        return ContrastiveDataset(n=n, image_size=cfg.clip.image_size,
+                                  context_length=cfg.clip.context_length,
+                                  vocab_size=cfg.vocab_size, n_classes=64)
+    if objective == "contrastive":
+        return PairedEmbeddingDataset(n=n, seq_len=seq_len,
+                                      vocab_size=cfg.vocab_size)
+    return LMDataset(n=n, seq_len=seq_len, vocab_size=cfg.vocab_size)
 
 
 def check_resume_metadata(meta, arch: str, version: str) -> None:
@@ -139,9 +168,15 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="clip-vitb32-cc12m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--version", default="v3", choices=FC.VERSIONS)
+    ap.add_argument("--objective", default="contrastive",
+                    choices=["contrastive", "lm"],
+                    help="an LM backbone's objective (a CLIP arch trains "
+                         "contrastively either way)")
     ap.add_argument("--optimizer", default="adamw", choices=sorted(OPTIMIZERS))
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--global-batch", type=int, default=64)
+    ap.add_argument("--seq-len", type=int, default=32,
+                    help="an LM backbone's sequence length")
     ap.add_argument("--n-samples", type=int, default=2048)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--wd", type=float, default=0.1)
@@ -198,7 +233,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--ckpt-async", action="store_true",
                     help="write checkpoints on a worker thread (synchronous "
-                         "host snapshot, async compress and atomic write)")
+                         "host snapshot, async npz and atomic writes)")
     ap.add_argument("--ckpt-keep", type=int, default=0,
                     help="retention: keep only the newest K checkpoints "
                          "(0 keeps all)")
@@ -224,21 +259,15 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--eval-every", type=int, default=0,
                     help="run the zero-shot/retrieval eval engine every N "
-                         "steps (0 disables), through the same --impl / "
-                         "--precision fast path as training")
+                         "steps (CLIP archs; 0 disables), through the same "
+                         "--impl / --precision fast path as training")
     ap.add_argument("--eval-classes", type=int, default=8)
     ap.add_argument("--eval-per-class", type=int, default=8)
     ap.add_argument("--eval-batch", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
-    # flags of the JAX launcher that are not ported yet (refused)
-    ap.add_argument("--objective", default="contrastive")
+    # a flag of the JAX launcher with no meaning here (refused)
     ap.add_argument("--local-devices", type=int, default=None)
     args = ap.parse_args(argv)
-    for key, (unset, what) in _NOT_PORTED.items():
-        if getattr(args, key) != unset:
-            flag = "--" + key.replace("_", "-")
-            ap.error(f"{flag} ({what}) is not ported to repro_torch yet; "
-                     "use repro.launch.train")
     if args.local_devices is not None:
         ap.error("--local-devices has no meaning here: it forces CPU "
                  "devices per process in JAX, and every rank of "
@@ -251,6 +280,15 @@ def parse_args(argv=None):
     if args.microbatch != 1 and not args.mesh:
         ap.error("--microbatch needs --mesh: micro-steps belong to the "
                  "mesh step")
+    cfg = get_arch(args.arch)
+    if args.mesh and cfg.family != "clip":
+        if args.objective == "lm":
+            raise SystemExit("--mesh drives the contrastive trainer; the "
+                             "LM shapes run on the production mesh via "
+                             "repro.launch.dryrun")
+        ap.error(f"--mesh with the contrastive objective of {args.arch} is "
+                 "not ported to repro_torch yet (ROADMAP P6a'); use "
+                 "repro.launch.train")
     if args.data != "synthetic" and not args.data.startswith("streaming:"):
         ap.error(f"--data {args.data!r}: want 'synthetic' or "
                  "'streaming:<shard-dir>'")
@@ -260,8 +298,7 @@ def parse_args(argv=None):
         RS.parse_chaos(args.chaos, seed=args.seed)
     except ValueError as e:
         ap.error(str(e))
-    if image_sched:
-        cfg = get_arch(args.arch)
+    if image_sched and cfg.clip is not None:
         native = (cfg.reduced() if args.reduced else cfg).clip.image_size
         bad = [v for _, v in image_sched if native % v]
         if bad:
@@ -320,18 +357,12 @@ def _train(args, device, mesh, record):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    lm = args.objective == "lm" and cfg.family != "clip"
     streaming = args.data.startswith("streaming:")
+    ds = build_dataset(cfg, args.objective, args.n_samples, args.seq_len,
+                       args.data)
     if streaming:
-        try:
-            ds = StreamingDataset(args.data.split(":", 1)[1])
-        except (OSError, ValueError) as e:
-            raise SystemExit(f"--data {args.data}: {e}")
         args.n_samples = ds.n    # FCCO u sizing follows the shard index
-    else:
-        ds = ContrastiveDataset(n=args.n_samples,
-                                image_size=cfg.clip.image_size,
-                                context_length=cfg.clip.context_length,
-                                vocab_size=cfg.vocab_size, n_classes=64)
     if args.prefetch is None:
         args.prefetch = 4 if streaming else 2
     image_sched = CU.parse_schedule(args.image_size_schedule)
@@ -368,7 +399,17 @@ def _train(args, device, mesh, record):
         fsdp=mesh is not None, microbatch=args.microbatch)
     gen = torch.Generator().manual_seed(args.seed)
     start = 0
-    if mesh is None:
+    if lm:
+        # JAX's LM step: AdamW, its own warm-up, no guard
+        lm_step, opt = ST.make_lm_train_step(
+            cfg, lr=args.lr, wd=args.wd, total_steps=args.steps,
+            impl=args.impl, precision=args.precision, device=device)
+        state = ST.init_lm_train_state(cfg, gen, opt, device)
+
+        def step_fn(state, batch, idx):
+            return lm_step(state, batch)
+        p_dims = None
+    elif mesh is None:
         state = TS.init_train_state(gen, tc, device)
         step_fn = TS.make_train_step(tc, device)
         p_dims = None
@@ -419,7 +460,7 @@ def _train(args, device, mesh, record):
         del tree
 
     evaluator = None
-    if args.eval_every:
+    if args.eval_every and cfg.family == "clip":
         eval_ds = ZeroShotEvalDataset(
             n_classes=args.eval_classes, n_per_class=args.eval_per_class,
             image_size=cfg.clip.image_size,
@@ -637,15 +678,17 @@ def _train(args, device, mesh, record):
     dt = time.time() - t0
     print(f"trained {args.steps - start} steps in {dt:.1f}s "
           f"({(args.steps - start) / max(dt, 1e-9):.2f} steps/s)")
-    eval_batch = {k: torch.from_numpy(v).to(device)
-                  for k, v in ds.batch(np.arange(
-                      min(128, args.n_samples))).items()}
-    # on a mesh the metric runs on the gathered params, on every rank
-    params = (state["params"] if mesh is None else BB.params_from_tree(
-        cfg, CK.unflatten(SS.full_params(state["params"], p_dims)), device))
-    acc = float(TS.retrieval_accuracy(params, cfg, eval_batch))
-    del params
-    print(f"retrieval accuracy: {acc:.4f}")
+    if not lm:
+        eval_batch = {k: torch.from_numpy(v).to(device)
+                      for k, v in ds.batch(np.arange(
+                          min(128, args.n_samples))).items()}
+        # on a mesh the metric runs on the gathered params, on every rank
+        params = (state["params"] if mesh is None else BB.params_from_tree(
+            cfg, CK.unflatten(SS.full_params(state["params"], p_dims)),
+            device))
+        acc = float(TS.retrieval_accuracy(params, cfg, eval_batch))
+        del params
+        print(f"retrieval accuracy: {acc:.4f}")
     if evaluator is not None and args.steps % args.eval_every != 0:
         run_eval(args.steps)   # final eval unless the loop just ran it
     if args.ckpt_dir and saved["step"] != args.steps:

@@ -6,8 +6,10 @@ JAX-layout tree is its checkpoint form (see ``checkpoint.bridge``).
 
     init_params(cfg, gen, device)                -> model
     param_shapes(cfg) / params_from_tree(cfg, tree, device)
-    encode_pair(model, cfg, batch)               -> (e1, e2)     [clip]
+    encode_pair(model, cfg, batch)               -> (e1, e2)
     forward_hidden(model, cfg, batch)            -> ((B, S, d), aux) [hybrid]
+    lm_loss(model, cfg, batch)                   -> (loss, metrics)  [hybrid]
+    encode(model, cfg, batch)                    -> (B, E)           [hybrid]
     prefill_logits(model, cfg, batch)            -> (B, 1, V)
     init_decode_state(cfg, batch, max_len)       -> decode caches (zeros)
     decode_step(model, cfg, state, token, pos)   -> (logits (B, V), state)
@@ -17,8 +19,14 @@ The hybrid depth pattern is ``[mamba x every + shared-attn(tied)] x
 each with a ModuleList ``mambas``, and ``shared_attn`` is one ``Block``
 called after every super-block (its weights are tied; each call has its
 own KV cache in decode).  The JAX package scans stacked layer axes; here
-stacks are walked in Python loops.  Other families raise
-``NotImplementedError`` (ROADMAP, queue P7).
+stacks are walked in Python loops.  Under autograd (grad enabled),
+``forward_hidden`` recomputes in the backward, as the JAX package's
+``remat=True`` scans do, at one level: each Mamba2 layer and each call
+of the shared block keeps only its input and runs its forward again in
+the backward (JAX nests a super-block's remat around its layers' own,
+which runs a Mamba2 layer's forward three times; here it runs twice);
+prefill and decode run without grad and keep nothing.
+Other families raise ``NotImplementedError`` (ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as D
 from repro_torch.checkpoint import bridge
@@ -47,7 +56,7 @@ def _check_family(cfg: ArchConfig, *families) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported here (ported: "
             f"{', '.join(families or FAMILIES)}; the other LM families are "
-            f"ROADMAP queue P7)")
+            f"ROADMAP queue P6b)")
 
 
 class SuperBlock(nn.Module):
@@ -61,9 +70,8 @@ class HybridLM(nn.Module):
     ``final_norm``, ``ctr_proj``, ``pair_proj``, ``lm_head`` (untied),
     ``supers/mambas/...``, ``shared_attn/...``, ``tail/...`` (when
     ``n_layers`` is not a multiple of ``hybrid_attn_every``).
-    ``ctr_proj``/``pair_proj`` belong to the contrastive objective, which
-    the port does not run for this family; they are kept so the params
-    tree matches the JAX one leaf for leaf."""
+    ``ctr_proj``/``pair_proj`` are the contrastive objective's
+    projections (``encode``, ``encode_pair``)."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
@@ -138,32 +146,83 @@ def params_from_tree(cfg: ArchConfig, tree: Dict[str, Any], device=None):
     return model
 
 
-def encode_pair(model: C.CLIP, cfg: ArchConfig, batch, *, impl="flash",
+def encode_pair(model, cfg: ArchConfig, batch, *, impl="flash",
                 precision=PR.F32):
-    _check_family(cfg, "clip")
-    return C.encode_pair(model, batch, impl=impl, precision=precision)
+    """Two towers.  CLIP: image vs text.  An LM backbone: the stub
+    paired-modality embeddings ``pair_embeds`` (B, PAIR_DIM) through
+    ``pair_proj`` vs ``encode`` over the tokens."""
+    _check_family(cfg)
+    if cfg.family == "clip":
+        return C.encode_pair(model, batch, impl=impl, precision=precision)
+    e2 = encode(model, cfg, batch, impl=impl, precision=precision)
+    e1 = (PR.cast_compute(precision, batch["pair_embeds"])
+          @ model.pair_proj.to(precision.compute_dtype))
+    return PR.cast_output(precision, e1), e2
 
 
 # ===========================================================================
-# The hybrid LM: prefill and decode
+# The hybrid LM: forward, LM loss, contrastive tower, prefill and decode
 # ===========================================================================
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat``."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _mamba(m, cfg, impl, chunked):
+    return lambda h: SSM.apply_mamba2(m, cfg, h, impl=impl, chunked=chunked)
+
 
 def forward_hidden(model: HybridLM, cfg: ArchConfig, batch, *,
                    impl="flash", chunked=True, precision=PR.F32):
     """Token path -> (final hidden states (B, S, d) after the final norm,
     aux losses {}).  ``impl`` reaches the shared block's attention (K3
     for "flash") and every Mamba2 layer (K4 for "flash"; see
-    ``models.ssm``); ``chunked=False`` runs the sequential SSD."""
+    ``models.ssm``); ``chunked=False`` runs the sequential SSD.  With
+    grad enabled, each Mamba2 layer and each call of the shared block is
+    recomputed once in the backward (JAX's ``remat=True`` scans); the
+    recompute changes no number."""
     _check_family(cfg, "hybrid")
+    remat = torch.is_grad_enabled()
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
+
+    def shared(h):
+        return model.shared_attn(h, impl=impl)
     for sup in model.supers:
         for m in sup.mambas:
-            x = SSM.apply_mamba2(m, cfg, x, impl=impl, chunked=chunked)
-        x = model.shared_attn(x, impl=impl)
+            x = _run(remat, _mamba(m, cfg, impl, chunked), x)
+        x = _run(remat, shared, x)
     for m in getattr(model, "tail", ()):
-        x = SSM.apply_mamba2(m, cfg, x, impl=impl, chunked=chunked)
+        x = _run(remat, _mamba(m, cfg, impl, chunked), x)
     return model.final_norm(x), {}
+
+
+def lm_loss(model: HybridLM, cfg: ArchConfig, batch, *, impl="flash",
+            precision=PR.F32):
+    """(loss, {"ce": loss, **aux}): the vocab-parallel cross entropy of
+    the next token, ``batch["labels"]``, over the valid vocab."""
+    x, aux = forward_hidden(model, cfg, batch, impl=impl,
+                            precision=precision)
+    table = model.embed if cfg.tie_embeddings else model.lm_head
+    loss = L.vocab_parallel_ce(x, table, batch["labels"],
+                               tied=cfg.tie_embeddings,
+                               vocab_valid=cfg.vocab_size)
+    total = loss + sum(aux.values())
+    return total, {"ce": loss, **aux}
+
+
+def encode(model: HybridLM, cfg: ArchConfig, batch, *, impl="flash",
+           precision=PR.F32):
+    """Backbone tower -> (B, CONTRASTIVE_DIM) unnormalised embedding: the
+    final hidden states averaged over the sequence, through
+    ``ctr_proj``."""
+    x, _ = forward_hidden(model, cfg, batch, impl=impl, precision=precision)
+    pooled = torch.mean(x, dim=1)
+    return PR.cast_output(precision, pooled @ model.ctr_proj.to(x.dtype))
 
 
 def logits_from_hidden(model: HybridLM, cfg: ArchConfig, x):

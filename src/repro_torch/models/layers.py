@@ -176,3 +176,44 @@ def unembed(table_or_w: torch.Tensor, x: torch.Tensor,
     table (tied embeddings); else a (d, V) head."""
     w = table_or_w.to(x.dtype)
     return x @ (w.T if transpose else w)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_valid=None) -> torch.Tensor:
+    """Mean CE in f32.  ``vocab_valid``: mask out padded vocab entries."""
+    logits = logits.float()
+    if vocab_valid is not None and vocab_valid < logits.shape[-1]:
+        v = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(v < vocab_valid, logits, -1e9)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def vocab_parallel_ce(x: torch.Tensor, table: torch.Tensor,
+                      labels: torch.Tensor, *, tied: bool,
+                      vocab_valid) -> torch.Tensor:
+    """Mean CE the Megatron way, as the JAX package computes it: the
+    logits in the activation dtype, the padded vocab masked to -1e9,
+    ``lse = m + log sum exp(logits - m)`` in f32 with the row max ``m``,
+    and the gold logit recomputed in f32 as ``x . table[label]``.
+
+    x: (B, S, d) final hidden; table: (V, d) if tied else (d, V);
+    labels: (B, S).  The gold rows are an embedding lookup on the (V, d)
+    view, whose backward on the card is deterministic (an indexed gather
+    would accumulate its gradient with atomics)."""
+    logits = unembed(table, x, transpose=tied)            # (B, S, V)
+    V = logits.shape[-1]
+    if vocab_valid is not None and vocab_valid < V:
+        v = torch.arange(V, device=logits.device)
+        logits = torch.where(v < vocab_valid, logits, -1e9)
+    m = logits.amax(dim=-1).float()
+    lse = m + torch.log(torch.sum(
+        torch.exp(logits.float() - m[..., None]), dim=-1))
+    rows = F.embedding(labels.long(), table if tied else table.T)
+    gold = torch.sum(x.float() * rows.float(), dim=-1)
+    return torch.mean(lse - gold)

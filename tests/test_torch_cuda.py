@@ -537,7 +537,9 @@ def test_ssd_chunk_gradients_match_plain(cuda, case):
 def test_reduced_hybrid_gradients_flash_match_chunked(cuda):
     """A reduced zamba2 forward + backward: every leaf's gradient through
     ``impl="flash"`` (K4 and K3 forwards) within 1e-4 relative L2 of
-    ``impl="chunked"`` (the plain scan and attention)."""
+    ``impl="chunked"`` (the plain scan and attention).  Under grad
+    ``forward_hidden`` recomputes each layer once: K4 runs twice per
+    layer."""
     from repro_torch.configs import get_arch
     from repro_torch.models import backbones as BB
     cfg = get_arch("zamba2-1.2b").reduced().replace(n_layers=3)
@@ -554,13 +556,61 @@ def test_reduced_hybrid_gradients_flash_match_chunked(cuda):
             ct = torch.randn(x.shape, generator=cuda, device="cuda")
         (x * ct).sum().backward()
         assert K4.ssd_chunk.launches - k4 == (
-            cfg.n_layers if impl == "flash" else 0)
+            2 * 3 if impl == "flash" else 0)
         grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()
                        if p.grad is not None}
     torch.cuda.synchronize()
     assert grads["flash"].keys() == grads["chunked"].keys()
     for n, w in grads["chunked"].items():
         assert _rel_l2(grads["flash"][n], w) <= 1e-4, n
+
+
+@pytest.mark.cuda
+def test_reduced_hybrid_lm_step_flash_matches_plain(cuda):
+    """One reduced zamba2 LM step (``launch.steps.make_lm_train_step``,
+    one super-block of 2 Mamba2 layers and one tail layer) on the card,
+    the kernel path against the plain path from the same init: under the
+    recompute, exactly 2 * 3 = 6 K4 calls (24 CUDA launches) and 2 K3
+    launches; the loss within rtol 1e-4 and every leaf's gradient
+    within 1e-4 relative L2 (the training step's bounds, chip_smoke.py);
+    the metrics ``loss`` and ``ce``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    cfg = get_arch("zamba2-1.2b").reduced().replace(n_layers=3)
+    ds = LMDataset(n=8, seq_len=40, vocab_size=cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.batch(np.arange(2)).items()}
+    grads, losses, counts = {}, {}, {}
+    for impl in ("flash", "chunked"):
+        model = BB.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+        before = (K4.ssd_chunk.launches, K4.ssd_chunk.cuda_launches,
+                  FA.flash_attention.launches)
+        with torch.enable_grad():
+            loss, _ = BB.lm_loss(model, cfg, batch, impl=impl)
+            grads[impl] = TS.param_grads(loss, model)
+        torch.cuda.synchronize()
+        counts[impl] = (K4.ssd_chunk.launches - before[0],
+                        K4.ssd_chunk.cuda_launches - before[1],
+                        FA.flash_attention.launches - before[2])
+        losses[impl] = loss.item()
+    assert counts == {"flash": (6, 24, 2), "chunked": (0, 0, 0)}
+    assert abs(losses["flash"] - losses["chunked"]) <= 1e-4 * abs(
+        losses["chunked"])
+    for n, w in grads["chunked"].items():
+        if not w.any():                  # ctr_proj / pair_proj
+            assert not grads["flash"][n].any(), n
+            continue
+        assert _rel_l2(grads["flash"][n], w) <= 1e-4, n
+    step, opt = steps.make_lm_train_step(cfg, device="cuda")
+    state = steps.init_lm_train_state(cfg, torch.Generator().manual_seed(0),
+                                      opt, "cuda")
+    state, m = step(state, batch)
+    assert sorted(m) == ["ce", "loss"] and int(state["step"]) == 1
+    assert abs(m["loss"].item() - losses["flash"]) <= 1e-6 * abs(
+        losses["flash"])
 
 
 # ---------------------------------------------------------------------------

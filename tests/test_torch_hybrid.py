@@ -173,12 +173,12 @@ def test_serve_cli_refuses_other_families(arch, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
     assert e.value.code == 2
-    assert "P7" in capsys.readouterr().err
+    assert "P6b" in capsys.readouterr().err
 
 
 def test_other_families_and_missing_card_raise():
     cfg = t_get_arch("clip-vitb32-cc12m")
-    with pytest.raises(NotImplementedError, match="P7"):
+    with pytest.raises(NotImplementedError, match="P6b"):
         TBB.init_decode_state(cfg, 1, 8, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

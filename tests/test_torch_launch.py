@@ -171,8 +171,11 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
                                   "version": "v3"}
 
 
-@pytest.mark.parametrize("flag", [["--objective", "lm"]])
+@pytest.mark.parametrize("flag", [["--arch", "zamba2-1.2b", "--mesh",
+                                   "data:1,fsdp:1"]])
 def test_unported_flags_are_refused(flag, capsys):
+    """The one edge of the JAX launcher not ported yet: ``--mesh`` with
+    the contrastive objective of an LM backbone (ROADMAP P6a')."""
     with pytest.raises(SystemExit) as e:
         ttrain.main(BASE + CPU + flag)
     assert e.value.code == 2
