@@ -13,13 +13,18 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    csrc/*.cu`` with nvcc for sm_90a, one nvcc per source, in parallel;
    prints ptxas's registers / spills and counts the tensor-core
    instructions (HMMA, HGMMA) in each library's SASS (``cuobjdump
-   -sass``): none, or a spill, fails;
+   -sass``): none, or a spill, fails; for the flash-attention kernel,
+   each instantiation's (f32 and bf16 at head dims 32, 64 and 128):
+   HGMMA for bf16, HMMA for f32, or it fails;
 3. kernel  -- holds the flash-attention kernel against its plain PyTorch
    version on the card through both entry points at the serving,
    training, eval-head (f32), hybrid and ``clip-vitb16-laion`` image
-   tower (256 x 12 x 197 x 197) shapes (f32 and bf16), at
-   the curricula's training shapes (S = 2 and a causal S = 32, f32) and
-   at edge cases, and times kernel, plain version and one library call
+   tower (256 x 12 x 197 x 197) shapes (f32 and bf16), the dense
+   prefills' at head dim 128 (qwen3-1.7b 2 x 16 x 4096 x 4096, f32 and
+   bf16; qwen1.5-32b 1 x 40 x 4096 x 4096, f32), at the curricula's
+   training shapes (S = 2 and a causal S = 32, f32) and at edge cases
+   (hd 128 too: a ragged S = 77, a window of 100, Sq != Sk), and times
+   kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
    port) with CUDA events at those shapes;
 4. attn_grad -- gradients of q, k, v through the kernel's autograd
@@ -64,11 +69,24 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    tokens; ``repro_torch.launch.serve.main`` generating on the card
    (no kernel launches: decode runs none, as in JAX); ms per prefill,
    a torch.profiler breakdown, decode tokens/s, peak device memory;
-10. hybrid_train -- full-width ``zamba2-1.2b`` trained (f32, seed 0)
+10. dense  -- the dense LMs served (seeded random weights, f32):
+   full-width ``qwen3-1.7b`` (28 layers, d 2048, 16 query heads over 8
+   KV heads at head dim 128, qk-norm, tied embeddings) through
+   ``make_prefill_step(impl="flash")`` at 2 x 4096: exactly 28 K3
+   launches, all at 4096 x 4096, and nothing else; finite last-position
+   logits within ``TOL_DENSE_PREFILL`` of ``impl="chunked"``, both
+   paths measured against a reference whose attention runs in f64;
+   prefill vs ``decode_step`` over the same 256 tokens;
+   ``repro_torch.launch.serve.main`` with its defaults generating on
+   the card; ms per prefill on both paths, a profile by kind of kernel
+   with the idle share, peak memory; ``qwen1.5-32b`` at full width with
+   2 of its 64 layers (QKV bias, 40-head MHA) at 1 x 4096: exactly 2 K3
+   launches, within the same bound of the plain path;
+11. hybrid_train -- full-width ``zamba2-1.2b`` trained (f32, seed 0)
    under both objectives: ``repro_torch.launch.train --objective lm`` at
    2 x 4096 and the contrastive (v3) run at 64 x 256, each launcher in a
    child process for 3 steps (exit 0, step lines, ms per step, peak
-   memory, launches exact: 112 K4 calls, 448 CUDA launches and 12 K3
+   memory, launches exact: 76 K4 calls, 304 CUDA launches and 12 K3
    per step under the recompute, plus one K1 and one K2 call for the
    contrastive loss; step-0 loss equal to this process's; every step's
    loss, and the contrastive run's other metrics at steps 0 and 1,
@@ -80,7 +98,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    within 1e-2 of f32), ms per step, peak memory, a profile by kind of
    kernel with the idle share, the backward of K4's and K3's autograd
    Functions timed at each objective's layer shapes;
-11. eval   -- the zero-shot eval engine at full width:
+12. eval   -- the zero-shot eval engine at full width:
    ``repro_torch.launch.eval.main`` on the slice's checkpoint at 192
    classes x 16 (3072 pairs, 224 px, context 77), extraction batch 256,
    ``--impl flash --loss-impl fused``: exactly 300 K3 launches (24 per
@@ -95,7 +113,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    extra memory; planted serving under chaos (NaN batch, corrupt cache
    entry, stalled batch, corrupt reload candidate): nothing dropped,
    every completed response bitwise equal to the solo forward;
-12. train  -- three full-width FastCLIP v3 steps at global batch 256
+13. train  -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
    --loss-impl fused``): launch counts (3 calls of K1 and of K2, 2 CUDA
    launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
@@ -105,7 +123,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
    ``eval`` line the evaluator's on the final params, its eval_loss the
    dense loss's within rtol 1e-5;
-13. clip_family -- the paper's other two CLIP settings at full width and
+14. clip_family -- the paper's other two CLIP settings at full width and
    depth (v3, AdamW, global batch 256, seeded random weights):
    ``clip-rn50-cc3m`` trained 3 f32 steps by the launcher in a process
    of its own that sets no backend flag (the port's device policy alone:
@@ -119,7 +137,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the card) held to one device (loss 1e-5, params 5e-5, log-u 1e-4);
    ``clip-vitb16-laion`` 3 f32 steps (36 K3 at S = 197, 36 at 77) with
    the same checks;
-14. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
+15. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
    shape of data:2,fsdp:2 at global batch 256 (64 rows x 256 gathered
    columns x 512, row offsets 0, 64, 128, 192) against their plain
    versions, timed; ``--mesh data:1,fsdp:1`` (a one-rank NCCL group)
@@ -136,7 +154,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the trajectory at the same bounds; 48 K3 launches per rank per
    step), the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
-15. resilience -- the trainer's recovery paths at full width (v3, f32,
+16. resilience -- the trainer's recovery paths at full width (v3, f32,
    batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
    state compared by the sha256 of every leaf with the oracle's (4
    steps, synchronous saves at 2 and 4): ``nan_batch@2`` under
@@ -154,7 +172,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-16. report -- the kernels JSON line, the card line, and the last line
+17. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -200,6 +218,10 @@ TOL_SSD = 5e-5
 # last-position logits; prefill vs stepwise decode: max abs error, as
 # tests/test_decode_equivalence.py
 TOL_HYBRID_REL, TOL_PREFILL_DECODE = 1e-4, 5e-3
+# the dense prefills (phase dense), kernel path vs plain path: max abs
+# error of the last-position logits
+TOL_DENSE_PREFILL = 1e-4
+DENSE_ARCH, DENSE_WIDE_ARCH = "qwen3-1.7b", "qwen1.5-32b"
 # K1 / K2 vs their plain versions: those of tests/test_kernels.py (K1 f32
 # rtol/atol 1e-5, bf16 1e-2 in log domain; K2 rtol 1e-4, atol 1e-5)
 TOL_K1, TOL_K1_LOG_BF16, TOL_K2 = 1e-5, 1e-2, (1e-4, 1e-5)
@@ -316,22 +338,47 @@ def phase_device():
 
 
 def tensor_core_ops(lib):
-    """{SASS opcode: count} of the tensor-core instructions (HMMA,
-    HGMMA) in a built library, from ``cuobjdump -sass``."""
+    """{function: {SASS opcode: count}} of the tensor-core instructions
+    (HMMA, HGMMA) in a built library, from ``cuobjdump -sass``."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    counts = {}
+    counts, fn = {}, None
     for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
         for op in ("HGMMA", "HMMA"):
             if f" {op}." in ln or f" {op} " in ln:
-                counts[op] = counts.get(op, 0) + 1
+                per = counts.setdefault(fn, {})
+                per[op] = per.get(op, 0) + 1
     return counts
+
+
+def _flash_instances(ptxas, ops):
+    """K3's instantiations by (dtype, head dim): ptxas's registers and
+    spill line, and the tensor-core SASS count of each."""
+    out, entry = {}, None
+    for ln in ptxas:
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", ln)
+        if m and "Compiling entry" in ln:
+            entry = f"{'f32' if m.group(1) == 'f' else 'bf16'}/hd{m.group(2)}"
+            out[entry] = {"ptxas": []}
+        elif entry and ("spill" in ln or "registers" in ln):
+            out[entry]["ptxas"].append(ln)
+    for fn, per in ops.items():
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        if m:
+            key = f"{'f32' if m.group(1) == 'f' else 'bf16'}/hd{m.group(2)}"
+            out.setdefault(key, {"ptxas": []})["sass"] = per
+    return out
 
 
 def phase_build(checks):
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     t0 = time.monotonic()
     build.build(build.SOURCES)       # one nvcc per source, in parallel
     seconds = time.monotonic() - t0
@@ -343,13 +390,29 @@ def phase_build(checks):
                  or "Compiling entry" in ln]
         rec = dict(kernel=name, seconds_all_parallel=seconds,
                    library=str(build.lib_path(name)), ptxas=ptxas)
-        ops = tensor_core_ops(build.lib_path(name))
+        per_fn = tensor_core_ops(build.lib_path(name))
+        ops = {}
+        for per in per_fn.values():
+            for op, n in per.items():
+                ops[op] = ops.get(op, 0) + n
         spills = [ln for ln in ptxas if re.search(
             r"[1-9]\d* bytes spill (stores|loads)", ln)]
         checks.check(sum(ops.values()) > 0,
                      f"build: no tensor-core instruction in {name}")
         checks.check(not spills, f"build: {name} spills: {spills}")
         rec.update(tensor_core_sass=ops, spills=spills)
+        if name == "flash_attention":
+            # every instantiation on the tensor cores: HGMMA for bf16
+            # (wgmma), HMMA for f32 (split TF32 on mma.sync), hd 128 too
+            inst = _flash_instances(ptxas, per_fn)
+            want = {f"{dt}/hd{hd}" for dt in ("f32", "bf16")
+                    for hd in HEAD_DIMS}
+            bad = sorted(k for k in want if not inst.get(k, {}).get(
+                "sass", {}).get("HGMMA" if k.startswith("bf16") else "HMMA"))
+            checks.check(set(inst) == want and not bad,
+                         f"build: K3 instantiations {sorted(inst)} (want "
+                         f"{sorted(want)}), without tensor-core SASS: {bad}")
+            rec["instantiations"] = inst
         emit("build", **rec)
     checks.end_phase("build")
 
@@ -375,6 +438,19 @@ KERNEL_CASES = [
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "bfloat16", True),
     # zamba2-1.2b's contrastive training (phase hybrid_train): 64 x 256
     ("hybrid_ctr", 64, 32, 256, 256, 64, True, 0, "float32", True),
+    # the dense prefills of phase dense at head dim 128: qwen3-1.7b (16
+    # heads, its 8 KV heads repeated) at 2 x 4096, qwen1.5-32b (40 heads)
+    # at 1 x 4096
+    ("qwen3", 2, 16, 4096, 4096, 128, True, 0, "float32", True),
+    ("qwen3", 2, 16, 4096, 4096, 128, True, 0, "bfloat16", True),
+    ("qwen1p5", 1, 40, 4096, 4096, 128, True, 0, "float32", True),
+    # edge cases at head dim 128, timed too (on no main path)
+    ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "float32", True),
+    ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "bfloat16", True),
+    ("hd128_window", 2, 4, 300, 300, 128, True, 100, "float32", True),
+    ("hd128_window", 2, 4, 300, 300, 128, True, 100, "bfloat16", True),
+    ("hd128_sq_ne_sk", 2, 4, 64, 300, 128, False, 0, "float32", True),
+    ("hd128_sq_ne_sk", 2, 4, 200, 70, 128, True, 0, "bfloat16", True),
     ("sq_ne_sk", 2, 4, 64, 300, 64, False, 0, "float32", False),
     ("sq_ne_sk_causal", 2, 4, 200, 70, 64, True, 0, "bfloat16", False),
     ("window", 2, 4, 130, 130, 64, True, 17, "float32", False),
@@ -428,8 +504,15 @@ def phase_kernel(checks):
                 q, k, v, causal=causal, window=window), iters)
             plain_ms = device_ms(lambda: FA.flash_attention_ref(
                 q, k, v, causal=causal, window=window), iters)
-            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal), iters)
+            if window:      # the same function: the window as a mask
+                qp = torch.arange(Sq, device="cuda")[:, None]
+                kp = torch.arange(Sk, device="cuda")[None, :]
+                mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), iters)
+            else:
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), iters)
             b_ms, b_by = bound(B, H, Sq, Sk, hd, causal, window, dt_name)
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
@@ -1655,6 +1738,222 @@ def phase_hybrid(checks):
     torch.cuda.empty_cache()
     checks.end_phase("hybrid")
     return counts, ssd_cuda_launches
+
+
+DENSE_CATEGORIES = (
+    ("k3_flash_attention", ("flash",)),
+    ("gemm", ("gemm", "gemv")),
+)
+
+
+class _AttentionInF64:
+    """Within the block, the plain path's attention (``models.attention.
+    chunked_attention``) is an exact softmax in f64 on f64 copies of its
+    inputs, returned in the input dtype: the prefill logits' reference."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention as A
+        self.mod, self.orig = A, A.chunked_attention
+
+        def f64(q, k, v, *, causal=True, window=0, **_):
+            Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[3]
+            kd, vd = k.double(), v.double()
+            k_pos = torch.arange(Sk, device=q.device)
+            outs = []
+            for q0 in range(0, Sq, 512):
+                qd = q[:, q0:q0 + 512].double()
+                s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / math.sqrt(hd)
+                mask = A._block_mask(q0 + torch.arange(qd.shape[1],
+                                                       device=q.device),
+                                     k_pos, causal, window)
+                p = torch.softmax(torch.where(mask, s, -math.inf), dim=-1)
+                outs.append(torch.einsum("bhqk,bkhd->bqhd", p, vd))
+            return torch.cat(outs, dim=1).to(q.dtype)
+        A.chunked_attention = f64
+
+    def __exit__(self, *exc):
+        self.mod.chunked_attention = self.orig
+
+
+def _dense_prefill(checks, name, cfg, model, tokens, want_k3):
+    """One model's prefill through both paths: exact launches (K3 only),
+    finite logits, kernel vs plain within TOL_DENSE_PREFILL, both against
+    the f64-attention reference (a measurement), ms in turns (k, p, p,
+    k), peak memory.  Returns (record, the prefill steps)."""
+    import torch
+    from repro_torch.launch import steps
+    B, S = tokens.shape
+    batch = {"tokens": tokens}
+    prefill = {impl: steps.make_prefill_step(cfg, impl=impl)
+               for impl in ("flash", "chunked")}
+    prefill["flash"](model, batch)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_hybrid_counters()
+    t0 = time.monotonic()
+    logits = prefill["flash"](model, batch)
+    torch.cuda.synchronize()
+    ms = {"flash": [(time.monotonic() - t0) * 1e3], "chunked": []}
+    counts, by_seq = _hybrid_counters(), _by_seq()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: (want_k3 if k == "flash_attention" else 0) for k in counts}
+    checks.check(counts == want and by_seq == {f"{S}x{S}": want_k3},
+                 f"{name} prefill: launches {counts} by (Sq, Sk) {by_seq}, "
+                 f"want {want_k3} K3 at {S}x{S} and nothing else")
+    checks.check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+                 and bool(torch.isfinite(logits).all()),
+                 f"{name} prefill: logits {tuple(logits.shape)} not finite")
+    plain = None
+    for impl in ("chunked", "chunked", "flash"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = prefill[impl](model, batch)
+        torch.cuda.synchronize()
+        ms[impl].append((time.monotonic() - t0) * 1e3)
+        if impl == "chunked":
+            plain = out
+    err = (logits - plain).abs().max().item()
+    checks.check(math.isfinite(err) and err <= TOL_DENSE_PREFILL,
+                 f"{name} prefill: kernel vs plain max abs {err} (tol "
+                 f"{TOL_DENSE_PREFILL})")
+    with _AttentionInF64():
+        ref = prefill["chunked"](model, batch)
+
+    def dist(x):
+        return dict(max_abs=(x - ref).abs().max().item(),
+                    rel_l2=((x - ref).norm() / ref.norm()).item())
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, seq=S,
+               launches=counts, launches_by_seq=by_seq,
+               kernel_vs_plain_max_abs=err, tol=TOL_DENSE_PREFILL,
+               kernel_vs_plain_rel_l2=((logits - plain).norm()
+                                       / plain.norm()).item(),
+               logits_max_abs=plain.abs().max().item(),
+               kernel_vs_f64_attention=dist(logits),
+               plain_vs_f64_attention=dist(plain),
+               ms_per_prefill_kernel_path=ms["flash"],
+               ms_per_prefill_plain_path=ms["chunked"],
+               tokens_per_s_kernel_path=B * S / (min(ms["flash"]) / 1e3),
+               max_memory_allocated=peak)
+    emit(f"{name}_prefill", **rec)
+    return rec, prefill
+
+
+def phase_dense(checks):
+    """The dense LMs served on the card through the port's entry points:
+    full-width qwen3-1.7b (28 layers, head dim 128, qk-norm, GQA) prefill
+    at 2 x 4096, prefill vs decode, the decode launcher with its
+    defaults; qwen1.5-32b at full width with 2 of its 64 layers (QKV
+    bias, 40-head MHA) prefill at 1 x 4096.  Returns {case: K3 launches
+    of one prefill}."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import backbones as BB
+
+    t_phase = time.monotonic()
+    cfg = get_arch(DENSE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model = BB.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    checks.check(n_params == 1_722_147_840,
+                 f"dense: {DENSE_ARCH} has {n_params} parameters")
+    emit("dense_params", arch=DENSE_ARCH, n_params=n_params,
+         n_layers=cfg.n_layers, head_dim=cfg.resolved_head_dim,
+         init_seconds=time.monotonic() - t0,
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen,
+                           device="cuda")
+    rec, prefill = _dense_prefill(checks, "dense_qwen3", cfg, model, tokens,
+                                  cfg.n_layers)
+    out = {"qwen3": rec["launches_by_seq"]}
+    try:       # a measurement only; no check depends on it
+        prof = _profile(lambda: prefill["flash"](model, {"tokens": tokens}),
+                        categories=DENSE_CATEGORIES)
+        prof["idle_share_of_unprofiled_prefill"] = max(
+            0.0, 1.0 - prof["device_busy_ms"]
+            / min(rec["ms_per_prefill_kernel_path"]))
+        emit("dense_qwen3_profile", **prof)
+    except Exception as e:
+        emit("dense_qwen3_profile", error=repr(e))
+
+    # prefill vs stepwise decode on the same 256 tokens
+    T = 256
+    short = {"tokens": tokens[:1, :T]}
+    last = prefill["flash"](model, short)[:, 0]
+    state = BB.prepare_decode_state(model, cfg, {}, 1, T)
+    _zero_hybrid_counters()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        for t in range(T):
+            lg, state = BB.decode_step(model, cfg, state,
+                                       short["tokens"][:, t:t + 1], t)
+    torch.cuda.synchronize()
+    dec_s = time.monotonic() - t0
+    d = (lg - last).abs().max().item()
+    dec_counts = _hybrid_counters()
+    checks.check(math.isfinite(d) and d <= TOL_PREFILL_DECODE
+                 and not any(dec_counts.values()),
+                 f"dense: prefill vs decode max abs {d}, decode launched "
+                 f"{dec_counts}")
+    emit("dense_qwen3_prefill_vs_decode", tokens=T, max_abs_err=d,
+         tol=TOL_PREFILL_DECODE, decode_launches=dec_counts,
+         decode_ms_per_token_batch1=dec_s / T * 1e3)
+    del model, state, lg, last, prefill
+    torch.cuda.empty_cache()
+
+    # the decode launcher with its defaults (qwen3-1.7b, batch 4, prompt
+    # 16, 32 new tokens, on the card)
+    _zero_hybrid_counters()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main([])
+    wall = time.monotonic() - t0
+    serve_counts = _hybrid_counters()
+    lines = buf.getvalue().splitlines()
+    tps = float(lines[0].split(" at ")[1].split(" tok/s")[0])
+    checks.check(lines[0].startswith(f"arch={DENSE_ARCH} batch=4 ")
+                 and tuple(toks.shape) == (4, 48)
+                 and toks.device.type == "cuda" and 0 <= int(toks.min())
+                 and int(toks.max()) < cfg.vocab_size
+                 and not any(serve_counts.values()),
+                 f"dense serve: {lines[:1]} tokens {tuple(toks.shape)} on "
+                 f"{toks.device}, launches {serve_counts}")
+    emit("dense_serve", argv=[], lines=lines, launches=serve_counts,
+         decode_tokens_per_s=tps, wall_seconds=wall,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del toks
+    torch.cuda.empty_cache()
+
+    # qwen1.5-32b at full width, 2 of its 64 layers
+    wide = get_arch(DENSE_WIDE_ARCH).replace(n_layers=2)
+    t0 = time.monotonic()
+    model = BB.init_params(wide, gen, "cuda")
+    torch.cuda.synchronize()
+    emit("dense_qwen1p5_params", arch=DENSE_WIDE_ARCH,
+         n_params=sum(p.numel() for p in model.parameters()),
+         n_layers=wide.n_layers, head_dim=wide.resolved_head_dim,
+         init_seconds=time.monotonic() - t0)
+    tokens = torch.randint(0, wide.vocab_size, (1, 4096), generator=gen,
+                           device="cuda")
+    rec, _ = _dense_prefill(checks, "dense_qwen1p5", wide, model, tokens,
+                            wide.n_layers)
+    out["qwen1p5"] = rec["launches_by_seq"]
+    del model
+    torch.cuda.empty_cache()
+    emit("dense", seconds=time.monotonic() - t_phase)
+    checks.end_phase("dense")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3918,7 +4217,7 @@ def main(argv=None):
                                  "GPU (no arguments: every phase)")
     ap.add_argument("--only", default=None,
                     help="a partial run: device, build, then these phases "
-                         "(comma-separated: kernel, gcl, train, "
+                         "(comma-separated: kernel, gcl, dense, train, "
                          "clip_family, mesh after train, hybrid_train, "
                          "resilience); no report and no last line")
     args = ap.parse_args(argv)
@@ -3939,6 +4238,7 @@ def main(argv=None):
                 out[name] = {
                     "kernel": phase_kernel, "gcl": phase_gcl,
                     "train": phase_train, "clip_family": phase_clip_family,
+                    "dense": phase_dense,
                     "hybrid_train": phase_hybrid_train,
                     "resilience": phase_resilience}[name](checks)
             mark(name)
@@ -3957,6 +4257,8 @@ def main(argv=None):
     mark("ssd")
     hybrid_launches, ssd_cuda_launches = phase_hybrid(checks)
     mark("hybrid")
+    dense = phase_dense(checks)
+    mark("dense")
     import torch
     train_launches, train_rec, train_tree = phase_train(checks)
     torch.cuda.empty_cache()
@@ -3996,6 +4298,11 @@ def main(argv=None):
         # (both towers over 3072 pairs and the prompt head)
         if case == "hybrid":
             path, n_launch = "prefill", hybrid_launches["flash_attention"]
+        elif case in ("qwen3", "qwen1p5"):
+            # one full-width dense prefill (phase dense): every layer
+            path, n_launch = "dense_prefill", dense[case]["4096x4096"]
+        elif case.startswith("hd128_"):
+            path, n_launch = "none (edge case)", 0
         elif case == "hybrid_ctr":
             # the zamba2 contrastive launcher's 3 steps
             path = "hybrid_train"

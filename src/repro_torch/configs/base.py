@@ -3,9 +3,11 @@
 An own copy of ``ArchConfig``/``CLIPConfig``/``SSMConfig``, the input
 shapes and the registry: the port imports nothing of the JAX package.
 The paper's three CLIP settings (ResNet-50 on CC3M, ViT-B/32 on CC12M,
-ViT-B/16 on LAION) and the hybrid ``zamba2-1.2b`` are registered here; ``reduced()`` gives the same small shapes as the JAX package's
-``reduced()``, which is what lets the tests load one set of params into
-both packages.
+ViT-B/16 on LAION), the hybrid ``zamba2-1.2b`` and the dense LMs
+(``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) are
+registered here; ``reduced()`` gives the same small shapes as the JAX
+package's ``reduced()``, which is what lets the tests load one set of
+params into both packages.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ class CLIPConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # "clip" and "hybrid" are ported
+    family: str                    # "clip", "hybrid" and "dense" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -95,7 +97,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: the JAX package's ``reduced()`` for the
-        fields a CLIP or hybrid config has."""
+        fields a CLIP, hybrid or dense config has."""
         kw = dict(
             n_layers=2,
             d_model=min(self.d_model, 256),
@@ -125,7 +127,8 @@ class ArchConfig:
 _REGISTRY: dict[str, ArchConfig] = {}
 
 _ARCH_MODULES = ["clip_rn50_cc3m", "clip_vitb32_cc12m", "clip_vitb16_laion",
-                 "zamba2_1p2b"]
+                 "zamba2_1p2b", "qwen3_1p7b", "yi_6b", "granite_3_8b",
+                 "qwen1p5_32b"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -8,16 +8,19 @@
 // `l` clamped at 1e-30, output in the input dtype.
 //
 // What bounds it: at the hybrid prefill shape (2 x 32 heads x 4096 x 64,
-// causal) the two products are 137 GFLOP against 67 MB of q/k/v/o, so
-// the tensor cores set the pace; at the serving and training shapes
-// (S = 50 and 77) the bytes and the launch do.
+// causal) and at qwen3-1.7b's (2 x 16 x 4096 x 128, the same products)
+// the two products are 137 GFLOP against 67 MB of q/k/v/o, so the
+// tensor cores set the pace; at the serving and training shapes (S = 50
+// and 77) the bytes and the launch do.
 //
 // Design:
 // - Both products run on the tensor cores.  bf16 inputs use `wgmma`
 //   (m64n64k16, bf16 in, f32 accumulate), one warpgroup per block: Q and
-//   K from shared memory in the 128-byte (hd 64) or 64-byte (hd 32)
+//   K from shared memory in the 128-byte (hd 64, 128) or 64-byte (hd 32)
 //   swizzled layout the descriptors name, p from registers, V N-major
-//   from shared memory.  f32 inputs keep f32 accuracy through split TF32
+//   from shared memory.  At hd 128 a tile is two slices of 64 dims, each
+//   laid out as an hd-64 tile: Q K^T steps across both, and P V runs one
+//   wgmma per slice.  f32 inputs keep f32 accuracy through split TF32
 //   on warp-level `mma.sync` m16n8k8: each operand is x = hi + lo with
 //   hi = tf32(x), lo = tf32(x - hi), and each product is hi*hi + hi*lo +
 //   lo*hi accumulated in f32 (the dropped lo*lo is ~2^-22 relative).
@@ -25,7 +28,10 @@
 //   memory; with mma.sync every thread loads its own f32 fragments, so
 //   the contraction index inside an 8-wide step is permuted freely: the
 //   score accumulator of one key tile is then, register for register,
-//   the A fragment of the PV product, and no shuffle moves p.
+//   the A fragment of the PV product, and no shuffle moves p.  At hd 128
+//   the running accumulator lives in shared memory and P V runs in two
+//   slices of 64 dims, so that nothing spills; the K/V ring, Q and the
+//   accumulator take 201 KB there, one block per SM.
 // - A warp owns 16 query rows (in the warpgroup's accumulator, or its
 //   own); the online softmax runs on the accumulator registers (a row's
 //   max and sum once per 64-key tile, a quad shuffle for the max, the
@@ -52,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -218,6 +226,45 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // c1 = (g, 2t + 1), c2 = (g + 8, 2t), c3 = (g + 8, 2t + 1).
 // ---------------------------------------------------------------------------
 
+// The running output accumulator of a thread: its m16n8 fragments, 4
+// floats per 8-dim n tile (rows g and g + 8, columns 2t and 2t + 1).  In
+// registers, or, for the f32 route at hd 128, in shared memory.
+template <int HD>
+struct RegAcc {
+  float v[HD / 8][4];
+  __device__ __forceinline__ void init(float*, int) {
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) v[nd][0] = v[nd][1] = v[nd][2] = v[nd][3] = 0.f;
+  }
+  __device__ __forceinline__ void scale(const float (&alpha)[2]) {
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      v[nd][0] *= alpha[0];
+      v[nd][1] *= alpha[0];
+      v[nd][2] *= alpha[1];
+      v[nd][3] *= alpha[1];
+    }
+  }
+  __device__ __forceinline__ float4 frag(int nd) const {
+    return make_float4(v[nd][0], v[nd][1], v[nd][2], v[nd][3]);
+  }
+};
+
+// One float4 per n tile, the block's threads side by side, so a warp's
+// 16-byte accesses are contiguous (no bank conflict).
+template <int HD>
+struct SmemAcc {
+  static constexpr int BYTES = 32 * WARPS * HD / 2 * sizeof(float);
+  float4* a;
+  __device__ __forceinline__ float4& at(int nd) { return a[nd * 32 * WARPS]; }
+  __device__ __forceinline__ void init(float* base, int tid) {
+    a = reinterpret_cast<float4*>(base) + tid;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) at(nd) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ float4 frag(int nd) const { return a[nd * 32 * WARPS]; }
+};
+
 template <typename T, int HD>
 struct Mma;
 
@@ -232,10 +279,19 @@ struct Mma;
 // and is added to the running accumulator in f32.  The warp's 16 query
 // rows wait in shared memory and are split one k step at a time (held
 // split in registers they would take 64 of them and push the kernel past
-// 255 registers).
+// 255 registers).  At hd 128 the running accumulator (64 floats a thread)
+// lives in shared memory, 32 KB a block: in registers, beside the score
+// and P V sums, every layout tried spilled at 255 registers (P V in
+// slices of 16 to 128 dims, the score loop unrolled 1 to 16 times,
+// pinned K/V loads, each split product added to the sum at once).  Each
+// tile reads it, scales it by the softmax correction and adds its P V,
+// one 64-dim slice at a time.
 template <int HD>
 struct Mma<float, HD> {
   static constexpr bool WARPGROUP = false;   // each warp runs its own products
+  static constexpr bool ACC_SMEM = HD > 64;
+  using Acc = std::conditional_t<ACC_SMEM, SmemAcc<HD>, RegAcc<HD>>;
+  static constexpr int ACC_BYTES = ACC_SMEM ? SmemAcc<HD>::BYTES : 0;
   static constexpr int K_LD = HD + 8;   // float2 rows 8 banks apart
   static constexpr int V_LD = HD + 4;   // rows 2t and 2t + 1: 8 banks apart
   static constexpr int Q_LD = HD + 8;   // as K
@@ -294,36 +350,56 @@ struct Mma<float, HD> {
       for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
   }
 
+  // P V by slices of at most 64 dims (two at hd 128), each with its own
+  // hi*hi and small-term sums.
+  static constexpr int NSLICE = HD > 64 ? HD / 64 : 1;
+  static constexpr int SN = HD / 8 / NSLICE;   // n tiles of 8 dims per slice
+
+  // acc = acc * alpha (the softmax correction of rows g, g + 8) + P V
   static __device__ __forceinline__ void pv(const float (&p)[BK / 8][4], const float* vs,
-                                            float (&acc)[HD / 8][4], int lane) {
+                                            Acc& acc, const float (&alpha)[2], int lane) {
     const int g = lane / 4, t = lane % 4;
-    float big[HD / 8][4], small[HD / 8][4];   // this tile's P V: hi*hi, and the rest
+    if constexpr (!ACC_SMEM) acc.scale(alpha);
+#pragma unroll 1   // the slice only moves addresses (at hd <= 64 there is one)
+    for (int sl = 0; sl < NSLICE; ++sl) {
+      float big[SN][4], small[SN][4];   // this tile's P V: hi*hi, and the rest
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd)
+      for (int nd = 0; nd < SN; ++nd)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) big[nd][e] = small[nd][e] = 0.f;
+        for (int e = 0; e < 4; ++e) big[nd][e] = small[nd][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      uint32_t ah[4], al[4];
-      split_tf32(p[j][0], ah[0], al[0]);
-      split_tf32(p[j][2], ah[1], al[1]);
-      split_tf32(p[j][1], ah[2], al[2]);
-      split_tf32(p[j][3], ah[3], al[3]);
-      const float* v0 = vs + (8 * j + 2 * t) * V_LD + g;
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t ah[4], al[4];
+        split_tf32(p[j][0], ah[0], al[0]);
+        split_tf32(p[j][2], ah[1], al[1]);
+        split_tf32(p[j][1], ah[2], al[2]);
+        split_tf32(p[j][3], ah[3], al[3]);
+        const float* v0 = vs + (8 * j + 2 * t) * V_LD + 8 * SN * sl + g;
 #pragma unroll
-      for (int nd = 0; nd < HD / 8; ++nd) {
-        uint32_t h0, l0, h1, l1;
-        split_tf32(v0[8 * nd], h0, l0);
-        split_tf32(v0[V_LD + 8 * nd], h1, l1);
-        mma_tf32(small[nd], al, h0, h1);
-        mma_tf32(small[nd], ah, l0, l1);
-        mma_tf32(big[nd], ah, h0, h1);
+        for (int nd = 0; nd < SN; ++nd) {
+          uint32_t h0, l0, h1, l1;
+          split_tf32(v0[8 * nd], h0, l0);
+          split_tf32(v0[V_LD + 8 * nd], h1, l1);
+          mma_tf32(small[nd], al, h0, h1);
+          mma_tf32(small[nd], ah, l0, l1);
+          mma_tf32(big[nd], ah, h0, h1);
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < SN; ++nd) {
+        if constexpr (ACC_SMEM) {
+          float4 x = acc.at(SN * sl + nd);
+          x.x = x.x * alpha[0] + (big[nd][0] + small[nd][0]);
+          x.y = x.y * alpha[0] + (big[nd][1] + small[nd][1]);
+          x.z = x.z * alpha[1] + (big[nd][2] + small[nd][2]);
+          x.w = x.w * alpha[1] + (big[nd][3] + small[nd][3]);
+          acc.at(SN * sl + nd) = x;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc.v[SN * sl + nd][e] += big[nd][e] + small[nd][e];
+        }
       }
     }
-#pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] += big[nd][e] + small[nd][e];
   }
 
   static __device__ __forceinline__ void store(float* orow, int col, float x, float y) {
@@ -339,15 +415,23 @@ struct Mma<float, HD> {
 template <int HD>
 struct Mma<__nv_bfloat16, HD> {
   static constexpr bool WARPGROUP = true;   // the 4 warps run each wgmma together
+  using Acc = RegAcc<HD>;
+  static constexpr int ACC_BYTES = 0;
   static constexpr int K_ELEMS = BK * HD, V_ELEMS = BK * HD, Q_ELEMS = BQ * HD;
   static constexpr int KS = HD / 16;
-  // A row of a tile is one swizzle span (128 B at hd 64, 64 B at hd 32);
-  // its 16-byte chunks are permuted by the row's index within 8 rows, so
-  // wgmma reads 8 rows without a bank conflict.  The 8-row atoms start on
-  // 1024-byte boundaries.
-  static constexpr int SPAN = 2 * HD;
+  // A tile is stored as column slices of at most 64 dims, one after the
+  // other (two at hd 128).  A row of a slice is one swizzle span (128 B
+  // at hd 64 and 128, 64 B at hd 32); its 16-byte chunks are permuted by
+  // the row's index within 8 rows, so wgmma reads 8 rows without a bank
+  // conflict.  The 8-row atoms start on 1024-byte boundaries (the ring
+  // is aligned to 1024, and a slice of 64 rows is a multiple of it).
+  static constexpr int SPAN = HD >= 64 ? 128 : 2 * HD;   // bytes
+  static constexpr int SLICE_DIMS = SPAN / 2;
+  static constexpr int NSLICE = HD / SLICE_DIMS;
+  static_assert(BK == BQ, "Q, K and V tiles share the slice size");
+  static constexpr int SLICE_BYTES = BK * SPAN;
   static constexpr int ATOM = 8 * SPAN;
-  static constexpr uint64_t MODE = HD == 64 ? 1 : 2;   // 128-byte / 64-byte swizzle
+  static constexpr uint64_t MODE = SPAN == 128 ? 1 : 2;   // 128-byte / 64-byte swizzle
 
   // a row's chunks come from neighbouring threads
   static __device__ __forceinline__ void chunk(int idx, int& r, int& col) {
@@ -355,21 +439,29 @@ struct Mma<__nv_bfloat16, HD> {
     col = 8 * (idx % (HD / 8));
   }
   static __device__ __forceinline__ int tiled(int r, int col) {   // elements
-    return (r * SPAN + (((col / 8) ^ (HD == 64 ? r % 8 : (r / 2) % 4)) * 16)) / 2;
+    const int sl = col / SLICE_DIMS, c = col % SLICE_DIMS;
+    const int sw = SPAN == 128 ? r % 8 : (r / 2) % 4;
+    return (sl * SLICE_BYTES + r * SPAN + (((c / 8) ^ sw) * 16)) / 2;
   }
   static __device__ __forceinline__ int k_off(int r, int col) { return tiled(r, col); }
   static __device__ __forceinline__ int v_off(int r, int col) { return tiled(r, col); }
   static __device__ __forceinline__ int q_off(int r, int col) { return tiled(r, col); }
   // Descriptors.  Either stride field is the 8-row atom: along the rows
-  // for Q and K (K-major, the 16 dims of a step lie inside one span), and
-  // along the keys for V (N-major, its 64 or 32 dims are one span).
-  // Q, K at k step kk (16 dims, 32 bytes into the span):
+  // for Q and K (K-major, the 16 dims of a step lie inside one span of
+  // one slice), and along the keys for V (N-major, a slice's 64 or 32
+  // dims are one span).
+  // Q, K at k step kk (16 dims, 32 bytes into its slice's span):
   static __device__ __forceinline__ uint64_t qk_desc(const __nv_bfloat16* base, int kk) {
-    return smem_desc(reinterpret_cast<const char*>(base) + 32 * kk, ATOM, ATOM) | (MODE << 62);
+    constexpr int STEPS = SLICE_DIMS / 16;   // k steps per slice
+    return smem_desc(reinterpret_cast<const char*>(base) + (kk / STEPS) * SLICE_BYTES +
+                         32 * (kk % STEPS),
+                     ATOM, ATOM) |
+           (MODE << 62);
   }
-  // V at k step jj (16 keys, two atoms):
-  static __device__ __forceinline__ uint64_t v_desc(const __nv_bfloat16* base, int jj) {
-    return smem_desc(reinterpret_cast<const char*>(base) + 2 * ATOM * jj, ATOM, ATOM) |
+  // V at k step jj (16 keys, two atoms) in dim slice sl:
+  static __device__ __forceinline__ uint64_t v_desc(const __nv_bfloat16* base, int jj, int sl) {
+    return smem_desc(reinterpret_cast<const char*>(base) + sl * SLICE_BYTES + 2 * ATOM * jj,
+                     ATOM, ATOM) |
            (MODE << 62);
   }
 
@@ -391,8 +483,9 @@ struct Mma<__nv_bfloat16, HD> {
   }
 
   static __device__ __forceinline__ void pv(const float (&p)[BK / 8][4],
-                                            const __nv_bfloat16* vs, float (&acc)[HD / 8][4],
-                                            int) {
+                                            const __nv_bfloat16* vs, Acc& acc,
+                                            const float (&alpha)[2], int) {
+    acc.scale(alpha);
     uint32_t a[BK / 16][4];
 #pragma unroll
     for (int jj = 0; jj < BK / 16; ++jj) {
@@ -401,13 +494,16 @@ struct Mma<__nv_bfloat16, HD> {
       a[jj][2] = pack_bf16(p[2 * jj + 1][0], p[2 * jj + 1][1]);
       a[jj][3] = pack_bf16(p[2 * jj + 1][2], p[2 * jj + 1][3]);
     }
-    fence_regs(acc);
+    fence_regs(acc.v);
     wgmma_fence();
 #pragma unroll
     for (int jj = 0; jj < BK / 16; ++jj)    // 16 keys a step
-      wgmma_rs(acc, a[jj], v_desc(vs, jj));
+#pragma unroll
+      for (int sl = 0; sl < NSLICE; ++sl)   // one wgmma per dim slice
+        wgmma_rs(reinterpret_cast<float(&)[SLICE_DIMS / 8][4]>(acc.v[sl * (SLICE_DIMS / 8)]),
+                 a[jj], v_desc(vs, jj, sl));
     wgmma_commit_and_wait();
-    fence_regs(acc);
+    fence_regs(acc.v);
   }
 
   static __device__ __forceinline__ void store(__nv_bfloat16* orow, int col, float x, float y) {
@@ -424,7 +520,7 @@ template <typename T, int HD>
 __host__ __device__ constexpr int smem_bytes() {
   return (STAGES * stage_elems<T, HD>() + Mma<T, HD>::Q_ELEMS) *
              static_cast<int>(sizeof(T)) +
-         1024;   // room to align the ring
+         Mma<T, HD>::ACC_BYTES + 1024;   // room to align the ring
 }
 
 // Copy keys [kt, kt + BK) of K and V into one ring stage, zeros past Sk.
@@ -482,9 +578,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   T* qsm = ring + STAGES * stage_elems<T, HD>();
   const typename M::QFrag qf = M::q_frag(qsm, warp);
 
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  typename M::Acc acc;
+  acc.init(reinterpret_cast<float*>(qsm + M::Q_ELEMS), tid);
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};   // rows r0, r1 (l: this thread's columns)
 
   // Key tiles that some row of this block can see; the others would leave
@@ -560,15 +655,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         }
       }
 #pragma unroll
-      for (int nd = 0; nd < HD / 8; ++nd) {
-        acc[nd][0] *= alpha[0];
-        acc[nd][1] *= alpha[0];
-        acc[nd][2] *= alpha[1];
-        acc[nd][3] *= alpha[1];
-      }
-#pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
-      M::pv(s, vst, acc, lane);
+      M::pv(s, vst, acc, alpha, lane);
     }
     __syncthreads();                 // this stage is consumed before it is refilled
   }
@@ -587,8 +675,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float lc = fmaxf(l[r], 1e-30f);
     T* orow = ob + row * os.s;
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd)
-      M::store(orow, 8 * nd + 2 * t, acc[nd][2 * r] / lc, acc[nd][2 * r + 1] / lc);
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      const float4 a = acc.frag(nd);
+      M::store(orow, 8 * nd + 2 * t, (r ? a.z : a.x) / lc, (r ? a.w : a.y) / lc);
+    }
   }
 }
 
@@ -611,8 +701,9 @@ template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                       int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                       Strides os, float scale, int causal, int window, cudaStream_t stream) {
-  // The head dims of the ported configs: 64 at full width (both towers and
-  // zamba2's shared block), 32 in the reduced ViT tower.
+  // The head dims of the ported configs: 128 in the dense LMs (qwen3,
+  // yi, granite, qwen1.5), 64 in both towers and zamba2's shared block,
+  // 32 in the reduced ViT tower.
   switch (hd) {
     case 32:
       return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
@@ -620,6 +711,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void*
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
                            window, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale, causal,
+                            window, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -11,16 +11,18 @@ What bounds it on the H100: at the serving and training shapes (ViT ``B
 x 12 x 50 x 64`` non-causal, text ``B x 8 x 77 x 64`` causal) it moves q,
 k, v and o once and does a few hundred kFLOP per (batch, head), so the
 bytes and the launch bound it; at zamba2's prefill (``2 x 32 x 4096 x
-64`` causal) the two products do.  The design (``csrc/flash_attention.cu``)
-runs both products on the tensor cores (``mma.sync``: bf16 directly, f32
-through split TF32, three TF32 products per f32 product, for f32
-accuracy), the online softmax on the accumulator registers, and K/V
-tiles of 64 keys through a two-stage ``cp.async`` ring; it masks its own
-ragged edge and skips fully masked key tiles.
+64`` causal) and qwen3-1.7b's (``2 x 16 x 4096 x 128``) the two products
+do.  The design (``csrc/flash_attention.cu``) runs both products on the
+tensor cores (bf16 on ``wgmma``, f32 through split TF32 on ``mma.sync``,
+three TF32 products per f32 product, for f32 accuracy), the online
+softmax on the accumulator registers (for f32 at head dim 128 the
+running output sum waits in shared memory, so that nothing spills), and
+K/V tiles of 64 keys through a two-stage ``cp.async`` ring; it masks its
+own ragged edge and skips fully masked key tiles.
 
 Input conditions, checked by ``check_inputs`` before any launch: q, k, v
 and out on one device, float32 or bfloat16 alike, (B, H, S, hd) with hd
-in {32, 64} and contiguous, and 16-byte aligned rows for ``cp.async``
+in {32, 64, 128} and contiguous, and 16-byte aligned rows for ``cp.async``
 (base pointers and the strides of B, H and S, in bytes, multiples of
 16).  Fresh tensors and ``flash_mha``'s (B, S, H, hd) views meet them.
 
@@ -46,7 +48,8 @@ import math
 import torch
 
 NEG = -1e30
-HEAD_DIMS = (32, 64)   # full-width towers: 64; the reduced ViT tower: 32
+# the dense LMs: 128; the towers and zamba2: 64; the reduced ViT tower: 32
+HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -181,7 +184,7 @@ flash_attention.launches_by_seq = collections.Counter()
 
 def flash_mha(q, k, v, *, causal=True, window=0):
     """q: (B, Sq, H, hd), k/v: (B, Sk, H, hd) (GQA heads already
-    repeated) -> (B, Sq, H, hd) in the q dtype.  On the card the kernel
+    repeated, as in the JAX package) -> (B, Sq, H, hd) in the q dtype.  On the card the kernel
     reads and writes this layout in place, with no transposing copy."""
     if q.device.type == "cpu":
         o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),

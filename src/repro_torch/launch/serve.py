@@ -1,19 +1,21 @@
 """Decode-demo launcher (port of ``repro.launch.serve``): batched
-autoregressive generation through the decode caches and SSM states of
-the hybrid LM.  A throughput demo of ``backbones.decode_step``, not an
-online service: it generates a fixed number of tokens from random
-prompts (seeded) with random weights (seeded) and exits.
+autoregressive generation through the KV caches and SSM states of the
+dense and the hybrid LMs.  A throughput demo of
+``backbones.decode_step``, not an online service: it generates a fixed
+number of tokens from random prompts (seeded) with random weights
+(seeded) and exits.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --reduced --batch 4 --prompt-len 16 --gen 32 [--device cpu]
 
 As in the JAX launcher, the prompt is prefilled by scanning
 ``decode_step`` token by token, so no kernel runs here (the chunked
 prefill through the kernels is ``launch.steps.make_prefill_step``).  It
-runs on the card unless ``--device cpu`` is given.  Only the ``hybrid``
-family is ported, so ``--arch`` defaults to ``zamba2-1.2b`` (the JAX
-default, ``qwen3-1.7b``, is a dense model, ROADMAP queue P6b); any other
-family exits 2.
+runs on the card unless ``--device cpu`` is given.  ``--arch`` defaults
+to ``qwen3-1.7b``, as in the JAX launcher; the ``dense`` (qwen3-1.7b,
+yi-6b, granite-3-8b, qwen1.5-32b) and ``hybrid`` (zamba2-1.2b) families
+are ported, and any other family exits 2 (moe, vlm, audio and ssm are
+ROADMAP queue P6b).
 
 Not to be confused with ``repro_torch.launch.serve_embed``, the online
 embedding service over the CLIP towers.
@@ -60,7 +62,7 @@ def generate(model, cfg, state, prompt, max_len, gen):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -73,11 +75,11 @@ def main(argv=None):
         cfg = get_arch(args.arch)
     except KeyError:
         cfg = None
-    if cfg is None or cfg.family != "hybrid":
+    if cfg is None or cfg.family not in BB.LM_FAMILIES:
         what = f"family {cfg.family!r}" if cfg else "its config"
-        print(f"serve: {args.arch}: {what} is not ported (only the hybrid "
-              f"family; the other LM families are ROADMAP queue P6b)",
-              file=sys.stderr)
+        print(f"serve: {args.arch}: {what} is not ported (ported: the "
+              f"{' and '.join(BB.LM_FAMILIES)} families; moe, vlm, audio "
+              f"and ssm are ROADMAP queue P6b)", file=sys.stderr)
         sys.exit(2)
     if args.reduced:
         cfg = cfg.reduced()

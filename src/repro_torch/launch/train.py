@@ -96,7 +96,10 @@ devices per process in JAX, and a rank here is one process with one
 device.  ``--mesh`` with ``--objective lm`` on an LM backbone exits as
 the JAX launcher does; ``--mesh`` with the contrastive objective on an
 LM backbone, which the JAX launcher runs, is not ported yet and is
-refused with exit code 2.
+refused with exit code 2.  A dense LM (``qwen3-1.7b``, ``yi-6b``,
+``granite-3-8b``, ``qwen1.5-32b``) is served (``launch.serve``,
+``launch.steps.make_prefill_step``) but not trained yet: either
+objective exits 2.
 """
 from __future__ import annotations
 
@@ -281,6 +284,11 @@ def parse_args(argv=None):
         ap.error("--microbatch needs --mesh: micro-steps belong to the "
                  "mesh step")
     cfg = get_arch(args.arch)
+    if cfg.family == "dense":
+        ap.error(f"training the dense family ({args.arch}) is not ported "
+                 "to repro_torch yet (ROADMAP P6b: dense training with "
+                 "JAX's grouped remat, under either objective); "
+                 "repro_torch.launch.serve serves it")
     if args.mesh and cfg.family != "clip":
         if args.objective == "lm":
             raise SystemExit("--mesh drives the contrastive trainer; the "

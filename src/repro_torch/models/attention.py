@@ -1,4 +1,5 @@
-"""Self-attention with GQA and RoPE (port of ``repro.models.attention``).
+"""Self-attention with GQA, RoPE, optional RMS qk-norm and QKV bias (port
+of ``repro.models.attention``).
 
 Shapes: x (B, S, d); q (B, S, H, hd); k/v (B, S, Hkv, hd).  ``impl``
 selects the attention core: "flash", the default (the hand-written kernel
@@ -30,6 +31,8 @@ class AttnSpec:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    qk_norm: bool = False       # RMSNorm over the head dim of q and k
+    qkv_bias: bool = False
     rope_theta: float = 1e6
     causal: bool = True
     sliding_window: int = 0     # 0 = full
@@ -109,7 +112,10 @@ def naive_attention(q, k, v, *, causal=True, window=0):
 
 class Attention(nn.Module):
     """Projections ``wq``/``wk``/``wv`` of shape (d, heads*hd) and ``wo``
-    of (H*hd, d), in the JAX package's (in, out) layout."""
+    of (H*hd, d), in the JAX package's (in, out) layout; with
+    ``qkv_bias`` the biases ``bq``/``bk``/``bv`` (zeros at init), with
+    ``qk_norm`` the per-head RMSNorms ``q_norm``/``k_norm`` (scale ones
+    at init), as ``init_attention``."""
 
     def __init__(self, spec: AttnSpec):
         super().__init__()
@@ -120,23 +126,41 @@ class Attention(nn.Module):
         self.wk = L.param(d, Hk * hd)
         self.wv = L.param(d, Hk * hd)
         self.wo = L.param(H * hd, d)
+        if spec.qkv_bias:
+            self.bq = L.param(H * hd)
+            self.bk = L.param(Hk * hd)
+            self.bv = L.param(Hk * hd)
+        if spec.qk_norm:
+            self.q_norm = L.RMSNorm(hd)
+            self.k_norm = L.RMSNorm(hd)
 
     def reset_parameters(self, gen):
         for w in (self.wq, self.wk, self.wv):
             L.dense_init_(w, gen)
         L.dense_init_(self.wo, gen, scale=1.0 / math.sqrt(self.wo.shape[0]))
+        if self.spec.qkv_bias:
+            with torch.no_grad():
+                for b in (self.bq, self.bk, self.bv):
+                    b.zero_()
 
     def _qkv(self, x, positions):
-        """Projections with RoPE at ``positions`` (broadcastable to
-        (B, S)): q (B, S, H, hd), k/v (B, S, Hkv, hd)."""
+        """JAX's order: projection, bias, per-head reshape, qk-norm, then
+        RoPE at ``positions`` (broadcastable to (B, S)): q (B, S, H, hd),
+        k/v (B, S, Hkv, hd)."""
         spec = self.spec
         B, S, _ = x.shape
         dt = x.dtype
-        q = (x @ self.wq.to(dt)).reshape(B, S, spec.n_heads, spec.head_dim)
-        k = (x @ self.wk.to(dt)).reshape(B, S, spec.n_kv_heads,
-                                         spec.head_dim)
-        v = (x @ self.wv.to(dt)).reshape(B, S, spec.n_kv_heads,
-                                         spec.head_dim)
+        q, k, v = (x @ self.wq.to(dt), x @ self.wk.to(dt),
+                   x @ self.wv.to(dt))
+        if spec.qkv_bias:
+            q = q + self.bq.to(dt)
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        q = q.reshape(B, S, spec.n_heads, spec.head_dim)
+        k = k.reshape(B, S, spec.n_kv_heads, spec.head_dim)
+        v = v.reshape(B, S, spec.n_kv_heads, spec.head_dim)
+        if spec.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         q = L.apply_rope(q, positions, spec.rope_theta)
         k = L.apply_rope(k, positions, spec.rope_theta)
         return q, k, v

@@ -1,15 +1,16 @@
-"""Backbone assembly (port of the CLIP and hybrid branches of
+"""Backbone assembly (port of the CLIP, hybrid and dense branches of
 ``repro.models.backbones``).
 
-The port's "params" are an ``nn.Module`` (``CLIP`` or ``HybridLM``); the
-JAX-layout tree is its checkpoint form (see ``checkpoint.bridge``).
+The port's "params" are an ``nn.Module`` (``CLIP``, ``HybridLM`` or
+``DenseLM``); the JAX-layout tree is its checkpoint form (see
+``checkpoint.bridge``).
 
     init_params(cfg, gen, device)                -> model
     param_shapes(cfg) / params_from_tree(cfg, tree, device)
     encode_pair(model, cfg, batch)               -> (e1, e2)
-    forward_hidden(model, cfg, batch)            -> ((B, S, d), aux) [hybrid]
-    lm_loss(model, cfg, batch)                   -> (loss, metrics)  [hybrid]
-    encode(model, cfg, batch)                    -> (B, E)           [hybrid]
+    forward_hidden(model, cfg, batch)            -> ((B, S, d), aux) [LMs]
+    lm_loss(model, cfg, batch)                   -> (loss, metrics)  [LMs]
+    encode(model, cfg, batch)                    -> (B, E)           [LMs]
     prefill_logits(model, cfg, batch)            -> (B, 1, V)
     init_decode_state(cfg, batch, max_len)       -> decode caches (zeros)
     decode_step(model, cfg, state, token, pos)   -> (logits (B, V), state)
@@ -26,7 +27,14 @@ of the shared block keeps only its input and runs its forward again in
 the backward (JAX nests a super-block's remat around its layers' own,
 which runs a Mamba2 layer's forward three times; here it runs twice);
 prefill and decode run without grad and keep nothing.
-Other families raise ``NotImplementedError`` (ROADMAP, queue P6b).
+
+The dense depth pattern is ``[attn + swiglu] x L``: ``blocks`` is a
+ModuleList of ``transformer.Block`` (JAX's ``blocks/...`` stack, qk-norm
+and QKV bias as the config says), and decode keeps one KV cache per
+layer.  Its forward runs no recompute (JAX's grouped remat belongs to
+dense training, which the launcher does not run yet: ROADMAP P6b).
+The moe, vlm, audio and ssm families raise ``NotImplementedError``
+(ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ from repro_torch.models import transformer as T
 
 CONTRASTIVE_DIM = 512   # joint embedding dim for the contrastive objective
 PAIR_DIM = 512          # stub paired-modality embedding dim
-FAMILIES = ("clip", "hybrid")
+FAMILIES = ("clip", "hybrid", "dense")
+LM_FAMILIES = ("hybrid", "dense")
 
 
 def _check_family(cfg: ArchConfig, *families) -> None:
@@ -65,19 +74,14 @@ class SuperBlock(nn.Module):
         self.mambas = nn.ModuleList(SSM.Mamba2(cfg) for _ in range(every))
 
 
-class HybridLM(nn.Module):
-    """Parameter names follow the JAX params tree: ``embed``,
-    ``final_norm``, ``ctr_proj``, ``pair_proj``, ``lm_head`` (untied),
-    ``supers/mambas/...``, ``shared_attn/...``, ``tail/...`` (when
-    ``n_layers`` is not a multiple of ``hybrid_attn_every``).
-    ``ctr_proj``/``pair_proj`` are the contrastive objective's
-    projections (``encode``, ``encode_pair``)."""
+class _LM(nn.Module):
+    """The parameters every LM backbone has (JAX's ``_init_common``):
+    ``embed``, ``final_norm``, ``ctr_proj``, ``pair_proj`` and, untied,
+    ``lm_head``.  ``ctr_proj``/``pair_proj`` are the contrastive
+    objective's projections (``encode``, ``encode_pair``)."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        every = cfg.hybrid_attn_every
-        n_super = cfg.n_layers // every
-        rem = cfg.n_layers - n_super * every
         d, V = cfg.d_model, cfg.padded_vocab
         self.embed = L.param(V, d)
         self.final_norm = L.RMSNorm(d)
@@ -85,11 +89,6 @@ class HybridLM(nn.Module):
         self.pair_proj = L.param(PAIR_DIM, CONTRASTIVE_DIM)
         if not cfg.tie_embeddings:
             self.lm_head = L.param(d, V)
-        self.supers = nn.ModuleList(SuperBlock(cfg, every)
-                                    for _ in range(n_super))
-        self.shared_attn = T.Block(cfg, T.attn_spec(cfg), mlp="swiglu")
-        if rem:
-            self.tail = nn.ModuleList(SSM.Mamba2(cfg) for _ in range(rem))
 
     def reset_parameters(self, gen):
         L.normal_init_(self.embed, gen, 0.02)
@@ -99,9 +98,39 @@ class HybridLM(nn.Module):
             L.dense_init_(self.lm_head, gen)
 
 
+class HybridLM(_LM):
+    """Parameter names follow the JAX params tree: ``_LM``'s, then
+    ``supers/mambas/...``, ``shared_attn/...``, ``tail/...`` (when
+    ``n_layers`` is not a multiple of ``hybrid_attn_every``)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        every = cfg.hybrid_attn_every
+        n_super = cfg.n_layers // every
+        rem = cfg.n_layers - n_super * every
+        self.supers = nn.ModuleList(SuperBlock(cfg, every)
+                                    for _ in range(n_super))
+        self.shared_attn = T.Block(cfg, T.attn_spec(cfg), mlp="swiglu")
+        if rem:
+            self.tail = nn.ModuleList(SSM.Mamba2(cfg) for _ in range(rem))
+
+
+class DenseLM(_LM):
+    """``_LM``'s parameters, then ``blocks/...``: the stack of swiglu
+    blocks (``blocks/attn/q_norm/scale`` with qk-norm, ``blocks/attn/bq``
+    with QKV bias)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        self.blocks = T.make_stack(cfg, cfg.n_layers, mlp="swiglu")
+
+
+_MODELS = {"clip": C.CLIP, "hybrid": HybridLM, "dense": DenseLM}
+
+
 def _empty(cfg: ArchConfig, device) -> nn.Module:
     with torch.device("meta"):
-        model = C.CLIP(cfg) if cfg.family == "clip" else HybridLM(cfg)
+        model = _MODELS[cfg.family](cfg)
     return model if device == "meta" else model.to_empty(device=device)
 
 
@@ -161,7 +190,8 @@ def encode_pair(model, cfg: ArchConfig, batch, *, impl="flash",
 
 
 # ===========================================================================
-# The hybrid LM: forward, LM loss, contrastive tower, prefill and decode
+# The LMs (hybrid, dense): forward, LM loss, contrastive tower, prefill and
+# decode
 # ===========================================================================
 
 def _run(remat: bool, fn, *args):
@@ -176,19 +206,24 @@ def _mamba(m, cfg, impl, chunked):
     return lambda h: SSM.apply_mamba2(m, cfg, h, impl=impl, chunked=chunked)
 
 
-def forward_hidden(model: HybridLM, cfg: ArchConfig, batch, *,
+def forward_hidden(model, cfg: ArchConfig, batch, *,
                    impl="flash", chunked=True, precision=PR.F32):
     """Token path -> (final hidden states (B, S, d) after the final norm,
-    aux losses {}).  ``impl`` reaches the shared block's attention (K3
-    for "flash") and every Mamba2 layer (K4 for "flash"; see
-    ``models.ssm``); ``chunked=False`` runs the sequential SSD.  With
-    grad enabled, each Mamba2 layer and each call of the shared block is
-    recomputed once in the backward (JAX's ``remat=True`` scans); the
-    recompute changes no number."""
-    _check_family(cfg, "hybrid")
-    remat = torch.is_grad_enabled()
+    aux losses {}).  ``impl`` reaches every attention layer (K3 for
+    "flash": each dense layer, the hybrid's shared block) and every
+    Mamba2 layer (K4 for "flash"; see ``models.ssm``); ``chunked=False``
+    runs the sequential SSD.  With grad enabled, each Mamba2 layer and
+    each call of the hybrid's shared block is recomputed once in the
+    backward (JAX's ``remat=True`` scans); the recompute changes no
+    number.  The dense stack recomputes nothing."""
+    _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
+    if cfg.family == "dense":
+        for blk in model.blocks:
+            x = blk(x, impl=impl)
+        return model.final_norm(x), {}
+    remat = torch.is_grad_enabled()
 
     def shared(h):
         return model.shared_attn(h, impl=impl)
@@ -201,7 +236,7 @@ def forward_hidden(model: HybridLM, cfg: ArchConfig, batch, *,
     return model.final_norm(x), {}
 
 
-def lm_loss(model: HybridLM, cfg: ArchConfig, batch, *, impl="flash",
+def lm_loss(model, cfg: ArchConfig, batch, *, impl="flash",
             precision=PR.F32):
     """(loss, {"ce": loss, **aux}): the vocab-parallel cross entropy of
     the next token, ``batch["labels"]``, over the valid vocab."""
@@ -215,7 +250,7 @@ def lm_loss(model: HybridLM, cfg: ArchConfig, batch, *, impl="flash",
     return total, {"ce": loss, **aux}
 
 
-def encode(model: HybridLM, cfg: ArchConfig, batch, *, impl="flash",
+def encode(model, cfg: ArchConfig, batch, *, impl="flash",
            precision=PR.F32):
     """Backbone tower -> (B, CONTRASTIVE_DIM) unnormalised embedding: the
     final hidden states averaged over the sequence, through
@@ -225,13 +260,13 @@ def encode(model: HybridLM, cfg: ArchConfig, batch, *, impl="flash",
     return PR.cast_output(precision, pooled @ model.ctr_proj.to(x.dtype))
 
 
-def logits_from_hidden(model: HybridLM, cfg: ArchConfig, x):
+def logits_from_hidden(model, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
         return L.unembed(model.embed, x, transpose=True)
     return L.unembed(model.lm_head, x)
 
 
-def prefill_logits(model: HybridLM, cfg: ArchConfig, batch, *,
+def prefill_logits(model, cfg: ArchConfig, batch, *,
                    impl="flash"):
     """Inference prefill: logits for the last position, (B, 1, V)."""
     x, _ = forward_hidden(model, cfg, batch, impl=impl)
@@ -241,15 +276,19 @@ def prefill_logits(model: HybridLM, cfg: ArchConfig, batch, *,
 def init_decode_state(cfg: ArchConfig, batch_size, max_len,
                       dtype=torch.bfloat16, *, window_override=None,
                       device=None):
-    """Zero decode caches: ``mambas`` (conv and SSD state with leading
-    axes (n_super, every)), ``shared_kv`` (one KV cache per call of the
-    shared block, leading axis n_super) and ``tail``."""
-    _check_family(cfg, "hybrid")
+    """Zero decode caches.  Dense: ``kv``, one KV cache per layer
+    (leading axis n_layers).  Hybrid: ``mambas`` (conv and SSD state with
+    leading axes (n_super, every)), ``shared_kv`` (one KV cache per call
+    of the shared block, leading axis n_super) and ``tail``."""
+    _check_family(cfg, *LM_FAMILIES)
     device = D.resolve(device)
+    spec = T.attn_spec(cfg, window_override=window_override)
+    if cfg.family == "dense":
+        return {"kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
+                                      device, lead=(cfg.n_layers,))}
     every = cfg.hybrid_attn_every
     n_super = cfg.n_layers // every
     rem = cfg.n_layers - n_super * every
-    spec = T.attn_spec(cfg, window_override=window_override)
     st = {"mambas": SSM.init_mamba2_cache(cfg, batch_size, (n_super, every),
                                           device),
           "shared_kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
@@ -259,27 +298,33 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
     return st
 
 
-def prepare_decode_state(model: HybridLM, cfg: ArchConfig, batch,
+def prepare_decode_state(model, cfg: ArchConfig, batch,
                          batch_size, max_len, dtype=torch.float32, *,
                          window_override=None):
-    """Decode state on the model's device.  The hybrid family has no
-    cross-attention caches to fill; feed the prompt through
+    """Decode state on the model's device.  The hybrid and dense families
+    have no cross-attention caches to fill; feed the prompt through
     ``decode_step`` to fill the self caches."""
     return init_decode_state(cfg, batch_size, max_len, dtype,
                              window_override=window_override,
                              device=next(model.parameters()).device)
 
 
-def decode_step(model: HybridLM, cfg: ArchConfig, state, token, pos: int,
+def decode_step(model, cfg: ArchConfig, state, token, pos: int,
                 *, window_override=None):
     """One-token decode.  token: (B, 1) int; ``pos`` the absolute
     position.  Updates ``state`` in place (JAX returns a new state) and
     returns ``(logits (B, padded_vocab), state)``."""
-    _check_family(cfg, "hybrid")
+    _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, token)
     pos = int(pos)
     def at(caches, *idx):            # one layer's cache: views, in place
         return {k: v[idx] for k, v in caches.items()}
+
+    if cfg.family == "dense":
+        for i, blk in enumerate(model.blocks):
+            x, _ = blk.decode(at(state["kv"], i), x, pos, window_override)
+        x = model.final_norm(x)
+        return logits_from_hidden(model, cfg, x)[:, 0], state
 
     for s, sup in enumerate(model.supers):
         for i, m in enumerate(sup.mambas):

@@ -1,6 +1,7 @@
 """Pre-norm transformer blocks and stacks (port of
 ``repro.models.transformer``: the CLIP text tower's gelu block and the
-swiglu block of the hybrid LM, with its one-token decode).
+swiglu block of the hybrid and the dense LMs, with its one-token
+decode).
 
 A block is ``x += attn(rmsnorm(x)); x += mlp(rmsnorm(x))``.  The
 JAX package scans a stacked layer axis; here a stack is an
@@ -18,15 +19,12 @@ from repro_torch.models import precision as PR
 
 
 def attn_spec(cfg: ArchConfig, *, window_override=None) -> A.AttnSpec:
-    """Causal self-attention with the config's RoPE theta;
-    ``window_override`` replaces the config's sliding window."""
-    if cfg.qk_norm or cfg.qkv_bias:
-        raise NotImplementedError(
-            "qk_norm / qkv_bias attention is not ported (no CLIP config "
-            "uses it)")
+    """Causal self-attention with the config's qk-norm, QKV bias and RoPE
+    theta; ``window_override`` replaces the config's sliding window."""
     return A.AttnSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
                       n_kv_heads=cfg.n_kv_heads,
                       head_dim=cfg.resolved_head_dim,
+                      qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
                       rope_theta=cfg.rope_theta, causal=True,
                       sliding_window=(cfg.sliding_window
                                       if window_override is None
@@ -38,8 +36,8 @@ _MLPS = {"gelu": L.GeluMLP, "swiglu": L.SwiGLU}
 
 class Block(nn.Module):
     """Pre-norm block with rmsnorm and an MLP: ``mlp="gelu"`` (the CLIP
-    text tower) or ``"swiglu"`` (the JAX ``init_block`` default, the
-    hybrid LM's shared block)."""
+    text tower) or ``"swiglu"`` (the JAX ``init_block`` default: the
+    hybrid LM's shared block, the dense LMs' layers)."""
 
     def __init__(self, cfg: ArchConfig, spec: A.AttnSpec, mlp="gelu"):
         super().__init__()
@@ -60,9 +58,9 @@ class Block(nn.Module):
         return x + self.mlp(self.n2(x)), cache
 
 
-def make_stack(cfg: ArchConfig, n_layers: int) -> nn.ModuleList:
+def make_stack(cfg: ArchConfig, n_layers: int, mlp="gelu") -> nn.ModuleList:
     spec = attn_spec(cfg)
-    return nn.ModuleList(Block(cfg, spec) for _ in range(n_layers))
+    return nn.ModuleList(Block(cfg, spec, mlp) for _ in range(n_layers))
 
 
 def apply_stack(blocks: nn.ModuleList, x, *, impl="flash",

@@ -168,7 +168,7 @@ def _misaligned_ptr(t):
     ("misaligned_s_stride", ValueError, "16-byte aligned"),
     ("misaligned_bf16_h_stride", ValueError, "16-byte aligned"),
     ("head_dim_48", ValueError, "head dim"),
-    ("head_dim_128", ValueError, "head dim"),
+    ("head_dim_96", ValueError, "head dim"),
     ("shape", ValueError, "shape mismatch"),
     ("window", ValueError, "window"),
 ])
@@ -203,9 +203,9 @@ def test_flash_check_inputs_refuses_on_cpu(what, exc, match):
 
 def test_flash_check_inputs_takes_the_main_paths_layouts():
     """Fresh (B, H, S, hd) tensors, the (B, S, H, hd) views ``flash_mha``
-    hands the launcher, both head dims and dtypes, and a size-1 dimension
-    whose stride is odd (never used) all pass."""
-    for hd in (32, 64):
+    hands the launcher, every head dim and both dtypes, and a size-1
+    dimension whose stride is odd (never used) all pass."""
+    for hd in (32, 64, 128):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, out = _cpu_views(hd, dtype)
             TFA.check_inputs(q, k, v, out)

@@ -55,6 +55,15 @@ def _qkv(gen, B, H, Sq, Sk, hd, dtype):
                                         # patches and the class token)
     (256, 12, 2, 2, 64, False, 0),      # curriculum: a 32 px image (1 patch)
     (256, 8, 32, 32, 64, True, 0),      # curriculum: a 32-token context
+    # head dim 128: the dense LMs (qwen3-1.7b 16 heads over 8 KV heads,
+    # repeated before the call; qwen1.5-32b 40 heads)
+    (2, 16, 1024, 1024, 128, True, 0),  # qwen3's heads, a shorter prefill
+    (1, 40, 256, 256, 128, True, 0),    # qwen1.5-32b's heads
+    (2, 4, 77, 77, 128, True, 0),       # ragged S
+    (2, 4, 300, 300, 128, True, 100),   # window across tiles
+    (2, 4, 64, 300, 128, False, 0),     # Sq != Sk
+    (2, 4, 200, 70, 128, True, 0),      # causal, Sq > Sk
+    (3, 2, 10, 10, 128, False, 0),      # S below one tile
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, Sq, Sk, hd, causal, window,
                                     dtype):
@@ -495,6 +504,39 @@ def test_reduced_hybrid_prefill_launches_and_matches_plain(cuda):
             lg, state = BB.decode_step(model, cfg, state, tokens[:, t:t + 1],
                                        t)
     assert K4.ssd_chunk.launches == k4
+    assert (lg - got[:, 0]).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [("qwen3-1.7b", 128),
+                                           ("qwen1.5-32b", 128)])
+def test_reduced_dense_prefill_launches_and_matches_plain(cuda, arch,
+                                                          head_dim):
+    """A reduced dense prefill at head dim 128 (qwen3: qk-norm, GQA;
+    qwen1.5: QKV bias): one K3 launch per layer, logits within 1e-4 of
+    the plain path (chunked attention) and of the sequential decode
+    within 5e-3 (no launch)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(arch).reduced().replace(head_dim=head_dim, n_layers=3)
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 90), generator=cuda,
+                           device="cuda")
+    k3 = FA.flash_attention.launches
+    got = steps.make_prefill_step(cfg, impl="flash")(model,
+                                                     {"tokens": tokens})
+    assert FA.flash_attention.launches - k3 == cfg.n_layers
+    want = steps.make_prefill_step(cfg, impl="chunked")(model,
+                                                        {"tokens": tokens})
+    assert (got - want).abs().max().item() <= 1e-4
+    state = BB.prepare_decode_state(model, cfg, {}, 2, 90)
+    k3 = FA.flash_attention.launches
+    with torch.inference_mode():
+        for t in range(90):
+            lg, state = BB.decode_step(model, cfg, state, tokens[:, t:t + 1],
+                                       t)
+    assert FA.flash_attention.launches == k3
     assert (lg - got[:, 0]).abs().max().item() <= 5e-3
 
 

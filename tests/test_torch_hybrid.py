@@ -158,8 +158,8 @@ def test_decode_step_matches_jax_and_forward(setup):
 
 
 def test_serve_cli_generates_on_cpu(capsys):
-    toks = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
-                       "--prompt-len", "5", "--gen", "4"])
+    toks = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "5", "--gen", "4"])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("arch=zamba2-1.2b batch=2 generated 4 tokens")
     assert out[1].startswith("sample token ids:")
@@ -168,7 +168,7 @@ def test_serve_cli_generates_on_cpu(capsys):
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
 
 
-@pytest.mark.parametrize("arch", ["clip-vitb32-cc12m", "qwen3-1.7b"])
+@pytest.mark.parametrize("arch", ["clip-vitb32-cc12m", "qwen3-moe-30b-a3b"])
 def test_serve_cli_refuses_other_families(arch, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
