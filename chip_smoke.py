@@ -22,7 +22,9 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    tower (256 x 12 x 197 x 197) shapes (f32 and bf16), the dense
    prefills' at head dim 128 (qwen3-1.7b 2 x 16 x 4096 x 4096, f32 and
    bf16; qwen1.5-32b 1 x 40 x 4096 x 4096, f32), at the curricula's
-   training shapes (S = 2 and a causal S = 32, f32) and at edge cases
+   training shapes (S = 2 and a causal S = 32, f32), at qwen3-1.7b's
+   contrastive training shape (64 x 16 x 256 x 256, f32) and a rank's on
+   ``data:1,fsdp:2`` (32 x 16 x 256 x 256, f32), and at edge cases
    (hd 128 too: a ragged S = 77, a window of 100, Sq != Sk), and times
    kernel, plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never used by the
@@ -37,8 +39,11 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    a column split with no unmasked column, d = 3072, per-row taus down
    to 0.01, a clamped row); two calls bitwise equal; times both (with
    and without the wrapper's torch ops, and per pass) at the training
-   and sharded shapes, f32 and bf16, and at ``clip-rn50-cc3m``'s 256 x
-   256 x 1024 (f32);
+   and sharded shapes, f32 and bf16, at ``clip-rn50-cc3m``'s 256 x 256 x
+   1024 and its ranks' on ``data:1,fsdp:2`` (128 rows, offsets 0 and
+   128), at the LM backbones' contrastive shape (64 x 64 x 512) and at
+   qwen3-1.7b's ranks' on ``data:1,fsdp:2`` (32 rows against 64 columns,
+   offsets 0 and 32), all f32;
 6. slice   -- builds full-width ``clip-vitb32-cc12m`` params from a seeded
    generator, saves them in the checkpoint format (phase eval reuses
    it; on a thread, beside phases 3-9), and runs
@@ -82,18 +87,20 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    with the idle share, peak memory; ``qwen1.5-32b`` at full width with
    2 of its 64 layers (QKV bias, 40-head MHA) at 1 x 4096: exactly 2 K3
    launches, within the same bound of the plain path;
-11. hybrid_train -- full-width ``zamba2-1.2b`` trained (f32, seed 0)
-   under both objectives: ``repro_torch.launch.train --objective lm`` at
-   2 x 4096 and the contrastive (v3) run at 64 x 256, each launcher in a
-   child process for 3 steps (exit 0, step lines, ms per step, peak
-   memory, launches exact: 76 K4 calls, 304 CUDA launches and 12 K3
-   per step under the recompute, plus one K1 and one K2 call for the
+11. hybrid_train -- ``zamba2-1.2b`` at full width with 20 of its 38
+   layers (a depth cut, PERF.md § 4) trained (f32, seed 0) under both
+   objectives: ``repro_torch.launch.train --objective lm`` at 2 x 4096
+   and the contrastive (v3) run at 64 x 256, each launcher in a child
+   process for 3 steps (exit 0, step lines, ms per step, peak memory,
+   launches exact: 40 K4 calls, 160 CUDA launches and 6 K3 per step
+   under the recompute, plus one K1 and one K2 call for the
    contrastive loss; step-0 loss equal to this process's; every step's
    loss, and the contrastive run's other metrics at steps 0 and 1,
    within rtol 1e-4 of the plain path); here, from the same
    init and batches: step-0 gradients of every leaf held to a reference
-   whose SSD scans run in f64, within twice the plain path's
-   (``impl="chunked"``) worst leaf, two identical steps equal
+   whose SSD scans run in f64 (``TOL_HYBRID_GRAD``; the plain path's,
+   ``impl="chunked"``, and a bf16 control's measured against it too),
+   two identical steps equal
    (per-leaf fingerprints), 3 plain-path steps, one bf16 step (loss
    within 1e-2 of f32), ms per step, peak memory, a profile by kind of
    kernel with the idle share, the backward of K4's and K3's autograd
@@ -148,11 +155,12 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ranks): 3 steps with ``--eval-every 2`` and a sharded checkpoint,
    every rank's lines equal, exact launches per rank, each rank's peak
    memory, the checkpoint verified and restored merged on the card; the
-   step-level checks on 4 ranks: step-1 gradients after the reduction
-   and merge against the single-device step's on the same global batch,
-   3 steps' loss and tau, microbatch 2 against 1 (step-1 gradients and
-   the trajectory at the same bounds; 48 K3 launches per rank per
-   step), the sharded top-k bitwise and the planted known answers exact
+   step-level checks on 4 ranks (full width, 6 of each tower's 12
+   layers: a depth cut): step-1 gradients after the reduction and merge
+   against the single-device step's on the same global batch, 3 steps'
+   loss and tau, microbatch 2 against 1 (step-1 gradients and the
+   trajectory at the same bounds; 24 K3 launches per rank per step),
+   the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
 16. resilience -- the trainer's recovery paths at full width (v3, f32,
    batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
@@ -172,13 +180,40 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-17. report -- the kernels JSON line, the card line, and the last line
+17. dense_train -- full-width ``qwen3-1.7b`` trained (f32, seed 0, JAX's
+   grouped recompute: 7 groups of 4 layers, each recomputed once):
+   ``repro_torch.launch.train --objective lm`` at 2 x 4096 in a child
+   process for 3 steps (exit 0, step lines, ms per step, peak memory,
+   launches exact: 28 K3 forwards and 28 in the recompute per step, no
+   K1, K2 or K4; step-0 loss equal to this process's; every step's loss
+   within rtol 1e-4 of the plain path); here, from the same init and
+   batches: a profiled step by kind of kernel, then the same step timed
+   (launches exact, peak memory) and the idle share of it; the kernel
+   path's step-0 gradients and 3 plain-path (``impl="chunked"``) steps,
+   step 0's gradients of every leaf within 1e-4 relative L2 of the
+   kernel path's; the backward of ``_FlashMHA`` per call at the layer
+   shape; the contrastive objective (v3) at 64 x 256: 2 timed steps (per
+   step one K1 and one K2 call, 2 CUDA launches each, and K3 as above),
+   step-0 gradients of both paths at the same bound; and the contrastive
+   objective on ``data:1,fsdp:2`` (2 gloo ranks on the card, full
+   width, 4 of the 28 layers, 2 steps, both ranks starting each step
+   together): exit codes, launches per rank exact, ms per step and peak
+   memory per rank, each step against one device from the same state
+   (loss 1e-5, log-u 1e-4, moments and update per group of leaves, as
+   phase clip_family's mesh); last, so that its failure hides no
+   earlier phase's result;
+18. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
 of JAX or of the JAX package.  ``--only kernel,resilience`` (a partial
 run for development) runs phases device and build, then the named
-phases, and prints no report.
+phases, and prints no report.  One phase runs only so: ``remat_forms``,
+a diagnostic that times full-width ``qwen3-1.7b``'s LM step at 2 x 4096
+under the port's one-level grouped recompute against JAX's nested form
+(a recompute of each layer inside its group's, written here: the port
+does not carry it), each twice, their launches exact and their states
+equal to the bit.
 """
 from __future__ import annotations
 
@@ -438,6 +473,10 @@ KERNEL_CASES = [
     ("hybrid", 2, 32, 4096, 4096, 64, True, 0, "bfloat16", True),
     # zamba2-1.2b's contrastive training (phase hybrid_train): 64 x 256
     ("hybrid_ctr", 64, 32, 256, 256, 64, True, 0, "float32", True),
+    # qwen3-1.7b's contrastive training (phase dense_train): 64 x 256, and
+    # a rank's 32 rows of it on data:1,fsdp:2
+    ("qwen3_ctr", 64, 16, 256, 256, 128, True, 0, "float32", True),
+    ("qwen3_mesh", 32, 16, 256, 256, 128, True, 0, "float32", True),
     # the dense prefills of phase dense at head dim 128: qwen3-1.7b (16
     # heads, its 8 KV heads repeated) at 2 x 4096, qwen1.5-32b (40 heads)
     # at 1 x 4096
@@ -1113,9 +1152,13 @@ GCL_CASES = [
     ("rn50", 256, 256, 1024, 0, "float32", 0.07, False, True),
     ("rn50_rank0", 128, 256, 1024, 0, "float32", 0.07, False, True),
     ("rn50_rank1", 128, 256, 1024, 128, "float32", 0.07, False, True),
-    # zamba2-1.2b's contrastive training (phase hybrid_train): batch 64,
-    # CONTRASTIVE_DIM 512
+    # the LM backbones' contrastive training (phases hybrid_train and
+    # dense_train): batch 64, CONTRASTIVE_DIM 512; and qwen3-1.7b's ranks
+    # on data:1,fsdp:2 (phase dense_train): 32 rows against the 64
+    # gathered columns at each row offset
     ("hybrid_ctr", 64, 64, 512, 0, "float32", 0.07, False, True),
+    ("qwen3_mesh_rank0", 32, 64, 512, 0, "float32", 0.07, False, True),
+    ("qwen3_mesh_rank1", 32, 64, 512, 32, "float32", 0.07, False, True),
     ("ragged", 200, 200, 128, 0, "float32", 0.05, False, False),
     ("rect", 64, 256, 512, 128, "float32", 0.07, False, False),
     ("d37", 33, 33, 37, 0, "float32", 0.07, False, False),
@@ -1553,6 +1596,24 @@ def phase_ssd_grad(checks):
     checks.end_phase("ssd_grad")
 
 
+def _device_rows(prof):
+    """[(kernel name, device ms, launches)] straight from the profiler's
+    device events (``key_averages`` builds an object per event, host
+    and device, which takes seconds per 10,000 events); None where this
+    torch does not expose them."""
+    try:
+        events = prof.profiler.kineto_results.events()
+        agg = {}
+        for e in events:
+            if not str(e.device_type()).endswith("CUDA"):
+                continue
+            t, n = agg.get(e.name(), (0.0, 0))
+            agg[e.name()] = (t + e.duration_ns() / 1e6, n + 1)
+    except (AttributeError, RuntimeError, TypeError):
+        return None
+    return [(k, t, n) for k, (t, n) in agg.items()] or None
+
+
 def _profile(fn, match=None, categories=(), host_ops=True):
     """torch.profiler over one call: device time by kernel, launches and
     the device's idle share of the call's wall time; with ``match``, also
@@ -1571,12 +1632,16 @@ def _profile(fn, match=None, categories=(), host_ops=True):
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    # device-side events only (the kernels), so no time counts twice
-    kernels = [e for e in events
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in (kernels or events)]
+    rows = None if host_ops else _device_rows(prof)
+    kernels = True
+    if rows is None:
+        events = [e for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+        # device-side events only (the kernels), so no time counts twice
+        kernels = [e for e in events
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in (kernels or events)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     out = dict(wall_ms=wall_ms, device_busy_ms=busy,
@@ -1964,6 +2029,11 @@ def phase_dense(checks):
 # --loss-impl fused are the defaults): the LM objective at the prefill
 # phase's 2 x 4096, the contrastive one at the JAX launcher's default
 # batch, 64, with one full 256-token chunk per row
+# phase hybrid_train's depth: 20 of zamba2-1.2b's 38 layers (3 of its 6
+# super-blocks, so 3 calls of the shared block, and the 2-layer tail) at
+# full width, a cut that keeps the whole run inside its time (PERF.md
+# § 4)
+HYBRID_TRAIN_LAYERS = 20
 HYBRID_LM_ARGS = ["--arch", HYBRID_ARCH, "--objective", "lm",
                   "--global-batch", "2", "--seq-len", "4096", "--steps",
                   "3", "--log-every", "1", "--device", "cuda", "--seed",
@@ -1979,17 +2049,18 @@ TOL_HYBRID_BF16 = 1e-2
 # zamba2's step-0 gradients are held to a reference whose SSD scans run
 # in f64 (the plain scan; every other op as the plain path in f32): each
 # leaf of the kernel path within this relative L2 of it, per objective.
-# TOL_TRAIN_GRAD against the plain path is below f32's floor at this
+# TOL_TRAIN_GRAD against the plain path is below f32's floor at full
 # depth: two plain f32 paths, the SSD at chunk 256 and at 128, differ by
 # 1.07e-4 relative L2 per leaf (median; 259 of 356 leaves over 1e-4).
-# Readings (H100, full width, seed 0; PERF.md), kernel path / plain f32
-# path, worst leaf: LM 2.69e-4 / 1.61e-4; contrastive 1.23e-2 / 0.214
-# (its random-init loss cancels, so rounding in the towers is amplified;
-# the plain SSD's rounding most).  The readings repeat bit for bit from
-# run to run; the LM limit is 1.12x its reading (the run-time bound it
-# replaces, 2x the plain path's worst, was 3.23e-4), the contrastive one
-# 1.63x (that bound was 0.427)
-TOL_HYBRID_GRAD = {"lm": 3e-4, "contrastive": 2e-2}
+# Readings at HYBRID_TRAIN_LAYERS (H100, full width, seed 0; PERF.md),
+# worst leaf, kernel path / plain f32 path / the kernel path in bf16 (a
+# control): LM 8.01e-5 / 7.95e-5 / ~1; contrastive 4.87e-3 / 9.55e-2 /
+# ~3 (its random-init loss cancels, so rounding in the towers is
+# amplified; the plain SSD's rounding most).  The f32 readings repeat
+# bit for bit from run to run.  Each limit is about twice the kernel
+# path's reading: the LM's twice the plain path's too, the contrastive
+# one under the plain path's, and both far under the control's
+TOL_HYBRID_GRAD = {"lm": 1.6e-4, "contrastive": 1e-2}
 # a training step's kernels by what they compute
 HYBRID_CATEGORIES = (
     ("k4_ssd_chunk", ("ssd_",)),
@@ -2191,6 +2262,7 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
     from repro_torch.core import train_step as TS
     from repro_torch.launch import steps as ST
     from repro_torch.models import backbones as BB
+    from repro_torch.models.precision import get_precision
     contrastive = kind == "contrastive"
     dev = next(model.parameters()).device
     if contrastive:
@@ -2204,8 +2276,10 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
         def run(step, state, b):
             return step(state, b[1], b[0])
 
-        def grads(impl, state, b):
+        def grads(impl, state, b, precision=None):
             tc = tcs[impl]
+            if precision is not None:
+                tc = dataclasses.replace(tc, precision=precision)
             core = TS.make_loss_core(tc.fc, tc.loss_impl)
             return TS.step_grads(tc, core, state, b[1], b[0],
                                  tc.fc.gamma_fn()(state["step"]))[2]
@@ -2220,9 +2294,10 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
         def run(step, state, b):
             return step(state, b[1])
 
-        def grads(impl, state, b):
+        def grads(impl, state, b, precision=None):
             with torch.enable_grad():
-                loss, _ = BB.lm_loss(state["params"], cfg, b[1], impl=impl)
+                loss, _ = BB.lm_loss(state["params"], cfg, b[1], impl=impl,
+                                     precision=get_precision(precision))
                 return TS.param_grads(loss, state["params"])
         bf16 = ST.make_lm_train_step(cfg, lr=HYBRID_LR, wd=0.1,
                                      total_steps=3, precision="bf16",
@@ -2238,7 +2313,9 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
         seconds[part] = time.monotonic() - t0
         t0 = time.monotonic()
     # step-0 gradients of the kernel path and the plain path against the
-    # f64-SSD reference, and the launches of one forward + backward
+    # f64-SSD reference, and the launches of one forward + backward; the
+    # kernel path in bf16 against it too, a control that the bound tells
+    # a lower precision apart
     state = _fresh_state(model, host, fc_cfg)
     g_k, ms_g, n_g = _timed(lambda: grads("flash", state, batches[0]))
     g_p = grads("chunked", state, batches[0])
@@ -2247,7 +2324,9 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
     with _SSDInF64():
         g_r = grads("chunked", state, batches[0])
     err_k, err_p = _grads_rel(g_k, g_r), _grads_rel(g_p, g_r)
-    del g_k, g_p, g_r
+    del g_k, g_p
+    err_b = _grads_rel(grads("flash", state, batches[0], "bf16"), g_r)
+    del g_r
     torch.cuda.empty_cache()
     lap("grads_f64_ssd")
     bound = TOL_HYBRID_GRAD[kind]
@@ -2308,9 +2387,9 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
     del state
     torch.cuda.empty_cache()
     lap("bf16_step")
-    # the device's idle share of the timed (unprofiled) step
-    prof["idle_share_of_timed_step"] = max(
-        0.0, 1.0 - prof["device_busy_ms"] / ms_k[0])
+    # the device's idle share of the timed (unprofiled) step: the same
+    # work as the profiled one, so a negative share would show a mismatch
+    prof["idle_share_of_timed_step"] = 1.0 - prof["device_busy_ms"] / ms_k[0]
     B, T = batches[0][1]["tokens"].shape
     backward = _backward_ms(B, T)
     lap("backward_timings")
@@ -2324,6 +2403,7 @@ def _hybrid_objective(checks, name, cfg, model, host, batches, kind):
     emit(f"{name}_device", batch_on_device=True, grad_leaves=len(rel),
          grads_kernel_vs_f64_ssd=_leaf_summary(err_k),
          grads_plain_vs_f64_ssd=_leaf_summary(err_p),
+         grads_bf16_control_vs_f64_ssd=_leaf_summary(err_b),
          grads_kernel_vs_plain=_leaf_summary(rel), grad_bound=bound,
          ms_grads_kernel_path=ms_g,
          launches_one_step=n1, launches_want=want1,
@@ -2371,22 +2451,24 @@ def _hybrid_batches(cfg, kind):
 
 
 def _hybrid_launcher_checks(checks, name, cfg, finished, lines, inproc,
-                            contrastive):
+                            contrastive, want=None, phase="hybrid_train"):
     """The launcher's child process (3 kernel-path steps): exit 0, its
-    step lines, launches exact, f32 masters, its step-0 loss equal to the
-    in-process run's, its trajectory against the in-process plain path
-    within rtol TOL_TRAIN_TRAJ (and the log-u rows), the retrieval line
-    of the contrastive run."""
+    step lines, launches exact (``want``, by default the hybrid's), f32
+    masters, its step-0 loss equal to the in-process run's, its
+    trajectory against the in-process plain path within rtol
+    TOL_TRAIN_TRAJ (and the log-u rows), the retrieval line of the
+    contrastive run."""
     rc, rep, u, err = finished
     lines = [ln for ln in lines if ln]
     if rc or rep is None:
         print(err, file=sys.stderr, flush=True)
     if not checks.check(rc == 0 and rep is not None,
                         f"{name}: launcher process exit code {rc}"):
-        checks.end_phase("hybrid_train")
+        checks.end_phase(phase)
     rec = rep["record"]
     step_lines = [ln for ln in lines if ln.startswith("step ")]
-    want = _hybrid_step_launches(cfg, 3, contrastive)
+    if want is None:
+        want = _hybrid_step_launches(cfg, 3, contrastive)
     got = dict(rep["launches"], **rep["k4"])
     checks.check(got == want, f"{name}: launches {got}, want {want}")
     checks.check(len(rec) == 3 and len(step_lines) == 3
@@ -2429,21 +2511,21 @@ def _hybrid_launcher_checks(checks, name, cfg, finished, lines, inproc,
 
 
 def phase_hybrid_train(checks):
-    """Full-width zamba2-1.2b trained under the LM and the contrastive
-    objective, f32, seed 0: each launcher in a child process (3 steps
-    through the kernels), and the same init and batches here
-    (``_hybrid_objective``).  Returns the kernels' launches per launcher
-    run."""
+    """zamba2-1.2b at full width and ``HYBRID_TRAIN_LAYERS`` layers trained
+    under the LM and the contrastive objective, f32, seed 0: each
+    launcher in a child process (3 steps through the kernels), and the
+    same init and batches here (``_hybrid_objective``).  Returns the
+    kernels' launches per launcher run."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import backbones as BB
-    cfg = get_arch(HYBRID_ARCH)
+    cfg = get_arch(HYBRID_ARCH).replace(n_layers=HYBRID_TRAIN_LAYERS)
     out = {}
     for kind, argv in (("lm", HYBRID_LM_ARGS), ("contrastive",
                                                  HYBRID_CTR_ARGS)):
         name = f"hybrid_train_{kind}"
         t0 = time.monotonic()
-        child = _LauncherProcess(argv)
+        child = _LauncherProcess(argv, layers=HYBRID_TRAIN_LAYERS)
         try:
             if kind == "lm":
                 # the launcher's init, drawn on the host as the launcher
@@ -2467,6 +2549,634 @@ def phase_hybrid_train(checks):
     torch.cuda.empty_cache()
     checks.end_phase("hybrid_train")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase dense_train: qwen3-1.7b trained under both objectives, and the
+# contrastive objective of an LM backbone on the (data, fsdp) mesh
+# ---------------------------------------------------------------------------
+
+DENSE_LM_ARGS = ["--arch", DENSE_ARCH, "--objective", "lm",
+                 "--global-batch", "2", "--seq-len", "4096", "--steps", "3",
+                 "--log-every", "1", "--device", "cuda", "--seed", "0",
+                 "--precision", "f32"]
+# qwen3-1.7b on data:1,fsdp:2 (2 gloo ranks sharing the card) at full
+# width with 4 of its 28 layers (JAX's rule recomputes each of 4 layers
+# on its own: default_remat_group(4) is 1)
+DENSE_MESH_LAYERS = 4
+# step-0 gradients of the kernel path against the plain path: every leaf
+# within this relative L2, per objective (phase train's bound)
+TOL_DENSE_GRAD = {"lm": TOL_TRAIN_GRAD, "contrastive": TOL_TRAIN_GRAD}
+# a dense training step's kernels by what they compute
+DENSE_TRAIN_CATEGORIES = (
+    ("k3_flash_attention", ("flash",)),
+    ("k1_k2_fcco", ("stats_partial", "stats_merge", "grads_weights",
+                    "grads_product")),
+    ("gemm", ("gemm", "gemv")),
+)
+
+
+def _dense_step_launches(cfg, steps, contrastive, nested=False):
+    """Launches of ``steps`` dense training steps under JAX's grouped
+    recompute: K3 in each layer's forward and again in its group's
+    recompute; in JAX's nested form (``nested``, phase remat_forms only)
+    once more in the layer's own recompute, but for each group's last
+    layer, whose output no saved tensor needs (``torch.utils.checkpoint``
+    stops a recompute early); the contrastive loss adds one K1 and one K2
+    call (2 CUDA launches each); no K4."""
+    from repro_torch.models import layers as L
+    n, g = cfg.n_layers, L.default_remat_group(cfg.n_layers)
+    grouped = not (g <= 1 or n % g or n <= g)
+    per = 2 * n + (n - n // g if grouped and nested else 0)
+    k12 = steps if contrastive else 0
+    return dict(flash_attention=steps * per, gcl_pair_stats=k12,
+                gcl_pair_grads=k12, gcl_pair_stats_cuda=2 * k12,
+                gcl_pair_grads_cuda=2 * k12, ssd_chunk=0, ssd_chunk_cuda=0)
+
+
+class _HostGrads:
+    """Pinned host buffers for one set of gradients, {name: tensor},
+    filled by ``take`` (a copy of every leaf, then one sync)."""
+
+    def __init__(self, model):
+        import torch
+        self.buf = {n: torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                    for n, p in model.named_parameters()}
+
+    def take(self, grads):
+        import torch
+        for n, g in grads.items():
+            self.buf[n].copy_(g.detach(), non_blocking=True)
+        torch.cuda.synchronize()
+
+
+def _host_rel(a, b, dev):
+    """Per-leaf relative L2 of host gradients ``a`` against ``b``, on the
+    card one leaf at a time (0 where both are 0)."""
+    out = {}
+    for k, hb in b.items():
+        x, y = a[k].to(dev, non_blocking=True), hb.to(dev, non_blocking=True)
+        out[k] = ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+    return out
+
+
+class _CaptureGrads:
+    """Within the block, the first gradients a step computes
+    (``core.train_step.param_grads``, which the LM step calls) go to
+    ``sink`` before the optimizer runs."""
+
+    def __init__(self, sink):
+        self.sink = sink
+
+    def __enter__(self):
+        from repro_torch.core import train_step as TS
+        self.ts, self.orig = TS, TS.param_grads
+        done = []
+
+        def capture(loss, model):
+            grads = self.orig(loss, model)
+            if not done:
+                done.append(True)
+                self.sink(grads)
+            return grads
+        TS.param_grads = capture
+
+    def __exit__(self, *exc):
+        self.ts.param_grads = self.orig
+
+
+def _attn_backward_ms(B, T, H, hd):
+    """CUDA events at a dense layer's attention shape (``B`` rows of
+    ``T`` tokens, ``H`` heads after the GQA repeat): the backward of
+    ``_FlashMHA`` (the chunked recompute) per call, as forward + backward
+    minus forward."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qkv = [torch.randn((B, T, H, hd), generator=gen,
+                       device="cuda").requires_grad_(True) for _ in range(3)]
+    go = torch.randn((B, T, H, hd), generator=gen, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            FA.flash_mha(*qkv, causal=True)
+
+    def both():
+        torch.autograd.grad(FA.flash_mha(*qkv, causal=True), qkv, go)
+    f, b = device_ms(fwd, iters=5), device_ms(both, iters=5)
+    del qkv, go
+    torch.cuda.empty_cache()
+    return dict(shape=[B, T, H, hd], forward_ms=f, forward_backward_ms=b,
+                backward_ms=b - f)
+
+
+def _dense_f64_evidence(grads_fn, g_k, g_p, dev):
+    """Where the kernel path misses the plain path: both against a
+    reference whose attention runs in f64 (``_AttentionInF64``), per
+    leaf, so that a bound can rest on that evidence."""
+    with _AttentionInF64():
+        g_r = grads_fn()
+    ref = {n: g.detach().cpu() for n, g in g_r.items()}
+    del g_r
+    return dict(kernel_vs_f64_attention=_leaf_summary(
+        _host_rel(g_k, ref, dev)), plain_vs_f64_attention=_leaf_summary(
+        _host_rel(g_p, ref, dev)))
+
+
+def _lm_grads(cfg, model, host, batch, impl):
+    """Step-0 gradients of the LM objective from the init (``host``):
+    the forward and backward of ``make_lm_train_step``, no update."""
+    import torch
+    from repro_torch.core import train_step as TS
+    from repro_torch.models import backbones as BB
+    st = _fresh_state(model, host)
+    with torch.enable_grad():
+        loss, _ = BB.lm_loss(st["params"], cfg, batch, impl=impl)
+        return TS.param_grads(loss, st["params"])
+
+
+def _dense_lm(checks, cfg, model, host, batches, hg):
+    """The LM objective here, from the launcher's init (``host``) on its
+    first 3 batches: a profiled kernel-path step, then a timed one (its
+    launches exact, its peak memory), neither copying anything to the
+    host; the kernel path's step-0 gradients from a forward and backward
+    of their own; 3 plain-path steps whose step-0 gradients are held to
+    those per leaf (``TOL_DENSE_GRAD``); K3's backward timed at the layer
+    shape.  Returns the step-0 metrics and the plain path's record."""
+    import torch
+    from repro_torch.launch import steps as ST
+    dev = next(model.parameters()).device
+    make = {impl: ST.make_lm_train_step(
+        cfg, lr=HYBRID_LR, wd=0.1, total_steps=3, impl=impl,
+        device=dev)[0] for impl in ("flash", "chunked")}
+    out, seconds = {}, {}
+    t0 = time.monotonic()
+
+    def lap(part):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[part] = time.monotonic() - t0
+        t0 = time.monotonic()
+    # a profiled step first (it also takes the first call's costs: the
+    # allocator's growth, library handles), then the same step timed
+    state = _fresh_state(model, host)
+    held = {}
+
+    def one():
+        held["out"] = make["flash"](state, batches[0][1])
+    prof = _profile(one, categories=DENSE_TRAIN_CATEGORIES, host_ops=False)
+    del held, state
+    torch.cuda.empty_cache()
+    lap("profiled_step")
+    state = _fresh_state(model, host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), ms, n = _timed(lambda: make["flash"](state, batches[0][1]))
+    want = _dense_step_launches(cfg, 1, False)
+    timed = dict(ms_per_step=ms, launches=n, launches_want=want,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 loss=float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    checks.check(n == want, f"dense_train_lm: launches of one step {n}, "
+                 f"want {want}")
+    out["metrics0"] = {"loss": timed["loss"]}
+    lap("timed_step")
+    hg["kernel"].take(_lm_grads(cfg, model, host, batches[0][1], "flash"))
+    torch.cuda.empty_cache()
+    lap("kernel_grads")
+    # the plain path, 3 steps; step 0's gradients against the kernel's
+    state = _fresh_state(model, host)
+    rec_p, ms_p = [], []
+    for i, (_, b) in enumerate(batches):
+        with _CaptureGrads(hg["plain"].take if i == 0 else lambda g: None):
+            (state, m), ms, _ = _timed(lambda: make["chunked"](state, b))
+        rec_p.append({k: float(v) for k, v in m.items()})
+        ms_p.append(ms)
+    del state
+    torch.cuda.empty_cache()
+    lap("plain_steps")
+    rel = _host_rel(hg["kernel"].buf, hg["plain"].buf, dev)
+    bound = TOL_DENSE_GRAD["lm"]
+    worst = max(rel, key=rel.get)
+    evidence = None
+    if not all(math.isfinite(v) and v <= bound for v in rel.values()):
+        evidence = _dense_f64_evidence(
+            lambda: _lm_grads(cfg, model, host, batches[0][1], "chunked"),
+            hg["kernel"].buf, hg["plain"].buf, dev)
+        lap("f64_attention_reference")
+    checks.check(all(math.isfinite(v) and v <= bound for v in rel.values()),
+                 f"dense_train_lm: step-0 grads kernel vs plain, worst leaf "
+                 f"{worst} rel L2 {rel[worst]}, bound {bound}")
+    B, T = batches[0][1]["tokens"].shape
+    backward = _attn_backward_ms(B, T, cfg.n_heads, cfg.resolved_head_dim)
+    lap("k3_backward_timing")
+    # the device's idle share of the timed (unprofiled) step: the same
+    # work as the profiled one, so a negative share would show a mismatch
+    prof["idle_share_of_timed_step"] = 1.0 - prof["device_busy_ms"] / timed[
+        "ms_per_step"]
+    out["record_plain"] = rec_p
+    emit("dense_train_lm_device", batch_on_device=True, timed_step=timed,
+         grad_leaves=len(rel), grads_kernel_vs_plain=_leaf_summary(rel),
+         grad_bound=bound, f64_attention_evidence=evidence,
+         # step 0's includes the copy of its gradients to the host
+         ms_per_step_plain_path=ms_p,
+         losses_plain=[r["loss"] for r in rec_p], profile=prof,
+         k3_backward_per_call=backward, seconds=seconds)
+    return out
+
+
+def _dense_contrastive(checks, cfg, model, host, batches, hg):
+    """The contrastive objective (v3) here, from the same init on the
+    launcher's first batches at 64 x 256: two kernel-path steps timed,
+    launches exact, then step-0 gradients of both paths held to each
+    other per leaf (``TOL_DENSE_GRAD``)."""
+    import torch
+    from repro_torch.core import train_step as TS
+    tcs = {impl: _hybrid_ctr_config(cfg, impl, loss_impl)
+           for impl, loss_impl in (("flash", "fused"), ("chunked", "dense"))}
+    fc_cfg = tcs["flash"].fc
+    dev = next(model.parameters()).device
+    step = TS.make_train_step(tcs["flash"], dev)
+    seconds = {}
+    t0 = time.monotonic()
+    state = _fresh_state(model, host, fc_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, launches, metrics = [], [], []
+    for idx, b in batches[:2]:
+        (state, m), t, n = _timed(lambda: step(state, b, idx))
+        ms.append(t)
+        launches.append(n)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    want = _dense_step_launches(cfg, 1, True)
+    checks.check(launches == [want] * 2 and all(
+        math.isfinite(m["loss"]) for m in metrics),
+        f"dense_train_contrastive: launches per step {launches}, want "
+        f"{want}; metrics {metrics}")
+    seconds["two_kernel_steps"] = time.monotonic() - t0
+    t0 = time.monotonic()
+
+    def grads(impl):
+        tc = tcs[impl]
+        st = _fresh_state(model, host, fc_cfg)
+        idx, b = batches[0]
+        core = TS.make_loss_core(tc.fc, tc.loss_impl)
+        return TS.step_grads(tc, core, st, b, idx,
+                             tc.fc.gamma_fn()(st["step"]))[2]
+    for impl, key in (("flash", "kernel"), ("chunked", "plain")):
+        hg[key].take(grads(impl))
+        torch.cuda.empty_cache()
+    rel = _host_rel(hg["kernel"].buf, hg["plain"].buf, dev)
+    seconds["grads_kernel_plain"] = time.monotonic() - t0
+    bound = TOL_DENSE_GRAD["contrastive"]
+    worst = max(rel, key=rel.get)
+    evidence = None
+    if not all(math.isfinite(v) and v <= bound for v in rel.values()):
+        evidence = _dense_f64_evidence(lambda: grads("chunked"),
+                                       hg["kernel"].buf, hg["plain"].buf,
+                                       dev)
+    checks.check(all(math.isfinite(v) and v <= bound for v in rel.values()),
+                 f"dense_train_contrastive: step-0 grads kernel vs plain, "
+                 f"worst leaf {worst} rel L2 {rel[worst]}, bound {bound}")
+    emit("dense_train_contrastive_device", batch_on_device=True,
+         shape=list(batches[0][1]["tokens"].shape), ms_per_step=ms,
+         launches_per_step=launches, launches_want=want, metrics=metrics,
+         max_memory_allocated=peak, grad_leaves=len(rel),
+         grads_kernel_vs_plain=_leaf_summary(rel), grad_bound=bound,
+         f64_attention_evidence=evidence, seconds=seconds)
+    return {k: 2 * v for k, v in want.items()}
+
+
+def _dense_mesh_batches(cfg, rank, steps, full):
+    """The first ``steps`` (idx, batch) at 64 x 256 of a 2-shard loader
+    of ``PairedEmbeddingDataset``: this rank's rows, or (``full``) the
+    whole global batch, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.data import PairedEmbeddingDataset, ShardedLoader
+    ds = PairedEmbeddingDataset(n=HYBRID_N_SAMPLES, seq_len=256,
+                                vocab_size=cfg.vocab_size)
+    loader = ShardedLoader(ds, global_batch=64, n_shards=2, seed=0,
+                           owned_shards=None if full else (rank,))
+    out = []
+    for _, _, idx, batch in loader.steps(steps):
+        idx = idx if full else loader._owned_rows(idx)
+        out.append((torch.from_numpy(np.asarray(idx)).cuda(),
+                    {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
+    return out
+
+
+def _await_signal(path, timeout=900.0):
+    """The word in ``path`` ("go" or "stop") once the file is there."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.exists(path):
+            with open(path) as f:
+                word = f.read().strip()
+            if word:
+                return word
+        time.sleep(0.2)
+    raise TimeoutError(f"no signal in {path} after {timeout} s")
+
+
+def _signal(path, word):
+    """Write ``word`` to ``path`` atomically (once: a later word is
+    ignored)."""
+    if not os.path.exists(path):
+        with open(path + ".tmp", "w") as f:
+            f.write(word)
+        os.replace(path + ".tmp", path)
+
+
+def _mesh_worker_dense(argv):
+    """One rank of qwen3-1.7b (``DENSE_MESH_LAYERS`` layers, full width)
+    on data:1,fsdp:2 (2 ranks sharing the card; spawned by phase
+    dense_train, never by hand): the init on the host, then, once
+    ``argv[0]`` says "go" (the phase's other runs have left the card), 2
+    contrastive ZeRO steps over the rank's rows, the launches and ms of
+    each; on rank 0 each step against one single-device step on the same
+    global batch from the same state, as ``_mesh_worker_family``."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import bridge, flatten, unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.core import shard_state as SS
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import multiprocess as MP
+    signal_path = argv[0]
+    rank = int(argv[argv.index("--process-id") + 1])
+    dev = MP.initialize(argv[argv.index("--coordinator") + 1],
+                        int(argv[argv.index("--num-processes") + 1]), rank,
+                        "cuda")
+    rep = {"mesh_rank": rank, "steps": []}
+    try:
+        mesh = MS.make_train_mesh(1, 2, device=dev)
+        rep["backend"] = mesh.backend
+        cfg = get_arch(DENSE_ARCH).replace(n_layers=DENSE_MESH_LAYERS)
+        tc1 = dataclasses.replace(_hybrid_ctr_config(cfg, "flash", "fused"),
+                                  lr_fn=lr_warmup_cosine(HYBRID_LR, 0, 2))
+        step = TS.make_train_step(dataclasses.replace(
+            tc1, fsdp=True, mesh_axes=MESH_AXES))
+        dims = step.param_dims
+        rep["leaves"] = {g: len(ps) for g, ps in _leaf_groups(dims).items()}
+        st1 = TS.init_train_state(torch.Generator().manual_seed(0), tc1,
+                                  "cpu")
+        rep["n_params"] = sum(p.numel() for p in st1["params"].parameters())
+        tree = unflatten({k: v.clone() for k, v in flatten(
+            bridge.state_to_tree(st1)).items()})
+        # the host's part is done; the card is the phase's to give
+        if _await_signal(signal_path) != "go":
+            rep["stopped"] = True
+            print(json.dumps(rep), flush=True)
+            return
+        s = SS.shard_train_state(tree, mesh, dims)
+        if rank == 0:
+            # rank 0 holds the whole states on the card and compares them
+            # there (on the host, ~1.5 B entries in f64 took ~20 s a step)
+            tree = unflatten({k: v.cuda() for k, v in flatten(tree).items()})
+        local = _dense_mesh_batches(cfg, rank, 2, full=False)
+        full = (_dense_mesh_batches(cfg, rank, 2, full=True)
+                if rank == 0 else None)
+        fn1 = TS.make_train_step(tc1, "cuda") if rank == 0 else None
+        torch.cuda.reset_peak_memory_stats()
+        for k, (idx, batch) in enumerate(local):
+            torch.cuda.synchronize()
+            # both ranks start the step together: rank 0's comparison
+            # with one device is not in either rank's step time
+            torch.distributed.barrier()
+            _zero_counters()
+            t0 = time.monotonic()
+            s, m = step(s, batch, idx)
+            torch.cuda.synchronize()
+            res = dict(launches=_counters(), loss=float(m["loss"]),
+                       lr=float(m["lr"]),
+                       ms=(time.monotonic() - t0) * 1e3)
+            if k == 0:
+                rep["max_memory_allocated_step"] = (
+                    torch.cuda.max_memory_allocated())
+            after = flatten(SS.gather_train_state(s, mesh, dims))
+            if rank == 0:
+                st1 = bridge.state_from_tree(
+                    {**st1, "params": st1["params"].cuda()}, tree)
+                st1, m1 = fn1(st1, full[k][1], full[k][0])
+                one = flatten(bridge.state_to_tree(st1))
+                res.update(_mesh_vs_one(after, one, tree, float(m1["loss"]),
+                                        res["loss"], dims))
+                del one
+            rep["steps"].append(res)
+            tree = unflatten(after)           # the next step's start
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    finally:
+        MS.set_mesh(None)
+        MP.shutdown()
+    print(json.dumps(rep), flush=True)
+
+
+def _dense_mesh(checks, spawned, t0):
+    """P6a': qwen3-1.7b's contrastive objective on data:1,fsdp:2 (2 gloo
+    ranks on the card) at full width and ``DENSE_MESH_LAYERS`` layers, 2
+    steps that both move the params, each against one device from the
+    same state at phase rn50_mesh's bounds (loss 1e-5 and log-u 1e-4 max
+    abs; moments and update by relative L2 per group of leaves); exact
+    launches per rank and step.  ``spawned``: the ranks' future (started
+    at ``t0``, told to go)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(DENSE_ARCH).replace(n_layers=DENSE_MESH_LAYERS)
+    t_go = time.monotonic()
+    res, reps = spawned.result()
+    wall = time.monotonic() - t0
+    rcs = [r.returncode for r in res]
+    for r in res:
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr, flush=True)
+    checks.check(rcs == [0, 0] and all(reps),
+                 f"dense_train_mesh: exit codes {rcs}")
+    checks.end_phase("dense_train")
+    want = _dense_step_launches(cfg, 1, True)
+    want = {k: v for k, v in want.items() if not k.startswith("ssd")}
+    per_step = [[st["launches"] for st in rp["steps"]] for rp in reps]
+    checks.check(per_step == [[want] * 2] * 2,
+                 f"dense_train_mesh: launches per step {per_step}, want "
+                 f"{want}")
+    for k, st in enumerate(reps[0]["steps"]):
+        ok = (st["same_keys"] and st["lr"] > 0
+              and st["params_moved"] == st["params"]
+              and st["dloss"] <= 1e-5 and st["dlogu"] <= 1e-4
+              and all(v <= TOL_MESH_MOMENT
+                      for v in st["moment_rel_l2"].values())
+              and all(v <= TOL_MESH_UPDATE[k]
+                      for v in st["update_rel_l2"].values()))
+        checks.check(ok, f"dense_train_mesh: step {k} vs one device {st}")
+    emit("dense_train_mesh", mesh="data:1,fsdp:2", arch=DENSE_ARCH,
+         n_layers=DENSE_MESH_LAYERS, n_params=reps[0].get("n_params"),
+         exit_codes=rcs, backend=reps[0].get("backend"),
+         launches_per_step=per_step[0], launches_want=want,
+         ms_per_step_per_rank=[[st["ms"] for st in rp["steps"]]
+                               for rp in reps],
+         steps=reps[0]["steps"],
+         bounds=dict(loss=1e-5, log_u=1e-4,
+                     moments_group_rel_l2=TOL_MESH_MOMENT,
+                     update_group_rel_l2_per_step=TOL_MESH_UPDATE),
+         leaves=reps[0].get("leaves"),
+         max_memory_allocated_per_rank=[rp.get("max_memory_allocated")
+                                        for rp in reps],
+         wall_seconds=wall, seconds_after_go=time.monotonic() - t_go)
+    return per_step[0][0]
+
+
+def _dense_train_launches(dense_train, kernel):
+    """One kernel's launches in phase dense_train's runs."""
+    return {run: dense_train[run][kernel]
+            for run in ("lm", "contrastive", "mesh_per_rank_per_step")}
+
+
+def phase_dense_train(checks):
+    """Full-width qwen3-1.7b trained (f32, seed 0): the LM launcher in a
+    child process (3 steps at 2 x 4096), the same init and batches here
+    under both objectives (``_dense_lm``, ``_dense_contrastive``), and
+    the contrastive objective on data:1,fsdp:2 (``_dense_mesh``), whose
+    ranks start with the phase and do their host work beside the others,
+    but touch the card only once these are done.  Returns the kernels'
+    launches per run."""
+    import concurrent.futures
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(DENSE_ARCH)
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()      # the card's memory to the child
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+    signal_path = os.path.join(tmp, "signal")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        spawned = pool.submit(_spawn_mesh, "dense", [signal_path], 1200,
+                              nproc=2)
+        child = _LauncherProcess(DENSE_LM_ARGS)
+        try:
+            # the launcher's init, drawn on the host as the launcher draws
+            # it, while the child trains (nothing of this process on the
+            # card)
+            host_model = BB.init_params(cfg, torch.Generator().manual_seed(0),
+                                        "cpu")
+            host = {n: p.detach().pin_memory()
+                    for n, p in host_model.named_parameters()}
+            del host_model
+        finally:
+            finished = child.finish(900)
+        t_child = time.monotonic() - t_phase
+        torch.cuda.empty_cache()
+        model = BB.meta_model(cfg).to_empty(device="cuda")
+        hg = {k: _HostGrads(model) for k in ("kernel", "plain")}
+        lm = _dense_lm(checks, cfg, model, host, _hybrid_batches(cfg, "lm"),
+                       hg)
+        out = {"lm": _hybrid_launcher_checks(
+            checks, "dense_train_lm", cfg, finished, child.lines, lm, False,
+            want=_dense_step_launches(cfg, 3, False), phase="dense_train")}
+        t_lm = time.monotonic() - t_phase
+        out["contrastive"] = _dense_contrastive(
+            checks, cfg, model, host, _hybrid_batches(cfg, "contrastive"),
+            hg)
+        del model, host, hg
+        torch.cuda.empty_cache()
+        t_ctr = time.monotonic() - t_phase - t_lm
+        checks.end_phase("dense_train")
+        _signal(signal_path, "go")
+        out["mesh_per_rank_per_step"] = _dense_mesh(checks, spawned, t_phase)
+    finally:
+        _signal(signal_path, "stop")      # no-op after "go"
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("dense_train_seconds", seconds=time.monotonic() - t_phase,
+         lm_child_seconds=t_child, lm_seconds=t_lm,
+         contrastive_seconds=t_ctr)
+    checks.end_phase("dense_train")
+    return out
+
+
+def _nested_grouped(remat, layers, f, x, *, group):
+    """JAX's nested form of ``layers.run_layers_grouped``
+    (``inner_remat``): each group recomputed as one and, inside it, each
+    layer recomputed on its own as well."""
+    from repro_torch.models import layers as L
+    n = len(layers)
+    if group <= 1 or n % group or n <= group:
+        return L.run_layers_grouped(remat, layers, f, x, group=group)
+
+    def body(grp):
+        def run(h):
+            for lyr in grp:
+                h = remat(lambda y, lyr=lyr: f(lyr, y), (lyr,), h)
+            return h
+        return run
+    for i in range(0, n, group):
+        grp = layers[i:i + group]
+        x = remat(body(grp), tuple(grp), x)
+    return x
+
+
+def phase_remat_forms(checks):
+    """A diagnostic (``--only remat_forms``): full-width qwen3-1.7b's LM
+    step at 2 x 4096 (f32, seed 0) under the port's one-level grouped
+    recompute and under JAX's nested form (``_nested_grouped``), in the
+    order one-level, nested, nested, one-level after a warm-up step:
+    ms per step, peak memory, launches exact, every state equal to the
+    bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import backbones as BB
+    from repro_torch.models import layers as L
+    cfg = get_arch(DENSE_ARCH)
+    torch.cuda.empty_cache()
+    model = BB.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    host = {n: p.detach().cpu().pin_memory()
+            for n, p in model.named_parameters()}
+    batch = _hybrid_batches(cfg, "lm")[0][1]
+    step = ST.make_lm_train_step(cfg, lr=HYBRID_LR, wd=0.1, total_steps=3,
+                                 device="cuda")[0]
+    grouped = L.run_layers_grouped
+    runs = {"one_level": [], "nested": []}
+    fps = {}
+    try:
+        for form in ("warm_up", "one_level", "nested", "nested",
+                     "one_level"):
+            L.run_layers_grouped = (_nested_grouped if form == "nested"
+                                    else grouped)
+            state = _fresh_state(model, host)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), ms, n = _timed(lambda: step(state, batch))
+            fp = _fingerprints(state)
+            del state
+            torch.cuda.empty_cache()
+            if form == "warm_up":
+                continue
+            want = _dense_step_launches(cfg, 1, False, form == "nested")
+            checks.check(n == want, f"remat_forms {form}: launches {n}, "
+                         f"want {want}")
+            fps.setdefault(form, fp)
+            runs[form].append(dict(
+                ms_per_step=ms, loss=float(m["loss"]),
+                max_memory_allocated=torch.cuda.max_memory_allocated()))
+    finally:
+        L.run_layers_grouped = grouped
+    differ = [k for k in fps["one_level"]
+              if fps["one_level"][k] != fps["nested"][k]]
+    checks.check(not differ, f"remat_forms: the nested and one-level steps "
+                 f"differ in {differ[:8]}")
+    emit("remat_forms", arch=DENSE_ARCH, shape=[2, 4096],
+         group=L.default_remat_group(cfg.n_layers), runs=runs,
+         states_equal=not differ, leaves_compared=len(fps["nested"]))
+    del model, host
+    torch.cuda.empty_cache()
+    checks.end_phase("remat_forms")
 
 
 def _first_batch(cfg):
@@ -2583,6 +3293,14 @@ def _launcher_worker(argv):
     from repro_torch import checkpoint as CK
     from repro_torch.launch import train
     out, argv = argv[0], argv[1:]
+    if argv[:1] == ["--layers"]:
+        # a depth cut: the launcher's get_arch returns the arch at this
+        # depth in this process
+        from repro_torch.configs import base
+        name = argv[argv.index("--arch") + 1]
+        base._REGISTRY[name] = base.get_arch(name).replace(
+            n_layers=int(argv[1]))
+        argv = argv[2:]
     # the allocator's cached blocks go back to the card as a checkpoint
     # write (host work) begins, so that the work beside it has the memory
     CK.set_fault_hook(lambda event: torch.cuda.empty_cache()
@@ -2609,16 +3327,18 @@ def _launcher_worker(argv):
 class _LauncherProcess:
     """``_launcher_worker`` on ``argv`` in a child process whose output a
     thread reads as it comes: ``wait_for`` a line, then ``finish`` for
-    (exit code, its report or None, {u1, u2} or None, stderr's tail)."""
+    (exit code, its report or None, {u1, u2} or None, stderr's tail).
+    ``layers``: the arch at that depth (a depth cut)."""
 
-    def __init__(self, argv):
+    def __init__(self, argv, layers=None):
         import threading
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_lw_")
         self.out = os.path.join(self.dir, "u.npz")
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "chip_smoke", "--launcher-worker",
-             self.out, *argv], cwd=ROOT, stdout=subprocess.PIPE,
+             self.out, *(["--layers", str(layers)] if layers else []),
+             *argv], cwd=ROOT, stdout=subprocess.PIPE,
             stderr=self.err, text=True,
             env={**os.environ, "PYTHONPATH": os.pathsep.join([SRC, ROOT])})
         self.lines = []
@@ -3355,6 +4075,20 @@ MESH_ARGS = TRAIN_ARGS + ["--precision", "f32", "--steps", "3"]
 MESH_GCL_CASES = [(f"mesh_rank{r}", 64, 256, 512, 64 * r, "float32", 0.07,
                    False, True) for r in range(4)]
 MESH_EVAL_N = EVAL_CLASSES * EVAL_PER_CLASS
+# the step-level checks on 4 ranks run clip-vitb32-cc12m at full width
+# with this many of each tower's 12 layers, a depth cut that keeps the
+# whole run inside its time (PERF.md § 4); the launcher runs on the mesh
+# keep the full depth
+MESH_STEP_LAYERS = 6
+
+
+def _mesh_step_cfg():
+    """``ARCH`` at ``MESH_STEP_LAYERS`` layers in each tower."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(ARCH)
+    return cfg.replace(n_layers=MESH_STEP_LAYERS, clip=dataclasses.replace(
+        cfg.clip, vision_layers=MESH_STEP_LAYERS))
 
 
 def _counters():
@@ -3487,11 +4221,11 @@ def _mesh_worker_step(argv):
     step-1 gradients after the reduction and merge against the
     single-device step's on the same global batch; 3 steps against 3
     single-device steps; microbatch 2 against 1; the sharded eval forms.
-    Rank 0 reports the comparisons; every rank its launches."""
+    Rank 0 reports the comparisons; every rank its launches.  The arch
+    at ``MESH_STEP_LAYERS`` layers per tower."""
     import dataclasses
     import torch
     from repro_torch.checkpoint import bridge, flatten, unflatten
-    from repro_torch.configs import get_arch
     from repro_torch.core import shard_state as SS
     from repro_torch.core import train_step as TS
     from repro_torch.data import ZeroShotEvalDataset
@@ -3508,7 +4242,7 @@ def _mesh_worker_step(argv):
     try:
         mesh = MS.make_train_mesh(2, 2, device=dev)
         rep["backend"] = mesh.backend
-        cfg = get_arch(ARCH)
+        cfg = _mesh_step_cfg()
         tc1 = _train_config(cfg, "flash", "fused")
         tcm = dataclasses.replace(tc1, fsdp=True, mesh_axes=MESH_AXES)
         st1 = TS.init_train_state(torch.Generator().manual_seed(0), tc1,
@@ -3734,8 +4468,8 @@ def phase_mesh(checks, train_rec, train_tree):
         if r.returncode:
             print(r.stderr[-3000:], file=sys.stderr, flush=True)
     r0 = reps[0] or {}
-    want1 = _train_launches(cfg, 1, 0, 0, 1)
-    want2 = _train_launches(cfg, 1, 0, 0, 1, mb=2)
+    want1 = _train_launches(_mesh_step_cfg(), 1, 0, 0, 1)
+    want2 = _train_launches(_mesh_step_cfg(), 1, 0, 0, 1, mb=2)
     per_step = [(rp or {}).get("mb1_launches_per_step") for rp in reps]
     per_step2 = [(rp or {}).get("mb2_launches_per_step") for rp in reps]
     checks.check(rcs == [0] * 4 and all(reps),
@@ -3760,6 +4494,7 @@ def phase_mesh(checks, train_rec, train_tree):
                      and (rp or {}).get("planted_exact") for rp in reps),
                  "mesh step: the sharded eval is not exact")
     emit("mesh_step", exit_codes=rcs, backend=r0.get("backend"),
+         layers_per_tower=MESH_STEP_LAYERS,
          grad_leaves=r0.get("grad_leaves"),
          grad_worst_leaf=r0.get("grad_worst_leaf"),
          grad_worst_rel_l2=r0.get("grad_worst_rel_l2"), tol=TOL_TRAIN_GRAD,
@@ -4219,7 +4954,8 @@ def main(argv=None):
                     help="a partial run: device, build, then these phases "
                          "(comma-separated: kernel, gcl, dense, train, "
                          "clip_family, mesh after train, hybrid_train, "
-                         "resilience); no report and no last line")
+                         "dense_train, remat_forms, resilience); no report "
+                         "and no last line")
     args = ap.parse_args(argv)
     checks = Checks()
     t_start = time.monotonic()
@@ -4240,6 +4976,8 @@ def main(argv=None):
                     "train": phase_train, "clip_family": phase_clip_family,
                     "dense": phase_dense,
                     "hybrid_train": phase_hybrid_train,
+                    "dense_train": phase_dense_train,
+                    "remat_forms": phase_remat_forms,
                     "resilience": phase_resilience}[name](checks)
             mark(name)
         print(f"chip_smoke: partial run of {args.only} passed; no report",
@@ -4291,6 +5029,9 @@ def main(argv=None):
     mark("resilience")
     hybrid_train = phase_hybrid_train(checks)
     mark("hybrid_train")
+    # last: a failure here cannot hide an earlier phase's result
+    dense_train = phase_dense_train(checks)
+    mark("dense_train")
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -4303,6 +5044,15 @@ def main(argv=None):
             path, n_launch = "dense_prefill", dense[case]["4096x4096"]
         elif case.startswith("hd128_"):
             path, n_launch = "none (edge case)", 0
+        elif case == "qwen3_ctr":
+            # qwen3-1.7b's 2 contrastive steps of phase dense_train
+            path = "dense_train"
+            n_launch = dense_train["contrastive"]["flash_attention"]
+        elif case == "qwen3_mesh":
+            # one rank's step of qwen3-1.7b (4 layers) on data:1,fsdp:2
+            path = "dense_train_mesh, per rank per step"
+            n_launch = dense_train["mesh_per_rank_per_step"][
+                "flash_attention"]
         elif case == "hybrid_ctr":
             # the zamba2 contrastive launcher's 3 steps
             path = "hybrid_train"
@@ -4336,10 +5086,14 @@ def main(argv=None):
             "resilience_launches": {c: n["flash_attention"]
                                     for c, n in res_launches.items()},
             # phase hybrid_train: each launcher's 3 zamba2 training steps
-            # (the shared block's 6 calls, each recomputed once)
+            # (20 layers: the shared block's 3 calls, each recomputed once)
             "hybrid_train_launches": {
                 kind: n["flash_attention"] for kind, n in
                 hybrid_train.items()},
+            # phase dense_train: qwen3-1.7b's LM launcher (3 steps), its 2
+            # contrastive steps here, one rank's step on data:1,fsdp:2
+            "dense_train_launches": _dense_train_launches(
+                dense_train, "flash_attention"),
             # phase clip_family: ResNet-50 3 steps (text tower only), its
             # serving runs and eval pass; ViT-B/16 3 steps
             "clip_family_launches": {
@@ -4381,6 +5135,8 @@ def main(argv=None):
                                     for c, n in res_launches.items()},
             # the zamba2 contrastive launcher's 3 steps
             "hybrid_train_launches": hybrid_train["contrastive"][name],
+            "dense_train_launches": _dense_train_launches(dense_train,
+                                                          name),
             "hybrid_train_cuda_launches": hybrid_train["contrastive"][
                 f"{name}_cuda"],
             "clip_family_launches": {
@@ -4390,10 +5146,13 @@ def main(argv=None):
                    if name == "gcl_pair_stats" else {})},
             # clip-rn50-cc3m's shape, 256 x 256 x 1024, and its ranks'
             # on data:1,fsdp:2, 128 x 256 x 1024 at row offsets 0 and 128;
-            # zamba2's contrastive step, 64 x 64 x 512
+            # the LM backbones' contrastive step, 64 x 64 x 512, and
+            # qwen3-1.7b's ranks on data:1,fsdp:2, 32 x 64 x 512 at row
+            # offsets 0 and 32 (launches: dense_train_launches)
             **{f"{case}_{k}": gcl_timings[case, kernel][k]
                for case in ("rn50", "rn50_rank0", "rn50_rank1",
-                            "hybrid_ctr")
+                            "hybrid_ctr", "qwen3_mesh_rank0",
+                            "qwen3_mesh_rank1")
                for k in ("shape", "row_offset", "ms", "kernel_only_ms",
                          "plain_ms", "bound_ms", "bound_by", "tc_floor_ms",
                          "max_abs_err")},
@@ -4420,8 +5179,8 @@ def main(argv=None):
         "cuda_launches": ssd_cuda_launches,
         "cuda_launches_per_call": (ssd_cuda_launches
                                    / max(hybrid_launches["ssd_chunk"], 1)),
-        # phase hybrid_train: each launcher's 3 training steps (76 calls
-        # per step: each layer's forward and its recompute)
+        # phase hybrid_train: each launcher's 3 training steps (40 calls
+        # per step at 20 layers: each layer's forward and its recompute)
         "hybrid_train_launches": {kind: n["ssd_chunk"]
                                   for kind, n in hybrid_train.items()},
         "hybrid_train_cuda_launches": {kind: n["ssd_chunk_cuda"]
@@ -4450,7 +5209,8 @@ if __name__ == "__main__":
         # one rank of phase mesh (spawned by it, never by hand)
         sys.path.insert(0, SRC)
         {"train": _mesh_worker_train, "step": _mesh_worker_step,
-         "family": _mesh_worker_family}[sys.argv[2]](sys.argv[3:])
+         "family": _mesh_worker_family,
+         "dense": _mesh_worker_dense}[sys.argv[2]](sys.argv[3:])
     elif sys.argv[1:2] == ["--launcher-worker"]:
         # one launcher run of phase clip_family (spawned by it); it sets
         # no backend flag: the port's device policy alone decides them

@@ -1,12 +1,13 @@
 """Train-step assembly (port of ``repro.core.train_step``): the towers
 of ``backbones.encode_pair`` (CLIP's two, or an LM backbone against its
 paired embeddings) + FastCLIP objective + optimizer, on one device or
-(CLIP) on the (data, fsdp) mesh.
+on the (data, fsdp) mesh.
 
-The single-device train state is a dict: ``params`` (the ``CLIP`` or
-``HybridLM`` module), ``opt`` (f32 moments keyed by parameter name, and
-the step count ``t``), ``fc`` (``core.fastclip.init_state``: log-domain
-u, taus, tau moments, a step counter) and ``step`` (int32).
+The single-device train state is a dict: ``params`` (the ``CLIP``,
+``HybridLM`` or ``DenseLM`` module), ``opt`` (f32 moments keyed by
+parameter name, and the step count ``t``), ``fc``
+(``core.fastclip.init_state``: log-domain u, taus, tau moments, a step
+counter) and ``step`` (int32).
 ``make_train_step(tc)`` returns ``train_step(state, batch, idx) ->
 (state, metrics)``:
 
@@ -24,7 +25,11 @@ its rows against the gathered columns, reduces the gradients by
 reduce-scatter over ``fsdp`` and all-reduce over ``data``, and updates
 its own shards.  ``microbatch`` N splits a rank's rows into N
 micro-steps, each with its own weight gather; the loss and the log-u
-update still run once per global step.
+update still run once per global step.  An LM backbone's recompute
+(``backbones.forward_hidden``) runs with the gathered weights it held at
+the call, so each gather's backward runs once per micro-step, whatever
+the recompute; a gathered leaf the towers do not reach (``lm_head``)
+gets a zero gradient.
 
 Gradient clipping (the JAX config's ``grad_clip``, set by no launcher)
 is not ported.  On one device the model's parameters are updated in
@@ -473,9 +478,12 @@ def make_fsdp_train_step(tc: TrainStepConfig, param_dims=None):
                        "u2_rows": lu2r, "stats": LS.RowStats(*stats),
                        "sat": sat}
                 wrt = [shards[k] for k in names]
-            gs = torch.autograd.grad(local, wrt)
+            gs = torch.autograd.grad(local, wrt, allow_unused=True)
         loss = SS.staged_psum(local.detach())    # local is the /B share
-        grads = SS.reduce_grads(dict(zip(names, gs[:len(names)])), p_dims)
+        # a shard the towers do not reach (an LM backbone's lm_head) gets
+        # zeros, so that every rank reduces the same leaves in order
+        grads = SS.reduce_grads(
+            _or_zeros(names, [shards[k] for k in names], gs), p_dims)
         gtau = gs[-1] if tau_diff is not None else None
         return loss, aux, grads, gtau
 

@@ -10,15 +10,20 @@ unless ``--device cpu`` is given.
 
 Objectives, as the JAX launcher picks them (``build_dataset``): a CLIP
 arch always trains FastCLIP on ``ContrastiveDataset`` (``--objective
-lm`` included); an LM backbone (``zamba2-1.2b``) trains FastCLIP on
-``PairedEmbeddingDataset`` (``backbones.encode_pair``: the mean-pooled
-backbone through ``ctr_proj`` against stub paired embeddings through
-``pair_proj``) by default, and ``--objective lm`` trains the next-token
-loss on ``LMDataset`` (``launch.steps.make_lm_train_step``: AdamW under a
-500-step warm-up, whatever ``--optimizer`` says; ``--version``,
-``--loss-impl`` and the guard do not apply to it).  ``--seq-len`` sets an
-LM backbone's sequence length.  Every contrastive run ends with the
-``retrieval accuracy:`` line; ``--eval-every`` evaluates CLIP archs only.
+lm`` included); an LM backbone (the hybrid ``zamba2-1.2b``, or a dense
+LM: ``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) trains
+FastCLIP on ``PairedEmbeddingDataset`` (``backbones.encode_pair``: the
+mean-pooled backbone through ``ctr_proj`` against stub paired
+embeddings through ``pair_proj``) by default, and ``--objective lm``
+trains the next-token loss on ``LMDataset``
+(``launch.steps.make_lm_train_step``: AdamW under a 500-step warm-up,
+whatever ``--optimizer`` says; ``--version``, ``--loss-impl`` and the
+guard do not apply to it).  ``--seq-len`` sets an LM backbone's
+sequence length.  Under autograd an LM backbone recomputes in the
+backward as JAX's does (``backbones.forward_hidden``: the dense stack
+under JAX's grouped recompute).  Every contrastive run ends with the
+``retrieval accuracy:`` line; ``--eval-every`` evaluates CLIP archs
+only.
 
 The defaults reach the hand-written kernels: ``--impl flash`` (the
 attention in both towers) and ``--loss-impl fused`` (K1 and K2, the FCCO
@@ -94,12 +99,10 @@ skipped when the loop has just saved that step, which holds the same
 state.  ``--local-devices`` is refused with exit code 2: it forces CPU
 devices per process in JAX, and a rank here is one process with one
 device.  ``--mesh`` with ``--objective lm`` on an LM backbone exits as
-the JAX launcher does; ``--mesh`` with the contrastive objective on an
-LM backbone, which the JAX launcher runs, is not ported yet and is
-refused with exit code 2.  A dense LM (``qwen3-1.7b``, ``yi-6b``,
-``granite-3-8b``, ``qwen1.5-32b``) is served (``launch.serve``,
-``launch.steps.make_prefill_step``) but not trained yet: either
-objective exits 2.
+the JAX launcher does; with the contrastive objective an LM backbone
+(hybrid or dense) trains on the mesh like a CLIP arch, its towers
+recomputed in the backward as on one device.  An ``--arch`` whose config
+is not ported (the moe, vlm, audio and ssm families) exits 2.
 """
 from __future__ import annotations
 
@@ -283,20 +286,16 @@ def parse_args(argv=None):
     if args.microbatch != 1 and not args.mesh:
         ap.error("--microbatch needs --mesh: micro-steps belong to the "
                  "mesh step")
-    cfg = get_arch(args.arch)
-    if cfg.family == "dense":
-        ap.error(f"training the dense family ({args.arch}) is not ported "
-                 "to repro_torch yet (ROADMAP P6b: dense training with "
-                 "JAX's grouped remat, under either objective); "
-                 "repro_torch.launch.serve serves it")
-    if args.mesh and cfg.family != "clip":
-        if args.objective == "lm":
-            raise SystemExit("--mesh drives the contrastive trainer; the "
-                             "LM shapes run on the production mesh via "
-                             "repro.launch.dryrun")
-        ap.error(f"--mesh with the contrastive objective of {args.arch} is "
-                 "not ported to repro_torch yet (ROADMAP P6a'); use "
-                 "repro.launch.train")
+    try:
+        cfg = get_arch(args.arch)
+    except KeyError:
+        ap.error(f"--arch {args.arch}: its config is not ported to "
+                 f"repro_torch (ported: the {', '.join(BB.FAMILIES)} "
+                 "families; moe, vlm, audio and ssm are ROADMAP queue P6b)")
+    if args.mesh and cfg.family != "clip" and args.objective == "lm":
+        raise SystemExit("--mesh drives the contrastive trainer; the LM "
+                         "shapes run on the production mesh via "
+                         "repro.launch.dryrun")
     if args.data != "synthetic" and not args.data.startswith("streaming:"):
         ap.error(f"--data {args.data!r}: want 'synthetic' or "
                  "'streaming:<shard-dir>'")

@@ -31,13 +31,20 @@ prefill and decode run without grad and keep nothing.
 The dense depth pattern is ``[attn + swiglu] x L``: ``blocks`` is a
 ModuleList of ``transformer.Block`` (JAX's ``blocks/...`` stack, qk-norm
 and QKV bias as the config says), and decode keeps one KV cache per
-layer.  Its forward runs no recompute (JAX's grouped remat belongs to
-dense training, which the launcher does not run yet: ROADMAP P6b).
+layer.  Under autograd its forward recomputes as JAX's
+``scan_layers_grouped`` does (``layers.run_layers_grouped`` with
+``layers.default_remat_group(n_layers)``, 4 for qwen3-1.7b's 28 layers):
+each group of layers keeps only its input and runs again in the
+backward; without grad (prefill, decode, eval) nothing is recomputed.
+A recompute runs with the weights its layers held at the call
+(``torch.func.functional_call`` of them), so that it also runs after the
+mesh step's ``functional_call`` of the gathered weights has returned.
 The moe, vlm, audio and ssm families raise ``NotImplementedError``
 (ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -194,12 +201,31 @@ def encode_pair(model, cfg: ArchConfig, batch, *, impl="flash",
 # decode
 # ===========================================================================
 
-def _run(remat: bool, fn, *args):
-    """``fn(*args)``, recomputed in the backward when ``remat``."""
+class _Held(nn.Module):
+    """``fn`` over ``modules``: the handle through which a recompute
+    swaps in the weights those modules held at the call."""
+
+    def __init__(self, fn, modules):
+        super().__init__()
+        self.held = nn.ModuleList(modules)
+        self.fn = fn
+
+    def forward(self, h):
+        return self.fn(h)
+
+
+def _run(remat: bool, fn, modules, h):
+    """``fn(h)``; when ``remat``, recomputed in the backward with the
+    weights ``modules`` hold now (the gathered ones of the mesh step's
+    ``functional_call``, which has returned by then).  The recompute
+    changes no bit."""
     if not remat:
-        return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+        return fn(h)
+    held = _Held(fn, modules)
+    weights = dict(held.named_parameters())
+    return checkpoint(
+        lambda x: torch.func.functional_call(held, weights, (x,)), h,
+        use_reentrant=False, preserve_rng_state=False)
 
 
 def _mamba(m, cfg, impl, chunked):
@@ -214,25 +240,33 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     Mamba2 layer (K4 for "flash"; see ``models.ssm``); ``chunked=False``
     runs the sequential SSD.  With grad enabled, each Mamba2 layer and
     each call of the hybrid's shared block is recomputed once in the
-    backward (JAX's ``remat=True`` scans); the recompute changes no
-    number.  The dense stack recomputes nothing."""
+    backward (JAX's ``remat=True`` scans), and the dense stack under
+    JAX's grouped recompute (``layers.run_layers_grouped``); a recompute
+    changes no number."""
     _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
-    if cfg.family == "dense":
-        for blk in model.blocks:
-            x = blk(x, impl=impl)
-        return model.final_norm(x), {}
     remat = torch.is_grad_enabled()
+    if cfg.family == "dense":
+        def layer(blk, h):
+            return blk(h, impl=impl)
+        if remat:
+            x = L.run_layers_grouped(
+                functools.partial(_run, True), model.blocks, layer, x,
+                group=L.default_remat_group(cfg.n_layers))
+        else:
+            for blk in model.blocks:
+                x = layer(blk, x)
+        return model.final_norm(x), {}
 
     def shared(h):
         return model.shared_attn(h, impl=impl)
     for sup in model.supers:
         for m in sup.mambas:
-            x = _run(remat, _mamba(m, cfg, impl, chunked), x)
-        x = _run(remat, shared, x)
+            x = _run(remat, _mamba(m, cfg, impl, chunked), (m,), x)
+        x = _run(remat, shared, (model.shared_attn,), x)
     for m in getattr(model, "tail", ()):
-        x = _run(remat, _mamba(m, cfg, impl, chunked), x)
+        x = _run(remat, _mamba(m, cfg, impl, chunked), (m,), x)
     return model.final_norm(x), {}
 
 

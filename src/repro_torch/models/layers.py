@@ -217,3 +217,49 @@ def vocab_parallel_ce(x: torch.Tensor, table: torch.Tensor,
     rows = F.embedding(labels.long(), table if tied else table.T)
     gold = torch.sum(x.float() * rows.float(), dim=-1)
     return torch.mean(lse - gold)
+
+
+# ---------------------------------------------------------------------------
+# Stacked layers under recompute (JAX's ``scan_layers_grouped``)
+# ---------------------------------------------------------------------------
+
+def default_remat_group(n_layers: int) -> int:
+    """JAX's sqrt-ish grouping: the largest of 8, 6, 5, 4, 3, 2 that
+    divides ``n_layers`` (1 below 8 layers or when none divides)."""
+    if n_layers < 8:
+        return 1
+    for g in (8, 6, 5, 4, 3, 2):
+        if n_layers % g == 0:
+            return g
+    return 1
+
+
+def run_layers_grouped(remat, layers, f, x, *, group):
+    """``x = f(layer, x)`` for each of ``layers`` in order, recomputed in
+    the backward as JAX's ``scan_layers_grouped`` recomputes its scan.
+    ``remat(fn, modules, h)`` runs ``fn(h)`` and recomputes it in the
+    backward with the weights that ``modules`` hold at the call.
+
+    When ``group <= 1``, ``len(layers) % group`` or ``len(layers) <=
+    group``, each layer is recomputed on its own (JAX's fall-back);
+    otherwise each run of ``group`` layers is recomputed as one, so that
+    the backward keeps one carry per group.  JAX also nests a recompute
+    of each layer inside its group's (``inner_remat``); on the H100 that
+    form was the slower at the same peak (PERF.md), so the port runs the
+    one-level form only."""
+    n = len(layers)
+    if group <= 1 or n % group or n <= group:
+        for lyr in layers:
+            x = remat(lambda h, lyr=lyr: f(lyr, h), (lyr,), x)
+        return x
+
+    def body(grp):
+        def run(h):
+            for lyr in grp:
+                h = f(lyr, h)
+            return h
+        return run
+    for i in range(0, n, group):
+        grp = layers[i:i + group]
+        x = remat(body(grp), tuple(grp), x)
+    return x

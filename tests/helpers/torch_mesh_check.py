@@ -24,6 +24,10 @@ Batteries:
          of the differentiable gathers
   rn50   (2 ranks, data:1,fsdp:2) one ZeRO step of the narrow ResNet-50
          CLIP (``narrow_rn50``) against the single-device step
+  lm     (2 ranks, data:1,fsdp:2) two contrastive (v3) ZeRO steps of
+         each LM backbone of ``LM_ARCHS`` (``lm_cfg``) against the
+         single-device steps, the gathers' backward counted, then the
+         sharded checkpoint of the result in OUT/lm_ckpt_<arch>
 
     PYTHONPATH=src:tests/helpers python -m torch_mesh_check <battery> \\
         OUT [IN] \\
@@ -316,6 +320,113 @@ def battery_rn50(mesh, out, inp):
     return {}, checks
 
 
+# (arch, reduced depth): the dense stack at 12 layers runs JAX's grouped
+# recompute (2 groups of 6); the hybrid at 3 layers one super-block, its
+# shared block and a tail layer
+LM_ARCHS = {"qwen3-1.7b": 12, "zamba2-1.2b": 3}
+LM_SEQ, LM_BATCH, LM_SAMPLES = 16, 8, 16
+
+
+def lm_cfg(get_arch, arch):
+    """A reduced LM backbone of ``LM_ARCHS`` from either package's
+    ``get_arch``."""
+    return get_arch(arch).reduced().replace(n_layers=LM_ARCHS[arch])
+
+
+def _groups(flat, prefix):
+    out = {}
+    for k, v in flat.items():
+        if k.startswith(prefix):
+            out.setdefault(k[len(prefix):].split("/")[0], []).append(
+                np.asarray(v, np.float64).ravel())
+    return {g: np.concatenate(v) for g, v in out.items()}
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def battery_lm(mesh, out, inp):
+    from repro_torch import checkpoint as CK
+    from repro_torch.configs import get_arch
+    from repro_torch.core import fastclip as FC
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    from repro_torch.data import PairedEmbeddingDataset, ShardedLoader
+    from repro_torch.optim import adamw
+    backward_calls = [0]
+    orig = SS._GatherParam.backward
+
+    def counted(ctx, g):
+        backward_calls[0] += 1
+        return orig(ctx, g)
+    SS._GatherParam.backward = staticmethod(counted)
+    res, checks = {}, {}
+    for arch in LM_ARCHS:
+        cfg = lm_cfg(get_arch, arch)
+        fc = FC.FastCLIPConfig(version="v3", n_samples=LM_SAMPLES,
+                               steps_per_epoch=LM_SAMPLES // LM_BATCH,
+                               gamma_decay_epochs=1, loss_impl="fused")
+        kw = dict(arch=cfg, fc=fc, optimizer=adamw(),
+                  lr_fn=lr_warmup_cosine(1e-3, 0, 10), wd=0.1,
+                  impl="flash")
+        ds = PairedEmbeddingDataset(n=LM_SAMPLES, seq_len=LM_SEQ,
+                                    vocab_size=cfg.vocab_size)
+        batches = [(torch.from_numpy(idx),
+                    {k: torch.from_numpy(v) for k, v in b.items()})
+                   for _, _, idx, b in ShardedLoader(
+                       ds, global_batch=LM_BATCH, n_shards=2).steps(2)]
+        st0 = TS.init_train_state(torch.Generator().manual_seed(1),
+                                  TS.TrainStepConfig(**kw), "cpu")
+        tree0 = CK.unflatten({k: v.clone() for k, v in flatten(
+            bridge.state_to_tree(st0)).items()})
+        step_sh = TS.make_train_step(TS.TrainStepConfig(
+            **kw, mesh_axes=AXES, fsdp=True))
+        dims = step_sh.param_dims
+        half = LM_BATCH // 2
+        local = [(idx[mesh.rank * half:(mesh.rank + 1) * half],
+                  {k: v[mesh.rank * half:(mesh.rank + 1) * half]
+                   for k, v in b.items()}) for idx, b in batches]
+        backward_calls[0] = 0
+        st_sh, loss_sh, _ = _run3(step_sh, SS.shard_train_state(
+            tree0, mesh), local)
+        n_backward = backward_calls[0]
+        full_sh = _flat_np(SS.gather_train_state(st_sh, mesh, dims))
+        CK.save_sharded(os.path.join(out, f"lm_ckpt_{arch}"), st_sh, 2,
+                        mesh, dims, metadata={"arch": arch, "version": "v3"})
+        st_1, loss_1, _ = _run3(TS.make_train_step(
+            TS.TrainStepConfig(**kw), "cpu"), st0, batches)
+        full_1 = _flat_np(bridge.state_to_tree(st_1))
+        start = _flat_np(tree0)
+        moments = {f"{mom}/{g}": _rel_l2(a, _groups(full_1, f"opt/{mom}/")[g])
+                   for mom in ("m", "v")
+                   for g, a in _groups(full_sh, f"opt/{mom}/").items()}
+        p0 = _groups(start, "params/")
+        d_sh = {g: p0[g] - a for g, a in _groups(full_sh, "params/").items()}
+        d_1 = {g: p0[g] - a for g, a in _groups(full_1, "params/").items()}
+        sharded = [k for k, d in dims.items() if d is not None]
+        checks[arch] = {
+            "losses": [loss_sh, loss_1],
+            "dloss": max(abs(a - b) for a, b in zip(loss_sh, loss_1)),
+            "dlogu": max(_maxdiff(full_sh, full_1, "fc/u1"),
+                         _maxdiff(full_sh, full_1, "fc/u2")),
+            "moment_rel_l2": moments,
+            "update_rel_l2": {g: _rel_l2(d_sh[g], d_1[g]) for g in d_1},
+            "same_keys": sorted(full_sh) == sorted(full_1),
+            "params_unmoved": sorted(g for g in d_1 if not np.any(d_1[g])),
+            # the towers do not reach an untied lm_head: zero moments on
+            # both sides, and AdamW's decay alone moves it
+            "zero_moment_leaves": sorted(
+                k[len("opt/m/"):] for k in full_sh
+                if k.startswith("opt/m/") and not np.any(full_sh[k])),
+            "sharded_leaves": sorted(sharded),
+            "gather_backward_calls": n_backward,
+            "dims": dims}
+        res.update({f"{arch}/{k}": v for k, v in full_sh.items()})
+    SS._GatherParam.backward = staticmethod(orig)
+    return res, checks
+
+
 def _props(mesh):
     """Exact (integer-valued) trees: reduce-scatter then all-gather over
     fsdp equals the all-reduce over fsdp, and the staged (fsdp, then
@@ -482,7 +593,8 @@ def battery_cuda(mesh, out, inp):
 
 BATTERIES = {"loss": battery_loss, "step": battery_step,
              "ckpt": battery_ckpt, "eval": battery_eval,
-             "cuda": battery_cuda, "rn50": battery_rn50}
+             "cuda": battery_cuda, "rn50": battery_rn50,
+             "lm": battery_lm}
 
 
 def main():
@@ -500,7 +612,8 @@ def main():
                         "cuda" if args.battery == "cuda" else "cpu")
     try:
         shape = {"ckpt": (1, 4), "cuda": (1, args.num_processes),
-                 "rn50": (1, 2)}.get(args.battery, (2, 2))
+                 "rn50": (1, 2), "lm": (1, 2)}.get(args.battery,
+                                                   (2, 2))
         mesh = MS.make_train_mesh(*shape, device=dev)
         res, checks = BATTERIES[args.battery](mesh, args.out, args.inp)
         if mesh.rank == 0:

@@ -655,6 +655,86 @@ def test_reduced_hybrid_lm_step_flash_matches_plain(cuda):
         losses["flash"])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_layers", [12, 8])
+def test_reduced_dense_lm_step_flash_matches_plain(cuda, n_layers):
+    """A reduced qwen3-1.7b on the card (12 layers: JAX's grouped
+    recompute, 2 groups of 6; 8 layers: its per-layer fall-back), the
+    kernel path against the plain path from the same init: K3 launches
+    each layer's forward and its recompute, no K1 / K2; the loss within
+    rtol 1e-4 and every leaf's gradient within 1e-4 relative L2; then one
+    ``make_lm_train_step`` step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    cfg = get_arch("qwen3-1.7b").reduced().replace(n_layers=n_layers)
+    ds = LMDataset(n=8, seq_len=80, vocab_size=cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.batch(np.arange(2)).items()}
+    grads, losses, counts = {}, {}, {}
+    for impl in ("flash", "chunked"):
+        model = BB.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cuda")
+        before = (FA.flash_attention.launches, GL.gcl_pair_stats.launches)
+        with torch.enable_grad():
+            loss, _ = BB.lm_loss(model, cfg, batch, impl=impl)
+            grads[impl] = TS.param_grads(loss, model)
+        torch.cuda.synchronize()
+        counts[impl] = (FA.flash_attention.launches - before[0],
+                        GL.gcl_pair_stats.launches - before[1])
+        losses[impl] = loss.item()
+    assert counts == {"flash": (2 * n_layers, 0), "chunked": (0, 0)}
+    assert abs(losses["flash"] - losses["chunked"]) <= 1e-4 * abs(
+        losses["chunked"])
+    for n, w in grads["chunked"].items():
+        if not w.any():                  # ctr_proj / pair_proj
+            assert not grads["flash"][n].any(), n
+            continue
+        assert _rel_l2(grads["flash"][n], w) <= 1e-4, n
+    step, opt = steps.make_lm_train_step(cfg, device="cuda")
+    state = steps.init_lm_train_state(
+        cfg, torch.Generator().manual_seed(0), opt, "cuda")
+    state, m = step(state, batch)
+    assert int(state["step"]) == 1
+    assert abs(m["loss"].item() - losses["flash"]) <= 1e-6 * abs(
+        losses["flash"])
+
+
+@pytest.mark.cuda
+def test_reduced_dense_contrastive_step_launches_k1_k2_k3(cuda):
+    """One v3 step of reduced qwen1.5-32b (QKV bias, untied head) on the
+    card: 2 layers, each recomputed on its own (4 K3 launches), one K1
+    and one K2 call (2 CUDA launches each); finite loss, the untied
+    ``lm_head`` with zero moments."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import fastclip as FC
+    from repro_torch.core import train_step as TS
+    from repro_torch.core.schedules import lr_warmup_cosine
+    from repro_torch.data import PairedEmbeddingDataset
+    from repro_torch.optim import adamw
+    cfg = get_arch("qwen1.5-32b").reduced()
+    fc = FC.FastCLIPConfig(version="v3", n_samples=16, steps_per_epoch=2,
+                           gamma_decay_epochs=1, loss_impl="fused")
+    tc = TS.TrainStepConfig(arch=cfg, fc=fc, optimizer=adamw(),
+                            lr_fn=lr_warmup_cosine(1e-3, 0, 4), wd=0.1)
+    state = TS.init_train_state(torch.Generator().manual_seed(0), tc, "cuda")
+    ds = PairedEmbeddingDataset(n=16, seq_len=64, vocab_size=cfg.vocab_size)
+    idx = np.arange(8)
+    before = (FA.flash_attention.launches, GL.gcl_pair_stats.launches,
+              GL.gcl_pair_grads.launches, GL.gcl_pair_stats.cuda_launches,
+              GL.gcl_pair_grads.cuda_launches)
+    state, m = TS.make_train_step(tc, "cuda")(state, ds.batch(idx), idx)
+    torch.cuda.synchronize()
+    after = (FA.flash_attention.launches, GL.gcl_pair_stats.launches,
+             GL.gcl_pair_grads.launches, GL.gcl_pair_stats.cuda_launches,
+             GL.gcl_pair_grads.cuda_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 1, 1, 2, 2)
+    assert np.isfinite(float(m["loss"]))
+    assert not state["opt"]["m"]["lm_head"].any()
+
+
 # ---------------------------------------------------------------------------
 # The eval engine on the card: streaming top-k and K1 at the eval shape
 # ---------------------------------------------------------------------------

@@ -26,9 +26,10 @@ bridge:
     and 2e-3; the retrieval accuracy after them equal;
   * the launcher: ROADMAP F4's command trains and prints ``retrieval
     accuracy:``; ``--objective lm`` on a CLIP arch trains contrastively;
-    ``--eval-every`` is ignored for the hybrid; ``--mesh`` with either
-    objective on the hybrid is refused (the LM one as the JAX launcher
-    refuses it); without ``--device`` both objectives need the card.
+    ``--eval-every`` is ignored for the hybrid; ``--mesh`` with the LM
+    objective is refused as the JAX launcher refuses it, and the
+    contrastive one trains; without ``--device`` both objectives need the
+    card.
 """
 import contextlib
 import io
@@ -316,18 +317,24 @@ def test_lm_objective_on_a_clip_arch_trains_contrastively():
 
 def test_mesh_on_the_hybrid_is_refused(capsys):
     """``--objective lm --mesh`` exits with the JAX launcher's message;
-    the contrastive ``--mesh`` run, which JAX runs, is not ported yet
-    (exit 2, ROADMAP P6a')."""
+    the contrastive ``--mesh`` run, which JAX runs too, trains (a
+    one-rank group here; tests/test_torch_dense_train.py holds the
+    two-rank step to the single-device one)."""
     base = ["--arch", ARCH, "--reduced", "--device", "cpu", "--mesh",
             "data:1,fsdp:1"]
     with pytest.raises(SystemExit) as e:
         ttrain.main(base + ["--objective", "lm"])
     assert "--mesh drives the contrastive trainer" in str(e.value.code)
-    with pytest.raises(SystemExit) as e:
-        ttrain.main(base)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "P6a'" in err
+    state, lines, steps = _main(base + ["--steps", "1", "--log-every", "1",
+                                        "--global-batch", "4",
+                                        "--n-samples", "8"])
+    assert lines[0].startswith("mesh data:1,fsdp:1 backend gloo world 1")
+    assert [s for s, _ in steps] == [0]
+    assert sorted(json.loads(steps[0][1])) == FCCO_KEYS
+    assert sorted(state) == ["fc", "opt", "params", "step"]
+    assert "lm_head" in state["params"] and "supers/mambas/w_in" in state[
+        "params"]
+    assert any(ln.startswith("retrieval accuracy: ") for ln in lines)
 
 
 @pytest.mark.parametrize("objective", ["contrastive", "lm"])
