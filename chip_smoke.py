@@ -87,7 +87,24 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    with the idle share, peak memory; ``qwen1.5-32b`` at full width with
    2 of its 64 layers (QKV bias, 40-head MHA) at 1 x 4096: exactly 2 K3
    launches, within the same bound of the plain path;
-11. hybrid_train -- ``zamba2-1.2b`` at full width with 20 of its 38
+11. moe    -- the MoE LMs served (seeded random weights, f32) at full
+   width with a depth cut: ``qwen3-moe-30b-a3b`` (8 of 48 layers; 128
+   experts top-8, 32 query heads over 4 KV heads at head dim 128) at 2
+   x 4096 and ``llama4-scout-17b-a16e`` (4 of 48; 16 experts top-1 and
+   a shared expert every other layer, 40 heads over 8) at 1 x 4096,
+   each through ``make_prefill_step`` on both paths: exact parameter
+   counts, exactly 8 / 4 K3 launches at 4096 x 4096 and nothing else,
+   the kernel path twice equal to the bit, the kernel path replaying
+   the plain path's routing (``models.moe.route`` wrapped here) within
+   ``TOL_DENSE_PREFILL`` of it, the unforced kernel path's routing
+   differences per layer (within ``MOE_ROUTE_DIFF_CEILING``), tokens
+   dropped by the capacity per layer (> 0 for llama4-scout), ms per
+   prefill, peak memory, a profile by kind of kernel (routing, dispatch
+   and combine as one) with the idle share, one layer's pieces timed;
+   prefill vs ``decode_step`` over 256 tokens at capacity factor 64
+   (no launch); ``serve.generate`` at batch 4 (qwen3-moe); the decode
+   launcher at ``--reduced``;
+12. hybrid_train -- ``zamba2-1.2b`` at full width with 20 of its 38
    layers (a depth cut, PERF.md § 4) trained (f32, seed 0) under both
    objectives: ``repro_torch.launch.train --objective lm`` at 2 x 4096
    and the contrastive (v3) run at 64 x 256, each launcher in a child
@@ -105,7 +122,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    within 1e-2 of f32), ms per step, peak memory, a profile by kind of
    kernel with the idle share, the backward of K4's and K3's autograd
    Functions timed at each objective's layer shapes;
-12. eval   -- the zero-shot eval engine at full width:
+13. eval   -- the zero-shot eval engine at full width:
    ``repro_torch.launch.eval.main`` on the slice's checkpoint at 192
    classes x 16 (3072 pairs, 224 px, context 77), extraction batch 256,
    ``--impl flash --loss-impl fused``: exactly 300 K3 launches (24 per
@@ -120,7 +137,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    extra memory; planted serving under chaos (NaN batch, corrupt cache
    entry, stalled batch, corrupt reload candidate): nothing dropped,
    every completed response bitwise equal to the solo forward;
-13. train  -- three full-width FastCLIP v3 steps at global batch 256
+14. train  -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
    --loss-impl fused``): launch counts (3 calls of K1 and of K2, 2 CUDA
    launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
@@ -130,7 +147,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
    ``eval`` line the evaluator's on the final params, its eval_loss the
    dense loss's within rtol 1e-5;
-14. clip_family -- the paper's other two CLIP settings at full width and
+15. clip_family -- the paper's other two CLIP settings at full width and
    depth (v3, AdamW, global batch 256, seeded random weights):
    ``clip-rn50-cc3m`` trained 3 f32 steps by the launcher in a process
    of its own that sets no backend flag (the port's device policy alone:
@@ -144,7 +161,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the card) held to one device (loss 1e-5, params 5e-5, log-u 1e-4);
    ``clip-vitb16-laion`` 3 f32 steps (36 K3 at S = 197, 36 at 77) with
    the same checks;
-15. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
+16. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
    shape of data:2,fsdp:2 at global batch 256 (64 rows x 256 gathered
    columns x 512, row offsets 0, 64, 128, 192) against their plain
    versions, timed; ``--mesh data:1,fsdp:1`` (a one-rank NCCL group)
@@ -162,7 +179,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    trajectory at the same bounds; 24 K3 launches per rank per step),
    the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
-16. resilience -- the trainer's recovery paths at full width (v3, f32,
+17. resilience -- the trainer's recovery paths at full width (v3, f32,
    batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
    state compared by the sha256 of every leaf with the oracle's (4
    steps, synchronous saves at 2 and 4): ``nan_batch@2`` under
@@ -180,11 +197,13 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-17. dense_train -- full-width ``qwen3-1.7b`` trained (f32, seed 0, JAX's
-   grouped recompute: 7 groups of 4 layers, each recomputed once):
+18. dense_train -- ``qwen3-1.7b`` at full width with 14 of its 28
+   layers (``DENSE_TRAIN_LAYERS``, a depth cut for the run's time)
+   trained (f32, seed 0, JAX's grouped recompute: 7 groups of 2 layers,
+   each recomputed once):
    ``repro_torch.launch.train --objective lm`` at 2 x 4096 in a child
    process for 3 steps (exit 0, step lines, ms per step, peak memory,
-   launches exact: 28 K3 forwards and 28 in the recompute per step, no
+   launches exact: 14 K3 forwards and 14 in the recompute per step, no
    K1, K2 or K4; step-0 loss equal to this process's; every step's loss
    within rtol 1e-4 of the plain path); here, from the same init and
    batches: a profiled step by kind of kernel, then the same step timed
@@ -202,7 +221,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    (loss 1e-5, log-u 1e-4, moments and update per group of leaves, as
    phase clip_family's mesh); last, so that its failure hides no
    earlier phase's result;
-18. report -- the kernels JSON line, the card line, and the last line
+19. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -483,6 +502,11 @@ KERNEL_CASES = [
     ("qwen3", 2, 16, 4096, 4096, 128, True, 0, "float32", True),
     ("qwen3", 2, 16, 4096, 4096, 128, True, 0, "bfloat16", True),
     ("qwen1p5", 1, 40, 4096, 4096, 128, True, 0, "float32", True),
+    # the MoE prefill of phase moe: qwen3-moe-30b-a3b (32 heads, its 4 KV
+    # heads repeated) at 2 x 4096; llama4-scout's 1 x 40 x 4096 is
+    # qwen1p5's shape
+    ("qwen3_moe", 2, 32, 4096, 4096, 128, True, 0, "float32", True),
+    ("qwen3_moe", 2, 32, 4096, 4096, 128, True, 0, "bfloat16", True),
     # edge cases at head dim 128, timed too (on no main path)
     ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "float32", True),
     ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "bfloat16", True),
@@ -2022,6 +2046,318 @@ def phase_dense(checks):
 
 
 # ---------------------------------------------------------------------------
+# phase moe: the MoE LMs served
+# ---------------------------------------------------------------------------
+
+# full width, cut in depth (f32 weights at full depth: 122.1 GB for
+# qwen3-moe, 237.8 GB for llama4-scout; PERF.md § 4): qwen3-moe 8 of 48
+# layers, llama4-scout 4 of 48 (2 super-blocks of a dense block and an
+# MoE block)
+MOE_ARCH, MOE_WIDE_ARCH = "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"
+MOE_LAYERS = {MOE_ARCH: 8, MOE_WIDE_ARCH: 4}
+MOE_PARAMS = {MOE_ARCH: 5_609_148_416, MOE_WIDE_ARCH: 6_855_547_904}
+# unforced kernel path vs plain path: the most (token, expert) choices
+# and capacity picks, summed over a prefill's layers, in which the two
+# paths may differ (a 1e-6 difference of the hidden states flips a
+# near-tied router top-k; PERF.md § 6 gives the arithmetic and the runs)
+MOE_ROUTE_DIFF_CEILING = 64
+MOE_CATEGORIES = (
+    ("k3_flash_attention", ("flash",)),
+    ("gemm", ("gemm", "gemv")),
+    # routing (the stable sorts), dispatch, combine and the scatters
+    ("moe_route_dispatch_combine", ("sort", "Sort", "scatter", "gather",
+                                    "index")),
+)
+
+
+class _Routes:
+    """Within the block, ``models.moe.route`` records each call's result
+    (``record``) or returns ``replay``'s results in call order; the
+    package has no option for either."""
+
+    def __init__(self, replay=None):
+        self.replay = None if replay is None else list(replay)
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.mod, self.orig = M, M.route
+        it = iter(self.replay or ())
+
+        def wrapped(*a):
+            r = next(it) if self.replay is not None else self.orig(*a)
+            self.calls.append(r)
+            return r
+        M.route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
+def _route_diffs(a, b, E):
+    """Per layer: (token, expert) choices in one path's routing only, and
+    kept (token, expert) picks in one path's only."""
+    import torch
+
+    def chosen(r):
+        return torch.zeros(r.gates.shape[:2] + (E,), dtype=torch.bool,
+                           device=r.gates.device).scatter_(-1, r.experts,
+                                                           True)
+
+    def kept(r):
+        B, _, C = r.picks.shape
+        S = r.gates.shape[1]
+        return torch.zeros((B, E, S), dtype=torch.bool,
+                           device=r.picks.device).scatter_(
+                               -1, r.picks, r.pick_w > 0)
+    return ([int((chosen(x) ^ chosen(y)).sum()) for x, y in zip(a, b)],
+            [int((kept(x) ^ kept(y)).sum()) for x, y in zip(a, b)])
+
+
+def _timed_prefill(fn, model, batch):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn(model, batch)
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - t0) * 1e3
+
+
+def _moe_pieces_ms(cfg, moe, B, S):
+    """One MoE layer at the prefill shape (random hidden states), CUDA
+    events: the whole ``apply_moe``, its ``route`` and its combine."""
+    import torch
+    from repro_torch.models import moe as M
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m = cfg.moe
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    C = M.moe_capacity(S, m.n_experts, m.top_k, m.capacity_factor)
+    with torch.inference_mode():
+        probs = torch.softmax((moe.norm(x) @ moe.router).float(), dim=-1)
+        r = M.route(probs, m.top_k, C)
+        eo = torch.randn((m.n_experts * B * C, cfg.d_model), generator=gen,
+                         device="cuda")
+        return dict(
+            apply_moe_ms=device_ms(lambda: M.apply_moe(moe, cfg, x), 5),
+            route_ms=device_ms(lambda: M.route(probs, m.top_k, C), 5),
+            combine_ms=device_ms(lambda: M._combine(
+                eo, r, B, S, m.n_experts, C), 5),
+            capacity=C)
+
+
+def _moe_prefill(checks, name, cfg, model, tokens):
+    """One MoE model's prefill on both paths: exact K3 launches, finite
+    logits, the kernel path twice to the bit, the kernel path replaying
+    the plain path's routing within TOL_DENSE_PREFILL of it, the
+    unforced kernel path's routing differences against the plain path's
+    per layer (within MOE_ROUTE_DIFF_CEILING), tokens dropped by the
+    capacity per layer, ms, peak memory.  Returns (record, steps)."""
+    import torch
+    from repro_torch.launch import steps
+    B, S = tokens.shape
+    m = cfg.moe
+    n_super = cfg.n_layers // m.every
+    want_k3 = n_super * (2 if m.every == 2 else 1)
+    batch = {"tokens": tokens}
+    prefill = {impl: steps.make_prefill_step(cfg, impl=impl)
+               for impl in ("flash", "chunked")}
+    prefill["flash"](model, batch)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_hybrid_counters()
+    logits, ms_k = _timed_prefill(prefill["flash"], model, batch)
+    counts, by_seq = _hybrid_counters(), _by_seq()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: (want_k3 if k == "flash_attention" else 0) for k in counts}
+    checks.check(counts == want and by_seq == {f"{S}x{S}": want_k3},
+                 f"{name} prefill: launches {counts} by (Sq, Sk) {by_seq}, "
+                 f"want {want_k3} K3 at {S}x{S} and nothing else")
+    checks.check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+                 and bool(torch.isfinite(logits).all()),
+                 f"{name} prefill: logits {tuple(logits.shape)} not finite")
+    with _Routes() as rk:
+        again, ms_k2 = _timed_prefill(prefill["flash"], model, batch)
+    repeat = torch.equal(again, logits)
+    checks.check(repeat, f"{name} prefill: two kernel-path prefills differ")
+    with _Routes() as rp:
+        plain, ms_p = _timed_prefill(prefill["chunked"], model, batch)
+    with _Routes(rp.calls) as rr:
+        forced, ms_k3 = _timed_prefill(prefill["flash"], model, batch)
+    err = (forced - plain).abs().max().item()
+    checks.check(len(rr.calls) == n_super and math.isfinite(err)
+                 and err <= TOL_DENSE_PREFILL,
+                 f"{name} prefill: kernel path on the plain path's routes "
+                 f"vs plain max abs {err} (tol {TOL_DENSE_PREFILL})")
+    choices, picks = _route_diffs(rk.calls, rp.calls, m.n_experts)
+    checks.check(sum(choices) + sum(picks) <= MOE_ROUTE_DIFF_CEILING,
+                 f"{name} prefill: unforced routing differs from the plain "
+                 f"path's in {choices} choices, {picks} picks per layer "
+                 f"(ceiling {MOE_ROUTE_DIFF_CEILING} in all)")
+    dropped = [int(r.experts.numel()) - int((r.pick_w > 0).sum())
+               for r in rp.calls]
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, seq=S,
+               capacity=rp.calls[0].picks.shape[-1],
+               launches=counts, launches_by_seq=by_seq,
+               kernel_path_bitwise_repeatable=repeat,
+               replayed_routes_vs_plain_max_abs=err,
+               tol=TOL_DENSE_PREFILL,
+               unforced_vs_plain_max_abs=(again - plain).abs().max().item(),
+               unforced_choices_differ_per_layer=choices,
+               unforced_picks_differ_per_layer=picks,
+               route_diff_ceiling=MOE_ROUTE_DIFF_CEILING,
+               routed_per_layer=int(rp.calls[0].experts.numel()),
+               dropped_per_layer_plain=dropped,
+               dropped_per_layer_kernel=[
+                   int(r.experts.numel()) - int((r.pick_w > 0).sum())
+                   for r in rk.calls],
+               logits_max_abs=plain.abs().max().item(),
+               ms_per_prefill_kernel_path=[ms_k, ms_k2, ms_k3],
+               ms_per_prefill_plain_path=[ms_p],
+               tokens_per_s_kernel_path=B * S / (min(ms_k, ms_k2) / 1e3),
+               max_memory_allocated=peak)
+    emit(f"{name}_prefill", **rec)
+    return rec, prefill
+
+
+def _moe_prefill_vs_decode(checks, name, cfg, model, tokens, T=256):
+    """Prefill vs ``decode_step`` over the same T tokens at capacity
+    factor 64 (no drops: JAX's rule for this check), within
+    TOL_PREFILL_DECODE; decode launches nothing."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    wide = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                               capacity_factor=64.0))
+    short = {"tokens": tokens[:1, :T]}
+    last = steps.make_prefill_step(wide)(model, short)[:, 0]
+    state = BB.prepare_decode_state(model, wide, {}, 1, T)
+    _zero_hybrid_counters()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        for t in range(T):
+            lg, state = BB.decode_step(model, wide, state,
+                                       short["tokens"][:, t:t + 1], t)
+    torch.cuda.synchronize()
+    dec_s = time.monotonic() - t0
+    d = (lg - last).abs().max().item()
+    dec_counts = _hybrid_counters()
+    checks.check(math.isfinite(d) and d <= TOL_PREFILL_DECODE
+                 and not any(dec_counts.values()),
+                 f"{name}: prefill vs decode max abs {d}, decode launched "
+                 f"{dec_counts}")
+    emit(f"{name}_prefill_vs_decode", tokens=T, capacity_factor=64.0,
+         max_abs_err=d, tol=TOL_PREFILL_DECODE, decode_launches=dec_counts,
+         decode_ms_per_token_batch1=dec_s / T * 1e3)
+
+
+def phase_moe(checks):
+    """The MoE LMs served on the card through the port's entry points, at
+    full width with a depth cut (seeded random weights, f32):
+    qwen3-moe-30b-a3b (8 of 48 layers; 128 experts top-8, 32 heads over
+    4 KV heads at head dim 128) prefill at 2 x 4096 on both paths,
+    prefill vs decode, ``serve.generate`` at batch 4, a profile;
+    llama4-scout-17b-a16e (4 of 48 layers; 16 experts top-1 and a shared
+    expert every other layer, 40 heads over 8) prefill at 1 x 4096 on
+    both paths (the capacity drops tokens by JAX's tie rule), prefill vs
+    decode; the decode launcher at reduced qwen3-moe.  Returns {arch: K3
+    launches by (Sq, Sk) of one prefill}."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import backbones as BB
+
+    t_phase = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for arch, B in ((MOE_ARCH, 2), (MOE_WIDE_ARCH, 1)):
+        cfg = get_arch(arch).replace(n_layers=MOE_LAYERS[arch])
+        t0 = time.monotonic()
+        model = BB.init_params(cfg, gen, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        checks.check(n_params == MOE_PARAMS[arch],
+                     f"moe: {arch} at {cfg.n_layers} layers has {n_params} "
+                     f"parameters, want {MOE_PARAMS[arch]}")
+        name = "moe_qwen3" if arch == MOE_ARCH else "moe_llama4"
+        emit(f"{name}_params", arch=arch, n_params=n_params,
+             n_layers=cfg.n_layers, n_experts=cfg.moe.n_experts,
+             top_k=cfg.moe.top_k, init_seconds=init_s,
+             param_bytes=sum(p.numel() * p.element_size()
+                             for p in model.parameters()))
+        tokens = torch.randint(0, cfg.vocab_size, (B, 4096), generator=gen,
+                               device="cuda")
+        rec, prefill = _moe_prefill(checks, name, cfg, model, tokens)
+        out[arch] = rec["launches_by_seq"]
+        if arch == MOE_WIDE_ARCH:
+            checks.check(sum(rec["dropped_per_layer_plain"]) > 0,
+                         f"{name}: the capacity dropped no token "
+                         f"({rec['dropped_per_layer_plain']})")
+        try:       # measurements only; no check depends on them
+            prof = _profile(lambda: prefill["flash"](
+                model, {"tokens": tokens}), categories=MOE_CATEGORIES)
+            prof["idle_share_of_unprofiled_prefill"] = max(
+                0.0, 1.0 - prof["device_busy_ms"]
+                / min(rec["ms_per_prefill_kernel_path"]))
+            emit(f"{name}_profile", **prof)
+            emit(f"{name}_layer_pieces", batch=B, seq=4096,
+                 **_moe_pieces_ms(cfg, model.supers[0].moe, B, 4096))
+        except Exception as e:
+            emit(f"{name}_profile", error=repr(e))
+        _moe_prefill_vs_decode(checks, name, cfg, model, tokens)
+        if arch == MOE_ARCH:
+            # batched decode at the depth cut: serve.generate, batch 4,
+            # prompt 16, 32 new tokens
+            prompt = torch.randint(0, cfg.vocab_size, (4, 16),
+                                   generator=gen, device="cuda")
+            state = BB.prepare_decode_state(model, cfg, {}, 4, 48)
+            _zero_hybrid_counters()
+            toks, tps = serve.generate(model, cfg, state, prompt, 48, 32)
+            gen_counts = _hybrid_counters()
+            checks.check(tuple(toks.shape) == (4, 48)
+                         and int(toks.max()) < cfg.vocab_size
+                         and not any(gen_counts.values()),
+                         f"{name} generate: tokens {tuple(toks.shape)}, "
+                         f"launches {gen_counts}")
+            emit(f"{name}_generate", batch=4, prompt=16, new_tokens=32,
+                 decode_tokens_per_s=tps, launches=gen_counts)
+        del model, prefill
+        torch.cuda.empty_cache()
+
+    # the decode launcher on the card (reduced: full depth does not fit
+    # in f32)
+    argv = ["--arch", MOE_ARCH, "--reduced"]
+    _zero_hybrid_counters()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main(argv)
+    wall = time.monotonic() - t0
+    serve_counts = _hybrid_counters()
+    lines = buf.getvalue().splitlines()
+    vocab = get_arch(MOE_ARCH).reduced().vocab_size
+    checks.check(lines[0].startswith(f"arch={MOE_ARCH} batch=4 ")
+                 and tuple(toks.shape) == (4, 48)
+                 and toks.device.type == "cuda" and 0 <= int(toks.min())
+                 and int(toks.max()) < vocab
+                 and not any(serve_counts.values()),
+                 f"moe serve: {lines[:1]} tokens {tuple(toks.shape)} on "
+                 f"{toks.device}, launches {serve_counts}")
+    emit("moe_serve", argv=argv, lines=lines, launches=serve_counts,
+         wall_seconds=wall)
+    emit("moe", seconds=time.monotonic() - t_phase)
+    checks.end_phase("moe")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase hybrid_train: zamba2-1.2b trained under both objectives
 # ---------------------------------------------------------------------------
 
@@ -2560,6 +2896,10 @@ DENSE_LM_ARGS = ["--arch", DENSE_ARCH, "--objective", "lm",
                  "--global-batch", "2", "--seq-len", "4096", "--steps", "3",
                  "--log-every", "1", "--device", "cuda", "--seed", "0",
                  "--precision", "f32"]
+# phase dense_train's depth: 14 of qwen3-1.7b's 28 layers at full width
+# (JAX's rule: 7 groups of 2, as 7 groups of 4 at full depth), a cut
+# that pays for phase moe in the run's time (PERF.md § 4)
+DENSE_TRAIN_LAYERS = 14
 # qwen3-1.7b on data:1,fsdp:2 (2 gloo ranks sharing the card) at full
 # width with 4 of its 28 layers (JAX's rule recomputes each of 4 layers
 # on its own: default_remat_group(4) is 1)
@@ -3037,8 +3377,9 @@ def _dense_train_launches(dense_train, kernel):
 
 
 def phase_dense_train(checks):
-    """Full-width qwen3-1.7b trained (f32, seed 0): the LM launcher in a
-    child process (3 steps at 2 x 4096), the same init and batches here
+    """qwen3-1.7b at full width and ``DENSE_TRAIN_LAYERS`` layers trained
+    (f32, seed 0): the LM launcher in a child process (3 steps at 2 x
+    4096), the same init and batches here
     under both objectives (``_dense_lm``, ``_dense_contrastive``), and
     the contrastive objective on data:1,fsdp:2 (``_dense_mesh``), whose
     ranks start with the phase and do their host work beside the others,
@@ -3049,7 +3390,7 @@ def phase_dense_train(checks):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import backbones as BB
-    cfg = get_arch(DENSE_ARCH)
+    cfg = get_arch(DENSE_ARCH).replace(n_layers=DENSE_TRAIN_LAYERS)
     t_phase = time.monotonic()
     torch.cuda.empty_cache()      # the card's memory to the child
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_")
@@ -3058,7 +3399,7 @@ def phase_dense_train(checks):
     try:
         spawned = pool.submit(_spawn_mesh, "dense", [signal_path], 1200,
                               nproc=2)
-        child = _LauncherProcess(DENSE_LM_ARGS)
+        child = _LauncherProcess(DENSE_LM_ARGS, layers=DENSE_TRAIN_LAYERS)
         try:
             # the launcher's init, drawn on the host as the launcher draws
             # it, while the child trains (nothing of this process on the
@@ -4952,7 +5293,7 @@ def main(argv=None):
                                  "GPU (no arguments: every phase)")
     ap.add_argument("--only", default=None,
                     help="a partial run: device, build, then these phases "
-                         "(comma-separated: kernel, gcl, dense, train, "
+                         "(comma-separated: kernel, gcl, dense, moe, train, "
                          "clip_family, mesh after train, hybrid_train, "
                          "dense_train, remat_forms, resilience); no report "
                          "and no last line")
@@ -4974,7 +5315,7 @@ def main(argv=None):
                 out[name] = {
                     "kernel": phase_kernel, "gcl": phase_gcl,
                     "train": phase_train, "clip_family": phase_clip_family,
-                    "dense": phase_dense,
+                    "dense": phase_dense, "moe": phase_moe,
                     "hybrid_train": phase_hybrid_train,
                     "dense_train": phase_dense_train,
                     "remat_forms": phase_remat_forms,
@@ -4997,6 +5338,8 @@ def main(argv=None):
     mark("hybrid")
     dense = phase_dense(checks)
     mark("dense")
+    moe = phase_moe(checks)
+    mark("moe")
     import torch
     train_launches, train_rec, train_tree = phase_train(checks)
     torch.cuda.empty_cache()
@@ -5042,6 +5385,9 @@ def main(argv=None):
         elif case in ("qwen3", "qwen1p5"):
             # one full-width dense prefill (phase dense): every layer
             path, n_launch = "dense_prefill", dense[case]["4096x4096"]
+        elif case == "qwen3_moe":
+            # one qwen3-moe prefill at 8 layers (phase moe): every layer
+            path, n_launch = "moe_prefill", moe[MOE_ARCH]["4096x4096"]
         elif case.startswith("hd128_"):
             path, n_launch = "none (edge case)", 0
         elif case == "qwen3_ctr":
@@ -5078,6 +5424,10 @@ def main(argv=None):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            # phase moe: K3's launches by (Sq, Sk) in one prefill of each
+            # MoE LM (qwen3-moe 8 layers at 2 x 32 heads, llama4-scout 4
+            # at 1 x 40: the qwen1p5 case's shape); decode launches none
+            "moe_prefill_launches": moe,
             # one rank's launches in the data:2,fsdp:2 launcher run (3
             # steps at 64 rows per rank, 2 evals)
             "mesh_launches_per_rank": mesh_out["launches_per_rank"][

@@ -1,4 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    INPUT_SHAPES, ArchConfig, CLIPConfig, InputShape, SSMConfig, get_arch,
-    list_archs,
+    INPUT_SHAPES, ArchConfig, CLIPConfig, InputShape, MoEConfig, SSMConfig,
+    get_arch, list_archs,
 )

@@ -1,10 +1,11 @@
 """Architecture configuration for the PyTorch port.
 
-An own copy of ``ArchConfig``/``CLIPConfig``/``SSMConfig``, the input
-shapes and the registry: the port imports nothing of the JAX package.
-The paper's three CLIP settings (ResNet-50 on CC3M, ViT-B/32 on CC12M,
-ViT-B/16 on LAION), the hybrid ``zamba2-1.2b`` and the dense LMs
-(``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) are
+An own copy of ``ArchConfig``/``CLIPConfig``/``SSMConfig``/``MoEConfig``,
+the input shapes and the registry: the port imports nothing of the JAX
+package.  The paper's three CLIP settings (ResNet-50 on CC3M, ViT-B/32 on
+CC12M, ViT-B/16 on LAION), the hybrid ``zamba2-1.2b``, the dense LMs
+(``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) and the
+MoE LMs (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``) are
 registered here; ``reduced()`` gives the same small shapes as the JAX
 package's ``reduced()``, which is what lets the tests load one set of
 params into both packages.
@@ -37,6 +38,18 @@ def round_up(x: int, m: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff: int = 0                  # per-expert hidden size
+    every: int = 1                 # MoE layer every `every` layers
+    shared_expert: bool = False    # additional always-on expert
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3    # router z-loss (load-balance aux built in)
+    aux_coef: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     state_size: int = 0            # N (per-channel state)
     head_dim: int = 64             # P
@@ -61,7 +74,7 @@ class CLIPConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # "clip", "hybrid" and "dense" are ported
+    family: str                    # clip, hybrid, dense, moe are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -75,6 +88,7 @@ class ArchConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     sliding_window: int = 0        # 0 = full attention
+    moe: MoEConfig = MoEConfig()
     ssm: SSMConfig = SSMConfig()
     # hybrid: one shared attention block applied every this many layers
     hybrid_attn_every: int = 0
@@ -97,7 +111,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: the JAX package's ``reduced()`` for the
-        fields a CLIP, hybrid or dense config has."""
+        fields a CLIP, hybrid, dense or MoE config has."""
         kw = dict(
             n_layers=2,
             d_model=min(self.d_model, 256),
@@ -109,6 +123,10 @@ class ArchConfig:
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
         )
+        if self.moe.n_experts:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                d_ff=min(self.moe.d_ff, 128))
         if self.ssm.state_size:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_size=min(self.ssm.state_size, 16),
@@ -128,7 +146,8 @@ _REGISTRY: dict[str, ArchConfig] = {}
 
 _ARCH_MODULES = ["clip_rn50_cc3m", "clip_vitb32_cc12m", "clip_vitb16_laion",
                  "zamba2_1p2b", "qwen3_1p7b", "yi_6b", "granite_3_8b",
-                 "qwen1p5_32b"]
+                 "qwen1p5_32b", "qwen3_moe_30b_a3b",
+                 "llama4_scout_17b_a16e"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

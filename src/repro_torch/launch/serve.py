@@ -13,9 +13,9 @@ As in the JAX launcher, the prompt is prefilled by scanning
 prefill through the kernels is ``launch.steps.make_prefill_step``).  It
 runs on the card unless ``--device cpu`` is given.  ``--arch`` defaults
 to ``qwen3-1.7b``, as in the JAX launcher; the ``dense`` (qwen3-1.7b,
-yi-6b, granite-3-8b, qwen1.5-32b) and ``hybrid`` (zamba2-1.2b) families
-are ported, and any other family exits 2 (moe, vlm, audio and ssm are
-ROADMAP queue P6b).
+yi-6b, granite-3-8b, qwen1.5-32b), ``hybrid`` (zamba2-1.2b) and ``moe``
+(qwen3-moe-30b-a3b, llama4-scout-17b-a16e) families are ported, and any
+other family exits 2 (vlm, audio and ssm are ROADMAP queue P6b).
 
 Not to be confused with ``repro_torch.launch.serve_embed``, the online
 embedding service over the CLIP towers.
@@ -78,8 +78,8 @@ def main(argv=None):
     if cfg is None or cfg.family not in BB.LM_FAMILIES:
         what = f"family {cfg.family!r}" if cfg else "its config"
         print(f"serve: {args.arch}: {what} is not ported (ported: the "
-              f"{' and '.join(BB.LM_FAMILIES)} families; moe, vlm, audio "
-              f"and ssm are ROADMAP queue P6b)", file=sys.stderr)
+              f"{', '.join(BB.LM_FAMILIES)} families; vlm, audio and "
+              f"ssm are ROADMAP queue P6b)", file=sys.stderr)
         sys.exit(2)
     if args.reduced:
         cfg = cfg.reduced()

@@ -13,8 +13,9 @@
 Prefill and decode run under ``torch.inference_mode``; the LM train step
 under autograd, where the hybrid's ``forward_hidden`` recomputes each
 layer in the backward.  ``impl="flash"``, the default, is the path
-through the hand-written kernels (K3 in every dense layer and in the
-hybrid's shared attention block, K4 in every Mamba2 layer);
+through the hand-written kernels (K3 in every dense layer, in the
+hybrid's shared attention block and in every attention block of the MoE
+LMs, K4 in every Mamba2 layer);
 ``"chunked"``/``"naive"`` are the plain PyTorch
 paths (the JAX package's default is ``"chunked"``).  ``donated_jit`` has
 no counterpart (PyTorch runs eagerly; the LM step updates the model's

@@ -23,7 +23,9 @@ sequence length.  Under autograd an LM backbone recomputes in the
 backward as JAX's does (``backbones.forward_hidden``: the dense stack
 under JAX's grouped recompute).  Every contrastive run ends with the
 ``retrieval accuracy:`` line; ``--eval-every`` evaluates CLIP archs
-only.
+only.  The MoE LMs (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``)
+serve but do not train here yet: their archs exit 2 (ROADMAP queue
+P6b).
 
 The defaults reach the hand-written kernels: ``--impl flash`` (the
 attention in both towers) and ``--loss-impl fused`` (K1 and K2, the FCCO
@@ -291,7 +293,12 @@ def parse_args(argv=None):
     except KeyError:
         ap.error(f"--arch {args.arch}: its config is not ported to "
                  f"repro_torch (ported: the {', '.join(BB.FAMILIES)} "
-                 "families; moe, vlm, audio and ssm are ROADMAP queue P6b)")
+                 "families; vlm, audio and ssm are ROADMAP queue P6b)")
+    if cfg.family not in BB.TRAIN_FAMILIES:
+        ap.error(f"--arch {args.arch}: training the {cfg.family} family is "
+                 "not ported to repro_torch (it serves: repro_torch.launch."
+                 "serve; its training, JAX's grouped recompute carrying "
+                 "the aux losses, is ROADMAP queue P6b)")
     if args.mesh and cfg.family != "clip" and args.objective == "lm":
         raise SystemExit("--mesh drives the contrastive trainer; the LM "
                          "shapes run on the production mesh via "

@@ -39,8 +39,19 @@ backward; without grad (prefill, decode, eval) nothing is recomputed.
 A recompute runs with the weights its layers held at the call
 (``torch.func.functional_call`` of them), so that it also runs after the
 mesh step's ``functional_call`` of the gathered weights has returned.
-The moe, vlm, audio and ssm families raise ``NotImplementedError``
-(ROADMAP, queue P6b).
+
+The MoE depth pattern is ``[dense? + attn + moe] x (L // every)``:
+``supers`` is a ModuleList of super-blocks, each an ``attn_blk`` (a
+``transformer.Block`` with ``mlp="none"``), a ``moe`` (``models.moe``)
+and, when ``moe.every == 2``, a ``dense_blk`` (a swiglu block run
+first); the JAX paths are ``supers/moe/w_gate`` (n_super, E, d, d_ff)
+and so on.  Its aux losses (``moe_lb``, ``moe_z``) are averaged over
+the super-blocks.  It serves (prefill, decode; decode keeps ``moe_kv``
+and, with ``every == 2``, ``dense_kv``) but does not train yet: under
+autograd its ``forward_hidden`` raises ``NotImplementedError`` (JAX's
+grouped recompute carrying the aux losses is ROADMAP queue P6b's MoE
+training).  The vlm, audio and ssm families raise
+``NotImplementedError`` (ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
@@ -57,14 +68,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import clip as C
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import precision as PR
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 CONTRASTIVE_DIM = 512   # joint embedding dim for the contrastive objective
 PAIR_DIM = 512          # stub paired-modality embedding dim
-FAMILIES = ("clip", "hybrid", "dense")
-LM_FAMILIES = ("hybrid", "dense")
+FAMILIES = ("clip", "hybrid", "dense", "moe")
+LM_FAMILIES = ("hybrid", "dense", "moe")
+# the families that train (the MoE LMs serve only; ROADMAP queue P6b)
+TRAIN_FAMILIES = ("clip", "hybrid", "dense")
 
 
 def _check_family(cfg: ArchConfig, *families) -> None:
@@ -132,7 +146,30 @@ class DenseLM(_LM):
         self.blocks = T.make_stack(cfg, cfg.n_layers, mlp="swiglu")
 
 
-_MODELS = {"clip": C.CLIP, "hybrid": HybridLM, "dense": DenseLM}
+class MoESuperBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        spec = T.attn_spec(cfg)
+        self.attn_blk = T.Block(cfg, spec, mlp="none")
+        self.moe = M.MoE(cfg)
+        if cfg.moe.every == 2:
+            self.dense_blk = T.Block(cfg, spec, mlp="swiglu")
+
+
+class MoELM(_LM):
+    """``_LM``'s parameters, then ``supers/...``: ``supers/attn_blk/...``
+    (no ``mlp``; ``n2`` unused, as in JAX), ``supers/moe/...`` and, for
+    an MoE layer every other layer, ``supers/dense_blk/...``."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        n_super = cfg.n_layers // cfg.moe.every
+        self.supers = nn.ModuleList(MoESuperBlock(cfg)
+                                    for _ in range(n_super))
+
+
+_MODELS = {"clip": C.CLIP, "hybrid": HybridLM, "dense": DenseLM,
+           "moe": MoELM}
 
 
 def _empty(cfg: ArchConfig, device) -> nn.Module:
@@ -235,18 +272,39 @@ def _mamba(m, cfg, impl, chunked):
 def forward_hidden(model, cfg: ArchConfig, batch, *,
                    impl="flash", chunked=True, precision=PR.F32):
     """Token path -> (final hidden states (B, S, d) after the final norm,
-    aux losses {}).  ``impl`` reaches every attention layer (K3 for
-    "flash": each dense layer, the hybrid's shared block) and every
-    Mamba2 layer (K4 for "flash"; see ``models.ssm``); ``chunked=False``
-    runs the sequential SSD.  With grad enabled, each Mamba2 layer and
+    aux losses: {} but for the MoE family's ``moe_lb`` / ``moe_z``,
+    averaged over its super-blocks).  ``impl`` reaches every attention
+    layer (K3 for "flash": each dense layer, the hybrid's shared block,
+    each attention block of the MoE LMs) and every Mamba2 layer (K4 for
+    "flash"; see ``models.ssm``); ``chunked=False`` runs the sequential
+    SSD.  With grad enabled, each Mamba2 layer and
     each call of the hybrid's shared block is recomputed once in the
     backward (JAX's ``remat=True`` scans), and the dense stack under
     JAX's grouped recompute (``layers.run_layers_grouped``); a recompute
-    changes no number."""
+    changes no number.  The MoE family raises under autograd (it does
+    not train yet)."""
     _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
     remat = torch.is_grad_enabled()
+    if cfg.family == "moe":
+        if remat:
+            raise NotImplementedError(
+                "the moe family serves but does not train in repro_torch "
+                "yet: its forward under autograd needs JAX's grouped "
+                "recompute carrying the aux losses (ROADMAP queue P6b, "
+                "MoE training); run it under torch.no_grad / "
+                "inference_mode")
+        lb = z = 0.0
+        for sup in model.supers:
+            if hasattr(sup, "dense_blk"):
+                x = sup.dense_blk(x, impl=impl)
+            x = sup.attn_blk(x, impl=impl)
+            x, a = M.apply_moe(sup.moe, cfg, x)
+            lb, z = lb + a["moe_lb"], z + a["moe_z"]
+        n_super = len(model.supers)
+        return model.final_norm(x), {"moe_lb": lb / n_super,
+                                     "moe_z": z / n_super}
     if cfg.family == "dense":
         def layer(blk, h):
             return blk(h, impl=impl)
@@ -311,7 +369,9 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
                       dtype=torch.bfloat16, *, window_override=None,
                       device=None):
     """Zero decode caches.  Dense: ``kv``, one KV cache per layer
-    (leading axis n_layers).  Hybrid: ``mambas`` (conv and SSD state with
+    (leading axis n_layers).  MoE: ``moe_kv``, one per attention block
+    (leading axis n_super), and ``dense_kv`` for the dense blocks when
+    ``moe.every == 2``.  Hybrid: ``mambas`` (conv and SSD state with
     leading axes (n_super, every)), ``shared_kv`` (one KV cache per call
     of the shared block, leading axis n_super) and ``tail``."""
     _check_family(cfg, *LM_FAMILIES)
@@ -320,6 +380,14 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
     if cfg.family == "dense":
         return {"kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
                                       device, lead=(cfg.n_layers,))}
+    if cfg.family == "moe":
+        n_super = cfg.n_layers // cfg.moe.every
+        st = {"moe_kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
+                                        device, lead=(n_super,))}
+        if cfg.moe.every == 2:
+            st["dense_kv"] = A.init_kv_cache(spec, batch_size, max_len,
+                                             dtype, device, lead=(n_super,))
+        return st
     every = cfg.hybrid_attn_every
     n_super = cfg.n_layers // every
     rem = cfg.n_layers - n_super * every
@@ -335,8 +403,8 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
 def prepare_decode_state(model, cfg: ArchConfig, batch,
                          batch_size, max_len, dtype=torch.float32, *,
                          window_override=None):
-    """Decode state on the model's device.  The hybrid and dense families
-    have no cross-attention caches to fill; feed the prompt through
+    """Decode state on the model's device.  The hybrid, dense and MoE
+    families have no cross-attention caches to fill; feed the prompt through
     ``decode_step`` to fill the self caches."""
     return init_decode_state(cfg, batch_size, max_len, dtype,
                              window_override=window_override,
@@ -357,6 +425,17 @@ def decode_step(model, cfg: ArchConfig, state, token, pos: int,
     if cfg.family == "dense":
         for i, blk in enumerate(model.blocks):
             x, _ = blk.decode(at(state["kv"], i), x, pos, window_override)
+        x = model.final_norm(x)
+        return logits_from_hidden(model, cfg, x)[:, 0], state
+
+    if cfg.family == "moe":
+        for s, sup in enumerate(model.supers):
+            if hasattr(sup, "dense_blk"):
+                x, _ = sup.dense_blk.decode(at(state["dense_kv"], s), x,
+                                            pos, window_override)
+            x, _ = sup.attn_blk.decode(at(state["moe_kv"], s), x, pos,
+                                       window_override)
+            x, _ = M.apply_moe(sup.moe, cfg, x)
         x = model.final_norm(x)
         return logits_from_hidden(model, cfg, x)[:, 0], state
 

@@ -36,26 +36,33 @@ _MLPS = {"gelu": L.GeluMLP, "swiglu": L.SwiGLU}
 
 class Block(nn.Module):
     """Pre-norm block with rmsnorm and an MLP: ``mlp="gelu"`` (the CLIP
-    text tower) or ``"swiglu"`` (the JAX ``init_block`` default: the
-    hybrid LM's shared block, the dense LMs' layers)."""
+    text tower), ``"swiglu"`` (the JAX ``init_block`` default: the
+    hybrid LM's shared block, the dense LMs' layers) or ``"none"`` (the
+    MoE LMs' attention block, whose MLP is the MoE layer after it: it
+    keeps ``n2`` unused, as JAX's ``init_block`` does)."""
 
     def __init__(self, cfg: ArchConfig, spec: A.AttnSpec, mlp="gelu"):
         super().__init__()
         self.n1 = L.RMSNorm(cfg.d_model)
         self.attn = A.Attention(spec)
         self.n2 = L.RMSNorm(cfg.d_model)
-        self.mlp = _MLPS[mlp](cfg.d_model, cfg.d_ff)
+        if mlp != "none":
+            self.mlp = _MLPS[mlp](cfg.d_model, cfg.d_ff)
+
+    def _mlp(self, x):
+        if not hasattr(self, "mlp"):
+            return x
+        return x + self.mlp(self.n2(x))
 
     def forward(self, x, *, impl="flash"):
         x = x + self.attn(self.n1(x), impl=impl)
-        return x + self.mlp(self.n2(x))
+        return self._mlp(x)
 
     def decode(self, cache, x, pos: int, window=None):
         """One-token decode (``decode_block``); ``cache`` is the block's
         KV cache, updated in place.  Returns ``(x, cache)``."""
         h, cache = self.attn.decode(cache, self.n1(x), pos, window)
-        x = x + h
-        return x + self.mlp(self.n2(x)), cache
+        return self._mlp(x + h), cache
 
 
 def make_stack(cfg: ArchConfig, n_layers: int, mlp="gelu") -> nn.ModuleList:

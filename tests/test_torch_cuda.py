@@ -873,3 +873,116 @@ def test_differentiable_gathers_reduce_scatter_on_the_card(two_rank_checks):
     gather) sums the ranks' cotangents onto this rank's block."""
     c = two_rank_checks
     assert c["gather_params_backward"] and c["gather_axes_backward"]
+
+
+# ---------------------------------------------------------------------------
+# The MoE LMs: routing by JAX's tie rule on the card, K3 in every
+# attention block, deterministic combine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((2, 16, 4096), 320),
+                                     ((2, 128, 4096), 320),
+                                     ((4, 64, 128), 8)])
+def test_moe_top_k_ties_on_card_equal_cpu(cuda, shape, k):
+    """``models.moe.top_k`` on rows full of ties (1.0 / 0.0, what top-1
+    routing gives the capacity top-k; a few levels, as router
+    probabilities that tie): the card's picks and their order equal the
+    CPU's, which the CPU tests hold to ``jax.lax.top_k``."""
+    from repro_torch.models import moe as M
+    rng = np.random.default_rng(shape[-1] + k)
+    for x in ((rng.random(shape) < 0.3).astype(np.float32),
+              rng.integers(0, 4, shape).astype(np.float32) / 4):
+        cv, ci = M.top_k(torch.from_numpy(x), k)
+        gv, gi = M.top_k(torch.from_numpy(x).cuda(), k)
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv)
+
+
+def _record_routes(M, into, replay=None):
+    """``models.moe.route`` wrapped: records each call's result into
+    ``into``, or returns ``replay``'s results in call order."""
+    orig = M.route
+    calls = iter(replay or ())
+
+    def wrapped(*a):
+        r = next(calls) if replay is not None else orig(*a)
+        into.append(r)
+        return r
+    return orig, wrapped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_reduced_moe_prefill_flash_matches_plain_with_replayed_routes(
+        cuda, arch):
+    """A reduced MoE prefill at head dim 128 on the card: one K3 launch
+    per attention block, the last-position logits within 1e-4 of the
+    plain path (chunked attention) when the kernel path replays the
+    plain path's routing decisions (unforced, a routing decision may
+    flip on a 1e-7 difference), and of the sequential decode at
+    capacity 64 within 5e-3 (no launch)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    from repro_torch.models import moe as M
+    cfg = get_arch(arch).reduced().replace(head_dim=128, n_layers=4)
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 90), generator=cuda,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    plain_routes, flash_routes = [], []
+    orig, rec = _record_routes(M, plain_routes)
+    try:
+        M.route = rec
+        want = steps.make_prefill_step(cfg, impl="chunked")(model, batch)
+        M.route = _record_routes(M, flash_routes, plain_routes)[1]
+        k3 = FA.flash_attention.launches
+        got = steps.make_prefill_step(cfg, impl="flash")(model, batch)
+        k3 = FA.flash_attention.launches - k3
+    finally:
+        M.route = orig
+    n_super = cfg.n_layers // cfg.moe.every
+    assert len(plain_routes) == n_super == len(flash_routes)
+    assert k3 == n_super * (2 if cfg.moe.every == 2 else 1)
+    assert (got - want).abs().max().item() <= 1e-4
+    wide = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                               capacity_factor=64.0))
+    full = steps.make_prefill_step(wide, impl="flash")(model, batch)
+    state = BB.prepare_decode_state(model, wide, {}, 2, 90)
+    k3 = FA.flash_attention.launches
+    with torch.inference_mode():
+        for t in range(90):
+            lg, state = BB.decode_step(model, wide, state,
+                                       tokens[:, t:t + 1], t)
+    assert FA.flash_attention.launches == k3
+    assert (lg - full[:, 0]).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_layer_on_card_is_bitwise_repeatable(cuda, arch):
+    """Two calls of ``apply_moe`` on the card give the same bits (the
+    combine gathers; no atomics), at a shape with capacity drops; the
+    result within 2e-5 of the same layer on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    cfg = get_arch(arch).reduced()
+    mod = M.MoE(cfg)
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    mod.norm.reset_parameters()
+    if hasattr(mod, "shared"):
+        mod.shared.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.randn((4, 256, cfg.d_model), generator=torch.Generator(
+    ).manual_seed(2))
+    with torch.inference_mode():
+        cpu, _ = M.apply_moe(mod, cfg, x)
+        mod = mod.cuda()
+        a, aux_a = M.apply_moe(mod, cfg, x.cuda())
+        b, aux_b = M.apply_moe(mod, cfg, x.cuda())
+    assert torch.equal(a, b)
+    assert all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
+    assert (a.cpu() - cpu).abs().max().item() <= 2e-5
