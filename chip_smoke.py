@@ -104,12 +104,12 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    prefill vs ``decode_step`` over 256 tokens at capacity factor 64
    (no launch); ``serve.generate`` at batch 4 (qwen3-moe); the decode
    launcher at ``--reduced``;
-12. hybrid_train -- ``zamba2-1.2b`` at full width with 20 of its 38
+12. hybrid_train -- ``zamba2-1.2b`` at full width with 8 of its 38
    layers (a depth cut, PERF.md § 4) trained (f32, seed 0) under both
    objectives: ``repro_torch.launch.train --objective lm`` at 2 x 4096
    and the contrastive (v3) run at 64 x 256, each launcher in a child
    process for 3 steps (exit 0, step lines, ms per step, peak memory,
-   launches exact: 40 K4 calls, 160 CUDA launches and 6 K3 per step
+   launches exact: 16 K4 calls, 64 CUDA launches and 2 K3 per step
    under the recompute, plus one K1 and one K2 call for the
    contrastive loss; step-0 loss equal to this process's; every step's
    loss, and the contrastive run's other metrics at steps 0 and 1,
@@ -197,13 +197,13 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-18. dense_train -- ``qwen3-1.7b`` at full width with 14 of its 28
+18. dense_train -- ``qwen3-1.7b`` at full width with 10 of its 28
    layers (``DENSE_TRAIN_LAYERS``, a depth cut for the run's time)
-   trained (f32, seed 0, JAX's grouped recompute: 7 groups of 2 layers,
+   trained (f32, seed 0, JAX's grouped recompute: 2 groups of 5 layers,
    each recomputed once):
    ``repro_torch.launch.train --objective lm`` at 2 x 4096 in a child
    process for 3 steps (exit 0, step lines, ms per step, peak memory,
-   launches exact: 14 K3 forwards and 14 in the recompute per step, no
+   launches exact: 10 K3 forwards and 10 in the recompute per step, no
    K1, K2 or K4; step-0 loss equal to this process's; every step's loss
    within rtol 1e-4 of the plain path); here, from the same init and
    batches: a profiled step by kind of kernel, then the same step timed
@@ -219,20 +219,39 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    together): exit codes, launches per rank exact, ms per step and peak
    memory per rank, each step against one device from the same state
    (loss 1e-5, log-u 1e-4, moments and update per group of leaves, as
-   phase clip_family's mesh); last, so that its failure hides no
-   earlier phase's result;
-19. report -- the kernels JSON line, the card line, and the last line
+   phase clip_family's mesh);
+19. moe_train -- ``qwen3-moe-30b-a3b`` at full width with 3 of its 48
+   layers (``MOE_TRAIN_LAYERS``: a step at 4 does not fit the card)
+   trained (f32, seed 0; JAX's rule recomputes each super-block on its
+   own): the LM launcher at 2 x 4096 in a child process for 3 steps
+   (exit 0, step lines with ``moe_lb`` and ``moe_z``, launches exact: 3
+   K3 forwards and 3 in the recompute per step, ms per step, peak
+   memory, step-0 loss equal to this process's); here, from the same
+   init and batch: a profiled step by kind of kernel and the same step
+   timed (launches, peak, idle share), the kernel path's step-0
+   gradients twice (equal to the bit, each recompute routing as its
+   forward), the plain path's on the kernel path's routes within 1e-4
+   relative L2 per leaf, the unforced routing's differences under
+   ``MOE_ROUTE_DIFF_CEILING``, ``_FlashMHA``'s and the dispatch's
+   backward timed at the layer shape; the contrastive objective at 64 x
+   256 (2 timed steps with one K1 and one K2 call each, the gradient
+   check as above); ``data:1,fsdp:2`` at 1 of the 48 layers as phase
+   dense_train's; last, so that its failure hides no earlier phase's
+   result;
+20. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
 of JAX or of the JAX package.  ``--only kernel,resilience`` (a partial
 run for development) runs phases device and build, then the named
-phases, and prints no report.  One phase runs only so: ``remat_forms``,
+phases, and prints no report.  Two phases run only so: ``remat_forms``,
 a diagnostic that times full-width ``qwen3-1.7b``'s LM step at 2 x 4096
 under the port's one-level grouped recompute against JAX's nested form
 (a recompute of each layer inside its group's, written here: the port
 does not carry it), each twice, their launches exact and their states
-equal to the bit.
+equal to the bit; ``moe_depth``, which tries one qwen3-moe LM step at
+4 layers and reports its peak (the measurement behind
+``MOE_TRAIN_LAYERS``).
 """
 from __future__ import annotations
 
@@ -507,6 +526,10 @@ KERNEL_CASES = [
     # qwen1p5's shape
     ("qwen3_moe", 2, 32, 4096, 4096, 128, True, 0, "float32", True),
     ("qwen3_moe", 2, 32, 4096, 4096, 128, True, 0, "bfloat16", True),
+    # qwen3-moe's contrastive training (phase moe_train): 64 x 256, and a
+    # rank's 32 rows of it on data:1,fsdp:2
+    ("qwen3_moe_ctr", 64, 32, 256, 256, 128, True, 0, "float32", True),
+    ("qwen3_moe_mesh", 32, 32, 256, 256, 128, True, 0, "float32", True),
     # edge cases at head dim 128, timed too (on no main path)
     ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "float32", True),
     ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "bfloat16", True),
@@ -2073,10 +2096,14 @@ MOE_CATEGORIES = (
 class _Routes:
     """Within the block, ``models.moe.route`` records each call's result
     (``record``) or returns ``replay``'s results in call order; the
-    package has no option for either."""
+    package has no option for either.  ``rederive``: a replayed call
+    keeps the recorded choices and picks but takes their values from its
+    own probabilities (``_forced_route``), so that gradients reach its
+    router."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, rederive=False):
         self.replay = None if replay is None else list(replay)
+        self.rederive = rederive
         self.calls = []
 
     def __enter__(self):
@@ -2085,8 +2112,14 @@ class _Routes:
         it = iter(self.replay or ())
 
         def wrapped(*a):
-            r = next(it) if self.replay is not None else self.orig(*a)
-            self.calls.append(r)
+            if self.replay is None:
+                r = self.orig(*a)
+            elif self.rederive:
+                r = _forced_route(*a, next(it))
+            else:
+                r = next(it)
+            # detached: a recompute's route keeps no graph alive
+            self.calls.append(type(r)(*(t.detach() for t in r)))
             return r
         M.route = wrapped
         return self
@@ -2365,11 +2398,11 @@ def phase_moe(checks):
 # --loss-impl fused are the defaults): the LM objective at the prefill
 # phase's 2 x 4096, the contrastive one at the JAX launcher's default
 # batch, 64, with one full 256-token chunk per row
-# phase hybrid_train's depth: 20 of zamba2-1.2b's 38 layers (3 of its 6
-# super-blocks, so 3 calls of the shared block, and the 2-layer tail) at
-# full width, a cut that keeps the whole run inside its time (PERF.md
-# § 4)
-HYBRID_TRAIN_LAYERS = 20
+# phase hybrid_train's depth: 8 of zamba2-1.2b's 38 layers (1 of its 6
+# super-blocks, so 1 call of the shared block, and the 2-layer tail) at
+# full width, a cut that keeps the whole run inside its time (20 before
+# phase moe_train; PERF.md § 4)
+HYBRID_TRAIN_LAYERS = 8
 HYBRID_LM_ARGS = ["--arch", HYBRID_ARCH, "--objective", "lm",
                   "--global-batch", "2", "--seq-len", "4096", "--steps",
                   "3", "--log-every", "1", "--device", "cuda", "--seed",
@@ -2388,7 +2421,7 @@ TOL_HYBRID_BF16 = 1e-2
 # TOL_TRAIN_GRAD against the plain path is below f32's floor at full
 # depth: two plain f32 paths, the SSD at chunk 256 and at 128, differ by
 # 1.07e-4 relative L2 per leaf (median; 259 of 356 leaves over 1e-4).
-# Readings at HYBRID_TRAIN_LAYERS (H100, full width, seed 0; PERF.md),
+# Readings at 20 layers (H100, full width, seed 0; PERF.md),
 # worst leaf, kernel path / plain f32 path / the kernel path in bf16 (a
 # control): LM 8.01e-5 / 7.95e-5 / ~1; contrastive 4.87e-3 / 9.55e-2 /
 # ~3 (its random-init loss cancels, so rounding in the towers is
@@ -2896,10 +2929,11 @@ DENSE_LM_ARGS = ["--arch", DENSE_ARCH, "--objective", "lm",
                  "--global-batch", "2", "--seq-len", "4096", "--steps", "3",
                  "--log-every", "1", "--device", "cuda", "--seed", "0",
                  "--precision", "f32"]
-# phase dense_train's depth: 14 of qwen3-1.7b's 28 layers at full width
-# (JAX's rule: 7 groups of 2, as 7 groups of 4 at full depth), a cut
-# that pays for phase moe in the run's time (PERF.md § 4)
-DENSE_TRAIN_LAYERS = 14
+# phase dense_train's depth: 10 of qwen3-1.7b's 28 layers at full width
+# (JAX's rule: 2 groups of 5, as 7 groups of 4 at full depth), a cut
+# that pays for phases moe and moe_train in the run's time (14 before
+# phase moe_train; PERF.md § 4)
+DENSE_TRAIN_LAYERS = 10
 # qwen3-1.7b on data:1,fsdp:2 (2 gloo ranks sharing the card) at full
 # width with 4 of its 28 layers (JAX's rule recomputes each of 4 layers
 # on its own: default_remat_group(4) is 1)
@@ -3232,17 +3266,93 @@ def _signal(path, word):
         os.replace(path + ".tmp", path)
 
 
-def _mesh_worker_dense(argv):
-    """One rank of qwen3-1.7b (``DENSE_MESH_LAYERS`` layers, full width)
-    on data:1,fsdp:2 (2 ranks sharing the card; spawned by phase
-    dense_train, never by hand): the init on the host, then, once
-    ``argv[0]`` says "go" (the phase's other runs have left the card), 2
-    contrastive ZeRO steps over the rank's rows, the launches and ms of
-    each; on rank 0 each step against one single-device step on the same
-    global batch from the same state, as ``_mesh_worker_family``."""
+def _mesh_local_vs_one(mesh, dims, start, now, one, loss_one, loss_mesh):
+    """``_mesh_vs_one``'s report from this rank's shards alone: the mesh's
+    state after a step (``now``) against one device's after the same step
+    from the same ``start`` (``one``: this rank's slices of it, on the
+    host), all flat; each sum over a sharded leaf or a sample-owned row
+    added over the ranks (a replicated leaf counted once), each max taken
+    over them."""
+    import torch
+    import torch.distributed as dist
+    groups = _leaf_groups(dims)
+    params = [p for ps in groups.values() for p in ps]
+    # per leaf: |du - du_one|^2, |du_one|^2, |m - m_one|^2, |m_one|^2,
+    # entries more than 5e-5 from one device's
+    sums = torch.zeros((len(params), 5), dtype=torch.float64)
+    dparam = dlogu = 0.0
+    for i, p in enumerate(params):
+        if dims[p] is None and mesh.rank:
+            continue
+        x, x0 = now[f"params/{p}"], start[f"params/{p}"]
+        y = one[f"params/{p}"].to(x.device)
+        du, du_one = (x - x0).double(), (y - x0).double()
+        m = now[f"opt/m/{p}"].double()
+        m_one = one[f"opt/m/{p}"].to(x.device).double()
+        d = (x - y).abs()
+        sums[i] = torch.stack([(du - du_one).square().sum(),
+                               du_one.square().sum(),
+                               (m - m_one).square().sum(),
+                               m_one.square().sum(),
+                               (d > 5e-5).sum().double()]).cpu()
+        dparam = max(dparam, float(d.max()))
+    for k in now:
+        if k.startswith(("fc/u1", "fc/u2")):
+            a = now[k].double()
+            b = one[k].to(a.device).double()
+            d = (a - b).abs()
+            d[a == b] = 0.0                      # matching -inf log-u rows
+            dlogu = max(dlogu, float(d.max()) if d.numel() else 0.0)
+    maxes = torch.tensor([dparam, dlogu], dtype=torch.float64)
+    dist.all_reduce(sums)
+    dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
+    s = sums.tolist()
+    at = {p: i for i, p in enumerate(params)}
+
+    def rel(num, den):
+        return math.sqrt(num / max(den, 1e-300))
+
+    def group_rel(ps, a, b):
+        return rel(sum(s[at[p]][a] for p in ps), sum(s[at[p]][b] for p in ps))
+    leaf_upd = {p: rel(s[at[p]][0], s[at[p]][1]) for p in params}
+    leaf_mom = {p: rel(s[at[p]][2], s[at[p]][3]) for p in params}
+    return dict(
+        moment_rel_l2={g: group_rel(ps, 2, 3) for g, ps in groups.items()},
+        update_rel_l2={g: group_rel(ps, 0, 1) for g, ps in groups.items()},
+        same_keys=sorted(now) == sorted(one),
+        dloss=abs(loss_mesh - loss_one), dparam=float(maxes[0]),
+        dlogu=float(maxes[1]),
+        params_over_5e_5=int(sum(r[4] for r in s)),
+        params_moved=sum(r[1] > 0 for r in s), params=len(params),
+        update_worst_leaf=max(leaf_upd, key=leaf_upd.get),
+        update_worst_rel_l2=max(leaf_upd.values()),
+        moment_worst_leaf=max(leaf_mom, key=leaf_mom.get),
+        moment_worst_rel_l2=max(leaf_mom.values()))
+
+
+def _to(tree, device):
+    """A nested dict of tensors, each leaf moved to ``device``."""
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _mesh_worker_lm(argv, arch, layers):
+    """One rank of ``arch`` at full width and ``layers`` layers (phase
+    dense_train's qwen3-1.7b, phase moe_train's qwen3-moe) on
+    data:1,fsdp:2 (2 ranks sharing the card; spawned by those phases,
+    never by hand): the init on the host; once ``argv[0]`` says "go",
+    each rank in turn runs one device's 2 steps on the whole global
+    batch from the init and keeps its own shards of the state after each
+    on the host (the card holds one whole state at a time); then the 2
+    contrastive ZeRO steps over the rank's rows, their launches and ms,
+    the first from the init and the second from one device's state after
+    its first step, each held to one device's step from the same state
+    through this rank's shards alone (``_mesh_local_vs_one``: gathering
+    the whole states over gloo took ~23 s a step at qwen3-moe's 1.25 B
+    parameters)."""
     import dataclasses
     import torch
-    from repro_torch.checkpoint import bridge, flatten, unflatten
+    from repro_torch.checkpoint import bridge, flatten
     from repro_torch.configs import get_arch
     from repro_torch.core import shard_state as SS
     from repro_torch.core import train_step as TS
@@ -3258,7 +3368,7 @@ def _mesh_worker_dense(argv):
     try:
         mesh = MS.make_train_mesh(1, 2, device=dev)
         rep["backend"] = mesh.backend
-        cfg = get_arch(DENSE_ARCH).replace(n_layers=DENSE_MESH_LAYERS)
+        cfg = get_arch(arch).replace(n_layers=layers)
         tc1 = dataclasses.replace(_hybrid_ctr_config(cfg, "flash", "fused"),
                                   lr_fn=lr_warmup_cosine(HYBRID_LR, 0, 2))
         step = TS.make_train_step(dataclasses.replace(
@@ -3268,28 +3378,41 @@ def _mesh_worker_dense(argv):
         st1 = TS.init_train_state(torch.Generator().manual_seed(0), tc1,
                                   "cpu")
         rep["n_params"] = sum(p.numel() for p in st1["params"].parameters())
-        tree = unflatten({k: v.clone() for k, v in flatten(
-            bridge.state_to_tree(st1)).items()})
-        # the host's part is done; the card is the phase's to give
+        # the init's leaves themselves: nothing writes to them
+        tree = bridge.state_to_tree(st1)
         if _await_signal(signal_path) != "go":
             rep["stopped"] = True
             print(json.dumps(rep), flush=True)
             return
-        s = SS.shard_train_state(tree, mesh, dims)
-        if rank == 0:
-            # rank 0 holds the whole states on the card and compares them
-            # there (on the host, ~1.5 B entries in f64 took ~20 s a step)
-            tree = unflatten({k: v.cuda() for k, v in flatten(tree).items()})
+        full = _dense_mesh_batches(cfg, rank, 2, full=True)
+        t0 = time.monotonic()
+        ones, loss_one = [], []
+        for turn in range(mesh.world_size):
+            if turn == rank:
+                st = bridge.state_from_tree(
+                    {**st1, "params": st1["params"].cuda()}, tree)
+                fn1 = TS.make_train_step(tc1, "cuda")
+                for idx, batch in full:
+                    st, m1 = fn1(st, batch, idx)
+                    loss_one.append(float(m1["loss"]))
+                    ones.append(_to(SS.shard_train_state(
+                        bridge.state_to_tree(st), mesh, dims), "cpu"))
+                del st, st1, fn1
+                # this rank's shards of the init, the first step's start
+                s = SS.shard_train_state(tree, mesh, dims)
+                del tree
+                torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        rep["one_device_seconds"] = time.monotonic() - t0
         local = _dense_mesh_batches(cfg, rank, 2, full=False)
-        full = (_dense_mesh_batches(cfg, rank, 2, full=True)
-                if rank == 0 else None)
-        fn1 = TS.make_train_step(tc1, "cuda") if rank == 0 else None
         torch.cuda.reset_peak_memory_stats()
         for k, (idx, batch) in enumerate(local):
+            if k:
+                s = _to(ones[k - 1], dev)      # one device's start
+            start = {p: v.clone() for p, v in flatten(s).items()
+                     if p.startswith("params/")}
             torch.cuda.synchronize()
-            # both ranks start the step together: rank 0's comparison
-            # with one device is not in either rank's step time
-            torch.distributed.barrier()
+            torch.distributed.barrier()      # both ranks start together
             _zero_counters()
             t0 = time.monotonic()
             s, m = step(s, batch, idx)
@@ -3300,17 +3423,13 @@ def _mesh_worker_dense(argv):
             if k == 0:
                 rep["max_memory_allocated_step"] = (
                     torch.cuda.max_memory_allocated())
-            after = flatten(SS.gather_train_state(s, mesh, dims))
-            if rank == 0:
-                st1 = bridge.state_from_tree(
-                    {**st1, "params": st1["params"].cuda()}, tree)
-                st1, m1 = fn1(st1, full[k][1], full[k][0])
-                one = flatten(bridge.state_to_tree(st1))
-                res.update(_mesh_vs_one(after, one, tree, float(m1["loss"]),
-                                        res["loss"], dims))
-                del one
+            t1 = time.monotonic()
+            res.update(_mesh_local_vs_one(mesh, dims, start, flatten(s),
+                                          flatten(ones[k]), loss_one[k],
+                                          res["loss"]))
+            res["compare_s"] = time.monotonic() - t1
             rep["steps"].append(res)
-            tree = unflatten(after)           # the next step's start
+            del start
         rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     finally:
         MS.set_mesh(None)
@@ -3318,16 +3437,19 @@ def _mesh_worker_dense(argv):
     print(json.dumps(rep), flush=True)
 
 
-def _dense_mesh(checks, spawned, t0):
-    """P6a': qwen3-1.7b's contrastive objective on data:1,fsdp:2 (2 gloo
-    ranks on the card) at full width and ``DENSE_MESH_LAYERS`` layers, 2
-    steps that both move the params, each against one device from the
-    same state at phase rn50_mesh's bounds (loss 1e-5 and log-u 1e-4 max
-    abs; moments and update by relative L2 per group of leaves); exact
-    launches per rank and step.  ``spawned``: the ranks' future (started
-    at ``t0``, told to go)."""
+def _dense_mesh(checks, spawned, t0, arch=DENSE_ARCH,
+                layers=DENSE_MESH_LAYERS, name="dense_train_mesh",
+                phase="dense_train"):
+    """P6a': an LM backbone's contrastive objective on data:1,fsdp:2 (2
+    gloo ranks on the card) at full width and ``layers`` layers
+    (qwen3-1.7b at ``DENSE_MESH_LAYERS``, or qwen3-moe at
+    ``MOE_MESH_LAYERS``), 2 steps that both move the params, each
+    against one device from the same state at phase rn50_mesh's bounds
+    (loss 1e-5 and log-u 1e-4 max abs; moments and update by relative L2
+    per group of leaves); exact launches per rank and step.
+    ``spawned``: the ranks' future (started at ``t0``, told to go)."""
     from repro_torch.configs import get_arch
-    cfg = get_arch(DENSE_ARCH).replace(n_layers=DENSE_MESH_LAYERS)
+    cfg = get_arch(arch).replace(n_layers=layers)
     t_go = time.monotonic()
     res, reps = spawned.result()
     wall = time.monotonic() - t0
@@ -3336,13 +3458,13 @@ def _dense_mesh(checks, spawned, t0):
         if r.returncode:
             print(r.stderr[-3000:], file=sys.stderr, flush=True)
     checks.check(rcs == [0, 0] and all(reps),
-                 f"dense_train_mesh: exit codes {rcs}")
-    checks.end_phase("dense_train")
+                 f"{name}: exit codes {rcs}")
+    checks.end_phase(phase)
     want = _dense_step_launches(cfg, 1, True)
     want = {k: v for k, v in want.items() if not k.startswith("ssd")}
     per_step = [[st["launches"] for st in rp["steps"]] for rp in reps]
     checks.check(per_step == [[want] * 2] * 2,
-                 f"dense_train_mesh: launches per step {per_step}, want "
+                 f"{name}: launches per step {per_step}, want "
                  f"{want}")
     for k, st in enumerate(reps[0]["steps"]):
         ok = (st["same_keys"] and st["lr"] > 0
@@ -3352,9 +3474,9 @@ def _dense_mesh(checks, spawned, t0):
                       for v in st["moment_rel_l2"].values())
               and all(v <= TOL_MESH_UPDATE[k]
                       for v in st["update_rel_l2"].values()))
-        checks.check(ok, f"dense_train_mesh: step {k} vs one device {st}")
-    emit("dense_train_mesh", mesh="data:1,fsdp:2", arch=DENSE_ARCH,
-         n_layers=DENSE_MESH_LAYERS, n_params=reps[0].get("n_params"),
+        checks.check(ok, f"{name}: step {k} vs one device {st}")
+    emit(name, mesh="data:1,fsdp:2", arch=arch,
+         n_layers=layers, n_params=reps[0].get("n_params"),
          exit_codes=rcs, backend=reps[0].get("backend"),
          launches_per_step=per_step[0], launches_want=want,
          ms_per_step_per_rank=[[st["ms"] for st in rp["steps"]]
@@ -3366,6 +3488,7 @@ def _dense_mesh(checks, spawned, t0):
          leaves=reps[0].get("leaves"),
          max_memory_allocated_per_rank=[rp.get("max_memory_allocated")
                                         for rp in reps],
+         one_device_seconds=reps[0].get("one_device_seconds"),
          wall_seconds=wall, seconds_after_go=time.monotonic() - t_go)
     return per_step[0][0]
 
@@ -3439,6 +3562,468 @@ def phase_dense_train(checks):
          contrastive_seconds=t_ctr)
     checks.end_phase("dense_train")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase moe_train: qwen3-moe-30b-a3b trained under both objectives, and its
+# contrastive objective on the (data, fsdp) mesh
+# ---------------------------------------------------------------------------
+
+# phase moe_train's depth: 3 of qwen3-moe-30b-a3b's 48 layers at full width
+# (JAX's rule recomputes each super-block on its own below 8).  A train
+# step holds the params, the gradients, both AdamW moments and, while
+# ``adamw().update`` returns, the new params and moments: 7 times the f32
+# params (qwen3-1.7b's full-depth step peaked at 7.0 of them), 87.2 GB at 4
+# layers and 69.8 GB at 3 (``--only moe_depth`` tries 4; PERF.md § 4)
+MOE_TRAIN_LAYERS = 3
+# data:1,fsdp:2 (2 gloo ranks sharing the card) at 1 of the 48 layers
+MOE_MESH_LAYERS = 1
+MOE_LM_ARGS = ["--arch", MOE_ARCH, "--objective", "lm", "--global-batch",
+               "2", "--seq-len", "4096", "--steps", "3", "--log-every", "1",
+               "--device", "cuda", "--seed", "0", "--precision", "f32"]
+# an MoE training step's kernels by what they compute; the rest
+# (elementwise, reductions, copies) under "other"
+MOE_TRAIN_CATEGORIES = (
+    ("k3_flash_attention", ("flash",)),
+    ("k1_k2_fcco", ("stats_partial", "stats_merge", "grads_weights",
+                    "grads_product")),
+    ("gemm", ("gemm", "gemv")),
+    # the routing's sorts and their backward, the dispatch and combine
+    # (gathers, index_select / index_copy, scatters)
+    ("moe_sort_gather_index", ("sort", "Sort", "scatter", "gather",
+                               "index")),
+)
+
+
+def _forced_route(probs, k, C, r):
+    """``r``'s choices (``experts``) and picks on this call's router
+    probabilities: the gates and selection weights are gathered from
+    ``probs`` at those indices (the values ``route`` takes when it makes
+    the same choices, and the gradient it gives them)."""
+    import torch
+    from repro_torch.models import moe as M
+    gates = torch.gather(probs, -1, r.experts)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    sel = torch.zeros_like(probs).scatter_(-1, r.experts, gates)
+    return M.Route(gates, r.experts,
+                   torch.gather(sel.transpose(1, 2), -1, r.picks), r.picks)
+
+
+def _routes_equal(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _load(model, host):
+    import torch
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(host[n], non_blocking=True)
+
+
+def _recompute_order(cfg):
+    """The layers of the route calls a backward's recomputes make, in
+    call order: the groups last first, each group's layers in order."""
+    from repro_torch.models import layers as L
+    n = cfg.n_layers // cfg.moe.every
+    g = L.default_remat_group(n)
+    if g <= 1 or n % g or n <= g:
+        g = 1
+    return [i for s in reversed(range(0, n, g)) for i in range(s, s + g)]
+
+
+def _moe_lm_grads(cfg, model, host, batch, impl, routes):
+    """Step-0 gradients of the LM objective from the init (``host``), no
+    optimizer state, ``models.moe.route`` under ``routes`` (a
+    ``_Routes``)."""
+    import torch
+    from repro_torch.core import train_step as TS
+    from repro_torch.models import backbones as BB
+    _load(model, host)
+    with routes, torch.enable_grad():
+        loss, _ = BB.lm_loss(model, cfg, batch, impl=impl)
+        return TS.param_grads(loss, model)
+
+
+def _dispatch_backward_ms(cfg, r, B, S):
+    """CUDA events at a layer's shape, on the routing ``r``: the
+    deterministic dispatch backward (``models.moe.dispatch_backward``,
+    an expert at a time) per call, and the gather's own autograd backward
+    (one ``index_put_`` accumulating with atomics) on the same
+    gradient."""
+    import torch
+    from repro_torch.models import moe as M
+    E, C = cfg.moe.n_experts, r.picks.shape[-1]
+    dev = r.picks.device
+    idx = (r.picks + S * torch.arange(B, device=dev)[:, None, None]
+           ).transpose(0, 1).reshape(E, B * C)
+    g = torch.randn((E, B * C, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    det = M.dispatch_backward(g, idx, B * S)
+    acc = torch.zeros_like(det).index_put_((idx,), g, accumulate=True)
+    out = dict(shape=[E, B * C, cfg.d_model], rows=B * S,
+               deterministic_ms=device_ms(
+                   lambda: M.dispatch_backward(g, idx, B * S), 5),
+               atomic_index_put_ms=device_ms(
+                   lambda: torch.zeros_like(det).index_put_(
+                       (idx,), g, accumulate=True), 5),
+               max_abs_diff_vs_atomic=(det - acc).abs().max().item())
+    del g, det, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_lm(checks, cfg, model, host, batches):
+    """The LM objective here, from the launcher's init (``host``) on its
+    first batch: a profiled kernel-path step, then a timed one (launches
+    exact, peak memory); the kernel path's step-0 gradients twice, to
+    the bit, each recompute routing as its forward; the plain path's on
+    the kernel path's routes, each leaf within ``TOL_TRAIN_GRAD``; the
+    unforced plain routing's differences (``MOE_ROUTE_DIFF_CEILING``);
+    K3's backward and the dispatch backward timed at the layer shape."""
+    import torch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import backbones as BB
+    dev = next(model.parameters()).device
+    m_cfg = cfg.moe
+    n_super = cfg.n_layers // m_cfg.every
+    make = ST.make_lm_train_step(cfg, lr=HYBRID_LR, wd=0.1, total_steps=3,
+                                 device=dev)[0]
+    batch = batches[0][1]
+    seconds = {}
+    t0 = time.monotonic()
+
+    def lap(part):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[part] = time.monotonic() - t0
+        t0 = time.monotonic()
+    state = _fresh_state(model, host)
+    held = {}
+
+    def one():
+        held["out"] = make(state, batch)
+    prof = _profile(one, categories=MOE_TRAIN_CATEGORIES, host_ops=False)
+    del held, state
+    torch.cuda.empty_cache()
+    lap("profiled_step")
+    state = _fresh_state(model, host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), ms, n = _timed(lambda: make(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    metrics0 = {k: float(v) for k, v in m.items()}
+    del state
+    torch.cuda.empty_cache()
+    want = _dense_step_launches(cfg, 1, False)
+    checks.check(n == want and sorted(metrics0) == [
+        "ce", "loss", "moe_lb", "moe_z"] and all(
+            math.isfinite(v) for v in metrics0.values()),
+        f"moe_train_lm: launches of one step {n}, want {want}; metrics "
+        f"{metrics0}")
+    lap("timed_step")
+    # the kernel path's gradients twice from one state
+    rk, rk2 = _Routes(), _Routes()
+    g_k = _moe_lm_grads(cfg, model, host, batch, "flash", rk)
+    g_k2 = _moe_lm_grads(cfg, model, host, batch, "flash", rk2)
+    differ = [k for k in g_k if not torch.equal(g_k[k], g_k2[k])]
+    del g_k2
+    torch.cuda.empty_cache()
+    fwd = rk.calls[:n_super]
+    order = _recompute_order(cfg)
+    recompute_as_forward = len(rk.calls) == 2 * n_super and all(
+        _routes_equal(rk.calls[n_super + i], fwd[s])
+        for i, s in enumerate(order))
+    routes_repeat = len(rk2.calls) == len(rk.calls) and all(
+        _routes_equal(a, b) for a, b in zip(rk.calls, rk2.calls))
+    del rk2
+    checks.check(not differ and recompute_as_forward and routes_repeat,
+                 f"moe_train_lm: two backward passes differ in "
+                 f"{differ[:8]}; recomputes route as forward "
+                 f"{recompute_as_forward}; routes repeat {routes_repeat}")
+    lap("kernel_grads_twice")
+    # the plain path on the kernel path's routes (the kernel path's
+    # gradients wait on the host: the plain attention's recompute needs
+    # their room)
+    hk = _HostGrads(model)
+    hk.take(g_k)
+    del g_k
+    torch.cuda.empty_cache()
+    rp = _Routes(rk.calls, rederive=True)
+    g_p = _moe_lm_grads(cfg, model, host, batch, "chunked", rp)
+    rel = _host_rel(hk.buf, g_p, dev)
+    replayed = len(rp.calls)
+    del g_p, hk, rp
+    torch.cuda.empty_cache()
+    bound = TOL_TRAIN_GRAD
+    worst = max(rel, key=rel.get)
+    checks.check(replayed == 2 * n_super and all(
+        math.isfinite(v) and v <= bound for v in rel.values()),
+        f"moe_train_lm: step-0 grads kernel vs plain on the kernel path's "
+        f"routes, worst leaf {worst} rel L2 {rel[worst]}, bound {bound}")
+    lap("plain_grads_replayed")
+    # the plain path unforced: its routing against the kernel path's
+    with _Routes() as ru, torch.no_grad():
+        BB.forward_hidden(model, cfg, batch, impl="chunked")
+    choices, picks = _route_diffs(fwd, ru.calls, m_cfg.n_experts)
+    checks.check(sum(choices) + sum(picks) <= MOE_ROUTE_DIFF_CEILING,
+                 f"moe_train_lm: unforced routing differs from the plain "
+                 f"path's in {choices} choices, {picks} picks per layer "
+                 f"(ceiling {MOE_ROUTE_DIFF_CEILING} in all)")
+    lap("unforced_plain_routes")
+    B, T = batch["tokens"].shape
+    backward = _attn_backward_ms(B, T, cfg.n_heads, cfg.resolved_head_dim)
+    dispatch = _dispatch_backward_ms(cfg, fwd[0], B, T)
+    lap("k3_and_dispatch_backward_timing")
+    prof["idle_share_of_timed_step"] = 1.0 - prof["device_busy_ms"] / ms
+    emit("moe_train_lm_device", batch_on_device=True, n_layers=cfg.n_layers,
+         timed_step=dict(ms_per_step=ms, launches=n, launches_want=want,
+                         max_memory_allocated=peak, metrics=metrics0),
+         grad_leaves=len(rel), grads_kernel_vs_plain=_leaf_summary(rel),
+         grad_bound=bound, two_backward_passes_equal=not differ,
+         recomputes_route_as_forward=recompute_as_forward,
+         routes_repeat=routes_repeat,
+         unforced_choices_differ_per_layer=choices,
+         unforced_picks_differ_per_layer=picks,
+         route_diff_ceiling=MOE_ROUTE_DIFF_CEILING,
+         dropped_per_layer=[int(r.experts.numel()) - int((r.pick_w > 0).sum())
+                            for r in fwd],
+         profile=prof, k3_backward_per_call=backward,
+         dispatch_backward_per_layer=dispatch,
+         dispatch_backward_ms_per_step=dispatch["deterministic_ms"]
+         * n_super, seconds=seconds)
+    return {"metrics0": metrics0}
+
+
+def _moe_contrastive(checks, cfg, model, host, batches):
+    """The contrastive objective (v3) here, from the same init on the
+    launcher's first batches at 64 x 256: two kernel-path steps timed,
+    launches exact (K3, and K1 and K2 once a step); step-0 gradients of
+    the plain path on the kernel path's routes, each leaf within
+    ``TOL_TRAIN_GRAD``; the unforced routing's differences."""
+    import torch
+    from repro_torch.core import fastclip as FC
+    from repro_torch.core import train_step as TS
+    from repro_torch.models import backbones as BB
+    tcs = {impl: _hybrid_ctr_config(cfg, impl, loss_impl)
+           for impl, loss_impl in (("flash", "fused"), ("chunked", "dense"))}
+    fc_cfg = tcs["flash"].fc
+    dev = next(model.parameters()).device
+    n_super = cfg.n_layers // cfg.moe.every
+    step = TS.make_train_step(tcs["flash"], dev)
+    seconds = {}
+    t0 = time.monotonic()
+    state = _fresh_state(model, host, fc_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, launches, metrics = [], [], []
+    for idx, b in batches[:2]:
+        (state, m), t, n = _timed(lambda: step(state, b, idx))
+        ms.append(t)
+        launches.append(n)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    want = _dense_step_launches(cfg, 1, True)
+    checks.check(launches == [want] * 2 and all(
+        math.isfinite(m["loss"]) for m in metrics),
+        f"moe_train_contrastive: launches per step {launches}, want "
+        f"{want}; metrics {metrics}")
+    seconds["two_kernel_steps"] = time.monotonic() - t0
+    t0 = time.monotonic()
+
+    def grads(impl, routes):
+        tc = tcs[impl]
+        _load(model, host)
+        st = {"params": model, "fc": FC.init_state(fc_cfg, dev),
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        idx, b = batches[0]
+        core = TS.make_loss_core(tc.fc, tc.loss_impl)
+        with routes:
+            return TS.step_grads(tc, core, st, b, idx,
+                                 tc.fc.gamma_fn()(st["step"]))[2]
+    rk = _Routes()
+    g_k = grads("flash", rk)
+    rp = _Routes(rk.calls, rederive=True)
+    g_p = grads("chunked", rp)
+    rel = _grads_rel(g_k, g_p)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    with _Routes() as ru, torch.no_grad():
+        BB.forward_hidden(model, cfg, {"tokens": batches[0][1]["tokens"]},
+                          impl="chunked")
+    choices, picks = _route_diffs(rk.calls[:n_super], ru.calls,
+                                  cfg.moe.n_experts)
+    seconds["grads_kernel_plain"] = time.monotonic() - t0
+    bound = TOL_TRAIN_GRAD
+    worst = max(rel, key=rel.get)
+    checks.check(len(rp.calls) == 2 * n_super and all(
+        math.isfinite(v) and v <= bound for v in rel.values()),
+        f"moe_train_contrastive: step-0 grads kernel vs plain on the "
+        f"kernel path's routes, worst leaf {worst} rel L2 {rel[worst]}, "
+        f"bound {bound}")
+    checks.check(sum(choices) + sum(picks) <= MOE_ROUTE_DIFF_CEILING,
+                 f"moe_train_contrastive: unforced routing differs in "
+                 f"{choices} choices, {picks} picks per layer")
+    emit("moe_train_contrastive_device", batch_on_device=True,
+         shape=list(batches[0][1]["tokens"].shape), ms_per_step=ms,
+         launches_per_step=launches, launches_want=want, metrics=metrics,
+         max_memory_allocated=peak, grad_leaves=len(rel),
+         grads_kernel_vs_plain=_leaf_summary(rel), grad_bound=bound,
+         unforced_choices_differ_per_layer=choices,
+         unforced_picks_differ_per_layer=picks, seconds=seconds)
+    return {k: 2 * v for k, v in want.items()}
+
+
+def _moe_launcher_checks(checks, cfg, finished, lines, metrics0):
+    """The LM launcher's child process (3 kernel-path steps): exit 0, 3
+    step lines logging ``moe_lb`` and ``moe_z``, finite losses, launches
+    exact, f32 masters, its step-0 loss equal to the in-process one."""
+    rc, rep, _, err = finished
+    lines = [ln for ln in lines if ln]
+    if rc or rep is None:
+        print(err, file=sys.stderr, flush=True)
+    if not checks.check(rc == 0 and rep is not None,
+                        f"moe_train_lm: launcher process exit code {rc}"):
+        checks.end_phase("moe_train")
+    rec = rep["record"]
+    step_lines = [ln for ln in lines if ln.startswith("step ")]
+    keys = [sorted(json.loads(ln[ln.index("{"):])) for ln in step_lines]
+    want = _dense_step_launches(cfg, 3, False)
+    got = dict(rep["launches"], **rep["k4"])
+    checks.check(got == want, f"moe_train_lm: launches {got}, want {want}")
+    checks.check(len(rec) == 3 and keys == [["ce", "loss", "moe_lb",
+                                             "moe_z"]] * 3
+                 and all(math.isfinite(r[k]) for r in rec for k in keys[0])
+                 and rep["dtype_error"] is None,
+                 f"moe_train_lm: steps {len(rec)}, lines {step_lines}, "
+                 f"dtypes {rep['dtype_error']}")
+    checks.check(rec[0]["loss"] == metrics0["loss"],
+                 f"moe_train_lm: the launcher's step-0 loss {rec[0]['loss']} "
+                 f"is not the in-process one {metrics0['loss']}")
+    emit("moe_train_lm_launcher", steps=3, lines=step_lines, launches=got,
+         launches_want=want, by_seq=rep["by_seq"],
+         losses=[r["loss"] for r in rec],
+         ms_per_step_after_warmup=(rec[-1]["time"] - rec[0]["time"]) / 2
+         * 1e3, max_memory_allocated=rep["max_memory_allocated"],
+         wall_seconds=rep["wall_seconds"])
+    return got
+
+
+def phase_moe_train(checks):
+    """qwen3-moe-30b-a3b at full width and ``MOE_TRAIN_LAYERS`` layers
+    trained (f32, seed 0): the LM launcher in a child process (3 steps at
+    2 x 4096), the same init and batches here under both objectives
+    (``_moe_lm``, ``_moe_contrastive``), and the contrastive objective
+    on data:1,fsdp:2 at ``MOE_MESH_LAYERS`` layers (``_dense_mesh``'s
+    ranks, started with the phase, on the card once the rest is done).
+    Returns the kernels' launches per run."""
+    import concurrent.futures
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()      # the card's memory to the child
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    signal_path = os.path.join(tmp, "signal")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        spawned = pool.submit(_spawn_mesh, "moe", [signal_path], 1200,
+                              nproc=2)
+        child = _LauncherProcess(MOE_LM_ARGS, layers=MOE_TRAIN_LAYERS)
+        try:
+            # the launcher's init, drawn on the host as the launcher draws
+            # it, while the child trains; each leaf freed once pinned
+            host_model = BB.init_params(cfg, torch.Generator().manual_seed(0),
+                                        "cpu")
+            host = {}
+            for n, p in host_model.named_parameters():
+                host[n] = p.detach().pin_memory()
+                p.data = torch.empty(0)
+            del host_model
+        finally:
+            finished = child.finish(900)
+        t_child = time.monotonic() - t_phase
+        torch.cuda.empty_cache()
+        model = BB.meta_model(cfg).to_empty(device="cuda")
+        lm = _moe_lm(checks, cfg, model, host, _hybrid_batches(cfg, "lm"))
+        out = {"lm": _moe_launcher_checks(checks, cfg, finished, child.lines,
+                                          lm["metrics0"])}
+        t_lm = time.monotonic() - t_phase
+        out["contrastive"] = _moe_contrastive(
+            checks, cfg, model, host, _hybrid_batches(cfg, "contrastive"))
+        del model, host
+        torch.cuda.empty_cache()
+        # the pinned blocks cached for the host copies back to the system,
+        # for the ranks' host memory (where this torch has the call)
+        getattr(torch._C, "_host_emptyCache", lambda: None)()
+        t_ctr = time.monotonic() - t_phase - t_lm
+        checks.end_phase("moe_train")
+        _signal(signal_path, "go")
+        out["mesh_per_rank_per_step"] = _dense_mesh(
+            checks, spawned, t_phase, arch=MOE_ARCH, layers=MOE_MESH_LAYERS,
+            name="moe_train_mesh", phase="moe_train")
+    finally:
+        _signal(signal_path, "stop")      # no-op after "go"
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("moe_train_seconds", seconds=time.monotonic() - t_phase,
+         lm_child_seconds=t_child, lm_seconds=t_lm,
+         contrastive_seconds=t_ctr)
+    checks.end_phase("moe_train")
+    return out
+
+
+def phase_moe_depth(checks):
+    """A diagnostic (``--only moe_depth``): one LM step of qwen3-moe at
+    full width and 4 layers (2 x 4096, f32, seed 0 drawn on the card)
+    from a fresh state, the peak of its forward and backward alone and
+    whether the whole step (AdamW's update included) fits the card: the
+    measurement behind ``MOE_TRAIN_LAYERS``.  It checks nothing."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import train_step as TS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(MOE_ARCH).replace(n_layers=4)
+    torch.cuda.empty_cache()
+    batch = _hybrid_batches(cfg, "lm")[0][1]
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    rec = dict(arch=MOE_ARCH, n_layers=4, n_params=n_params,
+               param_bytes=4 * n_params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        loss, _ = BB.lm_loss(model, cfg, batch)
+        grads = TS.param_grads(loss, model)
+    torch.cuda.synchronize()
+    rec["forward_backward_max_memory_allocated"] = (
+        torch.cuda.max_memory_allocated())
+    del grads, loss
+    torch.cuda.empty_cache()
+    step, opt = ST.make_lm_train_step(cfg, device="cuda")
+    state = {"params": model, "opt": opt.init(
+        {k: p.detach() for k, p in model.named_parameters()}),
+        "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec.update(step_fits=True, loss=float(m["loss"]))
+    except torch.cuda.OutOfMemoryError as e:
+        rec.update(step_fits=False, out_of_memory=str(e)[:400])
+    rec["step_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["card_total_memory"] = torch.cuda.get_device_properties(
+        0).total_memory
+    del state, model
+    torch.cuda.empty_cache()
+    emit("moe_depth", **rec)
+    checks.end_phase("moe_depth")
 
 
 def _nested_grouped(remat, layers, f, x, *, group):
@@ -5295,8 +5880,8 @@ def main(argv=None):
                     help="a partial run: device, build, then these phases "
                          "(comma-separated: kernel, gcl, dense, moe, train, "
                          "clip_family, mesh after train, hybrid_train, "
-                         "dense_train, remat_forms, resilience); no report "
-                         "and no last line")
+                         "dense_train, moe_train, remat_forms, moe_depth, "
+                         "resilience); no report and no last line")
     args = ap.parse_args(argv)
     checks = Checks()
     t_start = time.monotonic()
@@ -5318,7 +5903,9 @@ def main(argv=None):
                     "dense": phase_dense, "moe": phase_moe,
                     "hybrid_train": phase_hybrid_train,
                     "dense_train": phase_dense_train,
+                    "moe_train": phase_moe_train,
                     "remat_forms": phase_remat_forms,
+                    "moe_depth": phase_moe_depth,
                     "resilience": phase_resilience}[name](checks)
             mark(name)
         print(f"chip_smoke: partial run of {args.only} passed; no report",
@@ -5375,6 +5962,8 @@ def main(argv=None):
     # last: a failure here cannot hide an earlier phase's result
     dense_train = phase_dense_train(checks)
     mark("dense_train")
+    moe_train = phase_moe_train(checks)
+    mark("moe_train")
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -5388,6 +5977,14 @@ def main(argv=None):
         elif case == "qwen3_moe":
             # one qwen3-moe prefill at 8 layers (phase moe): every layer
             path, n_launch = "moe_prefill", moe[MOE_ARCH]["4096x4096"]
+        elif case == "qwen3_moe_ctr":
+            # qwen3-moe's 2 contrastive steps of phase moe_train
+            path = "moe_train"
+            n_launch = moe_train["contrastive"]["flash_attention"]
+        elif case == "qwen3_moe_mesh":
+            # one rank's step of qwen3-moe (1 layer) on data:1,fsdp:2
+            path = "moe_train_mesh, per rank per step"
+            n_launch = moe_train["mesh_per_rank_per_step"]["flash_attention"]
         elif case.startswith("hd128_"):
             path, n_launch = "none (edge case)", 0
         elif case == "qwen3_ctr":
@@ -5436,7 +6033,7 @@ def main(argv=None):
             "resilience_launches": {c: n["flash_attention"]
                                     for c, n in res_launches.items()},
             # phase hybrid_train: each launcher's 3 zamba2 training steps
-            # (20 layers: the shared block's 3 calls, each recomputed once)
+            # (8 layers: the shared block's 1 call, recomputed once)
             "hybrid_train_launches": {
                 kind: n["flash_attention"] for kind, n in
                 hybrid_train.items()},
@@ -5444,6 +6041,11 @@ def main(argv=None):
             # contrastive steps here, one rank's step on data:1,fsdp:2
             "dense_train_launches": _dense_train_launches(
                 dense_train, "flash_attention"),
+            # phase moe_train: qwen3-moe's LM launcher (3 steps at 2 x 32
+            # x 4096, the qwen3_moe case's shape), its 2 contrastive steps
+            # here, one rank's step on data:1,fsdp:2
+            "moe_train_launches": _dense_train_launches(
+                moe_train, "flash_attention"),
             # phase clip_family: ResNet-50 3 steps (text tower only), its
             # serving runs and eval pass; ViT-B/16 3 steps
             "clip_family_launches": {
@@ -5487,6 +6089,7 @@ def main(argv=None):
             "hybrid_train_launches": hybrid_train["contrastive"][name],
             "dense_train_launches": _dense_train_launches(dense_train,
                                                           name),
+            "moe_train_launches": _dense_train_launches(moe_train, name),
             "hybrid_train_cuda_launches": hybrid_train["contrastive"][
                 f"{name}_cuda"],
             "clip_family_launches": {
@@ -5529,8 +6132,8 @@ def main(argv=None):
         "cuda_launches": ssd_cuda_launches,
         "cuda_launches_per_call": (ssd_cuda_launches
                                    / max(hybrid_launches["ssd_chunk"], 1)),
-        # phase hybrid_train: each launcher's 3 training steps (40 calls
-        # per step at 20 layers: each layer's forward and its recompute)
+        # phase hybrid_train: each launcher's 3 training steps (16 calls
+        # per step at 8 layers: each layer's forward and its recompute)
         "hybrid_train_launches": {kind: n["ssd_chunk"]
                                   for kind, n in hybrid_train.items()},
         "hybrid_train_cuda_launches": {kind: n["ssd_chunk_cuda"]
@@ -5560,7 +6163,11 @@ if __name__ == "__main__":
         sys.path.insert(0, SRC)
         {"train": _mesh_worker_train, "step": _mesh_worker_step,
          "family": _mesh_worker_family,
-         "dense": _mesh_worker_dense}[sys.argv[2]](sys.argv[3:])
+         "dense": lambda argv: _mesh_worker_lm(argv, DENSE_ARCH,
+                                               DENSE_MESH_LAYERS),
+         "moe": lambda argv: _mesh_worker_lm(argv, MOE_ARCH,
+                                             MOE_MESH_LAYERS)
+         }[sys.argv[2]](sys.argv[3:])
     elif sys.argv[1:2] == ["--launcher-worker"]:
         # one launcher run of phase clip_family (spawned by it); it sets
         # no backend flag: the port's device policy alone decides them

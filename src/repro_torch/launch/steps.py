@@ -11,8 +11,10 @@
         one token through the KV caches and SSM states
 
 Prefill and decode run under ``torch.inference_mode``; the LM train step
-under autograd, where the hybrid's ``forward_hidden`` recomputes each
-layer in the backward.  ``impl="flash"``, the default, is the path
+under autograd, where ``forward_hidden`` recomputes in the backward (the
+hybrid's layers one by one, the dense and MoE stacks in JAX's groups);
+its metrics are ``lm_loss``'s: ``ce`` and, for the MoE LMs, ``moe_lb``
+and ``moe_z``.  ``impl="flash"``, the default, is the path
 through the hand-written kernels (K3 in every dense layer, in the
 hybrid's shared attention block and in every attention block of the MoE
 LMs, K4 in every Mamba2 layer);

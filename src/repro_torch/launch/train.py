@@ -10,8 +10,9 @@ unless ``--device cpu`` is given.
 
 Objectives, as the JAX launcher picks them (``build_dataset``): a CLIP
 arch always trains FastCLIP on ``ContrastiveDataset`` (``--objective
-lm`` included); an LM backbone (the hybrid ``zamba2-1.2b``, or a dense
-LM: ``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) trains
+lm`` included); an LM backbone (the hybrid ``zamba2-1.2b``, a dense
+LM: ``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``, or an
+MoE LM: ``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``) trains
 FastCLIP on ``PairedEmbeddingDataset`` (``backbones.encode_pair``: the
 mean-pooled backbone through ``ctr_proj`` against stub paired
 embeddings through ``pair_proj``) by default, and ``--objective lm``
@@ -20,12 +21,11 @@ trains the next-token loss on ``LMDataset``
 whatever ``--optimizer`` says; ``--version``, ``--loss-impl`` and the
 guard do not apply to it).  ``--seq-len`` sets an LM backbone's
 sequence length.  Under autograd an LM backbone recomputes in the
-backward as JAX's does (``backbones.forward_hidden``: the dense stack
-under JAX's grouped recompute).  Every contrastive run ends with the
-``retrieval accuracy:`` line; ``--eval-every`` evaluates CLIP archs
-only.  The MoE LMs (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``)
-serve but do not train here yet: their archs exit 2 (ROADMAP queue
-P6b).
+backward as JAX's does (``backbones.forward_hidden``: the dense and MoE
+stacks under JAX's grouped recompute); the MoE LMs' step logs JAX's
+``moe_lb`` and ``moe_z`` beside ``ce``.  Every contrastive run ends with
+the ``retrieval accuracy:`` line; ``--eval-every`` evaluates CLIP archs
+only.
 
 The defaults reach the hand-written kernels: ``--impl flash`` (the
 attention in both towers) and ``--loss-impl fused`` (K1 and K2, the FCCO
@@ -102,9 +102,9 @@ state.  ``--local-devices`` is refused with exit code 2: it forces CPU
 devices per process in JAX, and a rank here is one process with one
 device.  ``--mesh`` with ``--objective lm`` on an LM backbone exits as
 the JAX launcher does; with the contrastive objective an LM backbone
-(hybrid or dense) trains on the mesh like a CLIP arch, its towers
+(hybrid, dense or MoE) trains on the mesh like a CLIP arch, its towers
 recomputed in the backward as on one device.  An ``--arch`` whose config
-is not ported (the moe, vlm, audio and ssm families) exits 2.
+is not ported (the vlm, audio and ssm families) exits 2.
 """
 from __future__ import annotations
 
@@ -294,11 +294,6 @@ def parse_args(argv=None):
         ap.error(f"--arch {args.arch}: its config is not ported to "
                  f"repro_torch (ported: the {', '.join(BB.FAMILIES)} "
                  "families; vlm, audio and ssm are ROADMAP queue P6b)")
-    if cfg.family not in BB.TRAIN_FAMILIES:
-        ap.error(f"--arch {args.arch}: training the {cfg.family} family is "
-                 "not ported to repro_torch (it serves: repro_torch.launch."
-                 "serve; its training, JAX's grouped recompute carrying "
-                 "the aux losses, is ROADMAP queue P6b)")
     if args.mesh and cfg.family != "clip" and args.objective == "lm":
         raise SystemExit("--mesh drives the contrastive trainer; the LM "
                          "shapes run on the production mesh via "

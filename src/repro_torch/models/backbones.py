@@ -46,12 +46,13 @@ The MoE depth pattern is ``[dense? + attn + moe] x (L // every)``:
 and, when ``moe.every == 2``, a ``dense_blk`` (a swiglu block run
 first); the JAX paths are ``supers/moe/w_gate`` (n_super, E, d, d_ff)
 and so on.  Its aux losses (``moe_lb``, ``moe_z``) are averaged over
-the super-blocks.  It serves (prefill, decode; decode keeps ``moe_kv``
-and, with ``every == 2``, ``dense_kv``) but does not train yet: under
-autograd its ``forward_hidden`` raises ``NotImplementedError`` (JAX's
-grouped recompute carrying the aux losses is ROADMAP queue P6b's MoE
-training).  The vlm, audio and ssm families raise
-``NotImplementedError`` (ROADMAP, queue P6b).
+the super-blocks.  Decode keeps ``moe_kv`` and, with ``every == 2``,
+``dense_kv``.  Under autograd the super-blocks recompute as JAX's
+``scan_layers_grouped`` does with the carry ``(h, lb, z)``
+(``layers.run_layers_grouped`` with ``layers.default_remat_group
+(n_super)``): a recompute routes as its forward did, since the forward
+is a function of its inputs bit for bit.  The vlm, audio and ssm
+families raise ``NotImplementedError`` (ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
@@ -77,8 +78,6 @@ CONTRASTIVE_DIM = 512   # joint embedding dim for the contrastive objective
 PAIR_DIM = 512          # stub paired-modality embedding dim
 FAMILIES = ("clip", "hybrid", "dense", "moe")
 LM_FAMILIES = ("hybrid", "dense", "moe")
-# the families that train (the MoE LMs serve only; ROADMAP queue P6b)
-TRAIN_FAMILIES = ("clip", "hybrid", "dense")
 
 
 def _check_family(cfg: ArchConfig, *families) -> None:
@@ -234,7 +233,7 @@ def encode_pair(model, cfg: ArchConfig, batch, *, impl="flash",
 
 
 # ===========================================================================
-# The LMs (hybrid, dense): forward, LM loss, contrastive tower, prefill and
+# The LMs (hybrid, dense, MoE): forward, LM loss, contrastive tower, prefill and
 # decode
 # ===========================================================================
 
@@ -279,30 +278,31 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     "flash"; see ``models.ssm``); ``chunked=False`` runs the sequential
     SSD.  With grad enabled, each Mamba2 layer and
     each call of the hybrid's shared block is recomputed once in the
-    backward (JAX's ``remat=True`` scans), and the dense stack under
-    JAX's grouped recompute (``layers.run_layers_grouped``); a recompute
-    changes no number.  The MoE family raises under autograd (it does
-    not train yet)."""
+    backward (JAX's ``remat=True`` scans), and the dense and MoE stacks
+    under JAX's grouped recompute (``layers.run_layers_grouped``, the
+    MoE stack carrying its aux sums); a recompute changes no number."""
     _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
     remat = torch.is_grad_enabled()
     if cfg.family == "moe":
-        if remat:
-            raise NotImplementedError(
-                "the moe family serves but does not train in repro_torch "
-                "yet: its forward under autograd needs JAX's grouped "
-                "recompute carrying the aux losses (ROADMAP queue P6b, "
-                "MoE training); run it under torch.no_grad / "
-                "inference_mode")
-        lb = z = 0.0
-        for sup in model.supers:
+        def sup_layer(sup, carry):
+            h, lb, z = carry
             if hasattr(sup, "dense_blk"):
-                x = sup.dense_blk(x, impl=impl)
-            x = sup.attn_blk(x, impl=impl)
-            x, a = M.apply_moe(sup.moe, cfg, x)
-            lb, z = lb + a["moe_lb"], z + a["moe_z"]
+                h = sup.dense_blk(h, impl=impl)
+            h = sup.attn_blk(h, impl=impl)
+            h, a = M.apply_moe(sup.moe, cfg, h)
+            return h, lb + a["moe_lb"], z + a["moe_z"]
         n_super = len(model.supers)
+        carry = (x, 0.0, 0.0)
+        if remat:
+            carry = L.run_layers_grouped(
+                functools.partial(_run, True), model.supers, sup_layer,
+                carry, group=L.default_remat_group(n_super))
+        else:
+            for sup in model.supers:
+                carry = sup_layer(sup, carry)
+        x, lb, z = carry
         return model.final_norm(x), {"moe_lb": lb / n_super,
                                      "moe_z": z / n_super}
     if cfg.family == "dense":

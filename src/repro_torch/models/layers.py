@@ -237,6 +237,8 @@ def default_remat_group(n_layers: int) -> int:
 def run_layers_grouped(remat, layers, f, x, *, group):
     """``x = f(layer, x)`` for each of ``layers`` in order, recomputed in
     the backward as JAX's ``scan_layers_grouped`` recomputes its scan.
+    The carry ``x`` is a tensor or a tuple (the MoE stack's ``(h, lb,
+    z)``: the aux sums added in layer order, as JAX's carry adds them).
     ``remat(fn, modules, h)`` runs ``fn(h)`` and recomputes it in the
     backward with the weights that ``modules`` hold at the call.
 

@@ -23,6 +23,17 @@ inputs bit for bit.  In decode (S = 1) the capacity is 1: every expert
 computes the one token, with weight 0 unless it was routed there, as in
 JAX.
 
+Under autograd the gradients are JAX's: they flow through both top-k's
+values (the sort's), the selection weights, the combine's weights and
+the aux losses; ``frac_tokens`` carries none.  The dispatch's backward
+(``_Dispatch``) sums each token row's gradients over the experts that
+picked it in ascending expert order, one expert at a time, without
+atomics (the gather's own backward accumulates them with atomics on the
+card, in no fixed order; a token is picked by its kept experts and by
+every expert that fills its capacity with it).  The combine's gathers
+read each (expert, row, slot) for at most one token, so their backward
+adds nothing but zeros where indices collide, in whatever order.
+
 ``apply_moe_a2a_local`` (JAX's expert-parallel all-to-all body over a
 ``model`` mesh axis) is not ported: the port carries no ``model`` axis.
 """
@@ -125,6 +136,34 @@ def _combine(eo, r: Route, B: int, S: int, E: int, C: int):
     return out
 
 
+def dispatch_backward(g: torch.Tensor, idx: torch.Tensor,
+                      rows: int) -> torch.Tensor:
+    """The gradient of ``h2[idx]`` with respect to ``h2`` (``rows``
+    rows): g (E, n, d), idx (E, n) with distinct rows per expert ->
+    (rows, d), each row's gradients summed from 0 in ascending expert
+    order, an expert's rows at a time (no row twice in one copy)."""
+    out = g.new_zeros((rows, g.shape[-1]))
+    for e in range(idx.shape[0]):
+        out.index_copy_(0, idx[e], out.index_select(0, idx[e]) + g[e])
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``h2[idx]``: h2 (T, d) token rows, idx (E, n) each expert's picked
+    rows -> (E, n, d); the backward is ``dispatch_backward``."""
+
+    @staticmethod
+    def forward(ctx, h2, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = h2.shape[0]
+        return h2[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return dispatch_backward(g, idx, ctx.rows), None
+
+
 def apply_moe(moe: MoE, cfg: ArchConfig, x: torch.Tensor):
     """x: (B, S, d) -> (x + MoE(rmsnorm(x)) (B, S, d), aux losses
     {"moe_lb": Switch load balance, "moe_z": router z-loss}, each times
@@ -141,7 +180,8 @@ def apply_moe(moe: MoE, cfg: ArchConfig, x: torch.Tensor):
 
     # dispatch: the picked tokens of each expert, (E, B * C, d)
     rows = r.picks + S * torch.arange(B, device=x.device)[:, None, None]
-    disp = h.reshape(B * S, d)[rows.transpose(0, 1).reshape(E, B * C)]
+    disp = _Dispatch.apply(h.reshape(B * S, d),
+                           rows.transpose(0, 1).reshape(E, B * C))
     dt = h.dtype
     g = torch.bmm(disp, moe.w_gate.to(dt))
     u = torch.bmm(disp, moe.w_up.to(dt))

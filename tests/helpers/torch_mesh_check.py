@@ -28,6 +28,7 @@ Batteries:
          each LM backbone of ``LM_ARCHS`` (``lm_cfg``) against the
          single-device steps, the gathers' backward counted, then the
          sharded checkpoint of the result in OUT/lm_ckpt_<arch>
+  moe    the ``lm`` battery for the MoE LMs of ``MOE_ARCHS``
 
     PYTHONPATH=src:tests/helpers python -m torch_mesh_check <battery> \\
         OUT [IN] \\
@@ -324,13 +325,17 @@ def battery_rn50(mesh, out, inp):
 # recompute (2 groups of 6); the hybrid at 3 layers one super-block, its
 # shared block and a tail layer
 LM_ARCHS = {"qwen3-1.7b": 12, "zamba2-1.2b": 3}
+# the MoE LMs: qwen3-moe at 12 super-blocks (2 groups of 6), llama4-scout
+# at 2 (a dense block and an MoE block each, recomputed one by one)
+MOE_ARCHS = {"qwen3-moe-30b-a3b": 12, "llama4-scout-17b-a16e": 4}
 LM_SEQ, LM_BATCH, LM_SAMPLES = 16, 8, 16
 
 
 def lm_cfg(get_arch, arch):
-    """A reduced LM backbone of ``LM_ARCHS`` from either package's
-    ``get_arch``."""
-    return get_arch(arch).reduced().replace(n_layers=LM_ARCHS[arch])
+    """A reduced LM backbone of ``LM_ARCHS`` or ``MOE_ARCHS`` from either
+    package's ``get_arch``."""
+    depth = {**LM_ARCHS, **MOE_ARCHS}[arch]
+    return get_arch(arch).reduced().replace(n_layers=depth)
 
 
 def _groups(flat, prefix):
@@ -346,7 +351,7 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def battery_lm(mesh, out, inp):
+def battery_lm(mesh, out, inp, archs=LM_ARCHS):
     from repro_torch import checkpoint as CK
     from repro_torch.configs import get_arch
     from repro_torch.core import fastclip as FC
@@ -362,7 +367,7 @@ def battery_lm(mesh, out, inp):
         return orig(ctx, g)
     SS._GatherParam.backward = staticmethod(counted)
     res, checks = {}, {}
-    for arch in LM_ARCHS:
+    for arch in archs:
         cfg = lm_cfg(get_arch, arch)
         fc = FC.FastCLIPConfig(version="v3", n_samples=LM_SAMPLES,
                                steps_per_epoch=LM_SAMPLES // LM_BATCH,
@@ -425,6 +430,10 @@ def battery_lm(mesh, out, inp):
         res.update({f"{arch}/{k}": v for k, v in full_sh.items()})
     SS._GatherParam.backward = staticmethod(orig)
     return res, checks
+
+
+def battery_moe(mesh, out, inp):
+    return battery_lm(mesh, out, inp, MOE_ARCHS)
 
 
 def _props(mesh):
@@ -594,7 +603,7 @@ def battery_cuda(mesh, out, inp):
 BATTERIES = {"loss": battery_loss, "step": battery_step,
              "ckpt": battery_ckpt, "eval": battery_eval,
              "cuda": battery_cuda, "rn50": battery_rn50,
-             "lm": battery_lm}
+             "lm": battery_lm, "moe": battery_moe}
 
 
 def main():
@@ -612,8 +621,8 @@ def main():
                         "cuda" if args.battery == "cuda" else "cpu")
     try:
         shape = {"ckpt": (1, 4), "cuda": (1, args.num_processes),
-                 "rn50": (1, 2), "lm": (1, 2)}.get(args.battery,
-                                                   (2, 2))
+                 "rn50": (1, 2), "lm": (1, 2),
+                 "moe": (1, 2)}.get(args.battery, (2, 2))
         mesh = MS.make_train_mesh(*shape, device=dev)
         res, checks = BATTERIES[args.battery](mesh, args.out, args.inp)
         if mesh.rank == 0:

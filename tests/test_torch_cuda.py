@@ -986,3 +986,112 @@ def test_moe_layer_on_card_is_bitwise_repeatable(cuda, arch):
     assert torch.equal(a, b)
     assert all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
     assert (a.cpu() - cpu).abs().max().item() <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# MoE training: the deterministic dispatch backward, a step's replay
+# ---------------------------------------------------------------------------
+
+def _moe_layer(cfg):
+    from repro_torch.models import moe as M
+    mod = M.MoE(cfg)
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    mod.norm.reset_parameters()
+    if hasattr(mod, "shared"):
+        mod.shared.reset_parameters(torch.Generator().manual_seed(1))
+    return mod
+
+
+def _moe_layer_grads(M, mod, cfg, x, w):
+    """Gradients of ``sum(y * w) + lb + z`` for x and every parameter,
+    and each call's (router input, gate gradient)."""
+    gates, orig = [], M.route
+
+    def route(*a):
+        r = orig(*a)
+        r.gates.register_hook(gates.append)
+        return r
+    x = x.clone().requires_grad_(True)
+    M.route = route
+    try:
+        with torch.enable_grad():
+            y, aux = M.apply_moe(mod, cfg, x)
+            loss = (y * w).sum() + aux["moe_lb"] + aux["moe_z"]
+            names, ps = zip(*mod.named_parameters())
+            gs = torch.autograd.grad(loss, (x, *ps))
+    finally:
+        M.route = orig
+    with torch.no_grad():
+        h = mod.norm(x)
+    return dict(zip(("x",) + names, gs)), h, gates[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_layer_backward_on_card_is_bitwise_repeatable(cuda, arch):
+    """One MoE layer's backward on the card (the dispatch's backward in
+    ascending expert order, the combine's gathers, the sorts' backward)
+    twice to the bit, at a shape with capacity fills and drops; each
+    gradient within 1e-4 relative L2 of the CPU's.  A top-1 router's
+    gradient is the aux losses' plus the gates' rounding noise
+    (tests/test_torch_moe_train.py's NOISE_ROUNDINGS arithmetic), so it
+    is held to the CPU's within twice that noise bound."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    cfg = get_arch(arch).reduced()
+    mod = _moe_layer(cfg)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((4, 256, cfg.d_model), generator=gen)
+    w = torch.randn(x.shape, generator=gen)
+    cpu, h, gg = _moe_layer_grads(M, mod, cfg, x, w)
+    mod = mod.cuda()
+    a = _moe_layer_grads(M, mod, cfg, x.cuda(), w.cuda())[0]
+    b = _moe_layer_grads(M, mod, cfg, x.cuda(), w.cuda())[0]
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for k, want in cpu.items():
+        got = a[k].cpu()
+        if k == "router" and cfg.moe.top_k == 1:
+            bound = 2 * 8 * 2.0 ** -24 * torch.einsum(
+                "btd,bt->d", h.double().abs(), gg[..., 0].double().abs())
+            assert bool(((got - want).double().abs()
+                         <= 2 * bound[:, None]).all())
+            continue
+        assert _rel_l2(got, want) <= 1e-4, (k, _rel_l2(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers", [("qwen3-moe-30b-a3b", 12),
+                                           ("llama4-scout-17b-a16e", 4)])
+def test_reduced_moe_lm_step_on_card_equals_its_replay(cuda, arch,
+                                                       n_layers):
+    """A reduced MoE LM (head dim 128; qwen3-moe at 12 super-blocks, 2
+    recompute groups of 6) trained two steps on the card twice from the
+    same init and batches: every parameter and moment equal to the bit;
+    K3 launched in each attention block's forward and its recompute."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+    cfg = get_arch(arch).reduced().replace(head_dim=128, n_layers=n_layers)
+    ds = LMDataset(n=8, seq_len=96, vocab_size=cfg.vocab_size)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in ds.batch(np.arange(2 * i, 2 * i + 2)).items()}
+               for i in range(2)]
+    runs = []
+    for _ in range(2):
+        step, opt = steps.make_lm_train_step(cfg, lr=1e-2, total_steps=4,
+                                             device="cuda")
+        state = steps.init_lm_train_state(
+            cfg, torch.Generator().manual_seed(0), opt, "cuda")
+        k3 = FA.flash_attention.launches
+        for b in batches:
+            state, m = step(state, b)
+            assert np.isfinite(m["loss"].item())
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches - k3 == 2 * 2 * n_layers
+        runs.append({**{f"p/{k}": p.detach().clone()
+                        for k, p in state["params"].named_parameters()},
+                     **{f"{mo}/{k}": v for mo in ("m", "v")
+                        for k, v in state["opt"][mo].items()}})
+    assert sorted(runs[0]) == sorted(runs[1])
+    assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])

@@ -171,13 +171,13 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
                                   "version": "v3"}
 
 
-@pytest.mark.parametrize("flag", [["--arch", "qwen3-moe-30b-a3b", "--mesh",
-                                   "data:1,fsdp:1"]])
+@pytest.mark.parametrize("flag", [["--arch", "llama-3.2-vision-11b",
+                                   "--mesh", "data:1,fsdp:1"]])
 def test_unported_flags_are_refused(flag, capsys):
     """An edge of the JAX launcher not ported yet: an arch of the families
-    still in ROADMAP queue P6b (moe, vlm, audio, ssm), here on the mesh
-    (``--mesh`` with an LM backbone's contrastive objective, the edge
-    this case held before, is ported)."""
+    still in ROADMAP queue P6b (vlm, audio, ssm), here on the mesh
+    (``--mesh`` with an LM backbone's contrastive objective and the moe
+    family, the edges this case held before, are ported)."""
     with pytest.raises(SystemExit) as e:
         ttrain.main(BASE + CPU + flag)
     assert e.value.code == 2

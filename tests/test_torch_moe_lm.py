@@ -24,7 +24,7 @@ from repro_torch.checkpoint import bridge, flatten
 from repro_torch.configs import INPUT_SHAPES
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.kernels import flash_attention as FA
-from repro_torch.launch import serve, steps, train
+from repro_torch.launch import serve, steps
 from repro_torch.models import backbones as TBB
 
 
@@ -230,27 +230,3 @@ def test_serve_cli_generates_on_cpu(arch, capsys):
     cfg = t_get_arch(arch).reduced()
     assert toks.shape == (2, 9) and toks.dtype == torch.int64
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
-
-
-def test_forward_under_grad_raises(setup):
-    """The family serves only: under autograd its forward refuses,
-    naming the training queue, and so does the LM loss."""
-    _, tcfg, _, _, model, tokens, _ = setup
-    tb = {"tokens": torch.from_numpy(tokens),
-          "labels": torch.from_numpy(tokens)}
-    with torch.enable_grad():
-        with pytest.raises(NotImplementedError, match="P6b"):
-            TBB.forward_hidden(model, tcfg, tb)
-        with pytest.raises(NotImplementedError, match="P6b"):
-            TBB.lm_loss(model, tcfg, tb)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("objective", ["lm", "contrastive"])
-def test_train_launcher_refuses_the_moe_family(arch, objective, capsys):
-    with pytest.raises(SystemExit) as e:
-        train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--objective", objective, "--steps", "1"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "P6b" in err
