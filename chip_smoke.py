@@ -21,7 +21,12 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    training, eval-head (f32), hybrid and ``clip-vitb16-laion`` image
    tower (256 x 12 x 197 x 197) shapes (f32 and bf16), the dense
    prefills' at head dim 128 (qwen3-1.7b 2 x 16 x 4096 x 4096, f32 and
-   bf16; qwen1.5-32b 1 x 40 x 4096 x 4096, f32), at the curricula's
+   bf16; qwen1.5-32b 1 x 40 x 4096 x 4096, f32), the cross-attention
+   families' (llama-3.2-vision-11b's cross blocks 2 x 32 x 4096 x 1024
+   x 128 and seamless-m4t-large-v2's decoder over its encoder 2 x 16 x
+   4096 x 1024 x 64, non-causal, f32 and bf16; its causal encoder 2 x 16
+   x 1024 x 1024 and decoder self-attention 2 x 16 x 4096 x 4096, f32),
+   at the curricula's
    training shapes (S = 2 and a causal S = 32, f32), at qwen3-1.7b's
    contrastive training shape (64 x 16 x 256 x 256, f32) and a rank's on
    ``data:1,fsdp:2`` (32 x 16 x 256 x 256, f32), and at edge cases
@@ -104,7 +109,26 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    prefill vs ``decode_step`` over 256 tokens at capacity factor 64
    (no launch); ``serve.generate`` at batch 4 (qwen3-moe); the decode
    launcher at ``--reduced``;
-12. hybrid_train -- ``zamba2-1.2b`` at full width with 8 of its 38
+12. vlm    -- ``llama-3.2-vision-11b`` served at full width and all 40
+   layers (seeded random weights, f32; 8 super-blocks of 4 causal self
+   blocks and a cross block over the projected stub image embeds, 2 x
+   1024 x 1280 from the serving launcher's generator): JAX's parameter
+   count, 10,118,336,512; a 2 x 4096 prefill through
+   ``make_prefill_step`` on both paths: exactly 40 K3 launches at 4096 x
+   4096 and 8 at 4096 x 1024 (non-causal) and nothing else, finite
+   last-position logits within ``TOL_DENSE_PREFILL`` of ``impl=
+   "chunked"``, both paths against the f64-attention reference; ms per
+   prefill in turns, peak memory, a profile by kind of kernel with the
+   idle share; prefill vs ``decode_step`` over 64 tokens with the cross
+   caches filled by ``prepare_decode_state`` (neither launches K3),
+   decode ms per token; ``repro_torch.launch.serve.main`` on the card at
+   full depth;
+13. audio  -- ``seamless-m4t-large-v2`` served whole (12 causal encoder
+   blocks over the stub frames, 2 x 1024 x 1024, and 12 decoder blocks
+   with cross-attention to the encoder): the same checks, with exactly
+   12 K3 launches at 1024 x 1024 (the encoder), 12 at 4096 x 4096 and 12
+   at 4096 x 1024 per prefill, prefill vs decode over 256 tokens;
+14. hybrid_train -- ``zamba2-1.2b`` at full width with 8 of its 38
    layers (a depth cut, PERF.md § 4) trained (f32, seed 0) under both
    objectives: ``repro_torch.launch.train --objective lm`` at 2 x 4096
    and the contrastive (v3) run at 64 x 256, each launcher in a child
@@ -122,7 +146,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    within 1e-2 of f32), ms per step, peak memory, a profile by kind of
    kernel with the idle share, the backward of K4's and K3's autograd
    Functions timed at each objective's layer shapes;
-13. eval   -- the zero-shot eval engine at full width:
+15. eval   -- the zero-shot eval engine at full width:
    ``repro_torch.launch.eval.main`` on the slice's checkpoint at 192
    classes x 16 (3072 pairs, 224 px, context 77), extraction batch 256,
    ``--impl flash --loss-impl fused``: exactly 300 K3 launches (24 per
@@ -137,7 +161,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    extra memory; planted serving under chaos (NaN batch, corrupt cache
    entry, stalled batch, corrupt reload candidate): nothing dropped,
    every completed response bitwise equal to the solo forward;
-14. train  -- three full-width FastCLIP v3 steps at global batch 256
+16. train  -- three full-width FastCLIP v3 steps at global batch 256
    through ``repro_torch.launch.train.main`` (defaults ``--impl flash
    --loss-impl fused``): launch counts (3 calls of K1 and of K2, 2 CUDA
    launches each, 72 of the attention kernel), finite losses, f32 masters; step-1 gradients and
@@ -147,7 +171,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    launches (K1 once and K3 36 times per eval at 8 x 8 pairs), the last
    ``eval`` line the evaluator's on the final params, its eval_loss the
    dense loss's within rtol 1e-5;
-15. clip_family -- the paper's other two CLIP settings at full width and
+17. clip_family -- the paper's other two CLIP settings at full width and
    depth (v3, AdamW, global batch 256, seeded random weights):
    ``clip-rn50-cc3m`` trained 3 f32 steps by the launcher in a process
    of its own that sets no backend flag (the port's device policy alone:
@@ -161,12 +185,12 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the card) held to one device (loss 1e-5, params 5e-5, log-u 1e-4);
    ``clip-vitb16-laion`` 3 f32 steps (36 K3 at S = 197, 36 at 77) with
    the same checks;
-16. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
+18. mesh   -- the (data, fsdp) mesh (``--mesh``): K1 / K2 at each rank's
    shape of data:2,fsdp:2 at global batch 256 (64 rows x 256 gathered
    columns x 512, row offsets 0, 64, 128, 192) against their plain
    versions, timed; ``--mesh data:1,fsdp:1`` (a one-rank NCCL group)
    through the launcher in a process of its own, held to phase train's
-   run, its checkpoint write beside the 4-rank run below; ``--mesh
+   run, beside the 4-rank step-level checks below; ``--mesh
    data:2,fsdp:2`` as 4 ranks sharing the card (gloo), spawned through
    ``repro_torch.launch.multiprocess`` (this script's ``--mesh-worker``
    ranks): 3 steps with ``--eval-every 2`` and a sharded checkpoint,
@@ -179,7 +203,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    trajectory at the same bounds; 24 K3 launches per rank per step),
    the sharded top-k bitwise and the planted known answers exact
    through the sharded retrieval;
-17. resilience -- the trainer's recovery paths at full width (v3, f32,
+19. resilience -- the trainer's recovery paths at full width (v3, f32,
    batch 256, 1024 samples, ``--impl flash --loss-impl fused``), every
    state compared by the sha256 of every leaf with the oracle's (4
    steps, synchronous saves at 2 and 4): ``nan_batch@2`` under
@@ -197,7 +221,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    reduced size on data:2,fsdp:2 (4 gloo ranks on the card), a
    ``kill@3`` plus ``--resume`` and a ``nan_batch@2`` skip, each rank's
    shards bitwise;
-18. dense_train -- ``qwen3-1.7b`` at full width with 10 of its 28
+20. dense_train -- ``qwen3-1.7b`` at full width with 10 of its 28
    layers (``DENSE_TRAIN_LAYERS``, a depth cut for the run's time)
    trained (f32, seed 0, JAX's grouped recompute: 2 groups of 5 layers,
    each recomputed once):
@@ -220,7 +244,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    memory per rank, each step against one device from the same state
    (loss 1e-5, log-u 1e-4, moments and update per group of leaves, as
    phase clip_family's mesh);
-19. moe_train -- ``qwen3-moe-30b-a3b`` at full width with 3 of its 48
+21. moe_train -- ``qwen3-moe-30b-a3b`` at full width with 3 of its 48
    layers (``MOE_TRAIN_LAYERS``: a step at 4 does not fit the card)
    trained (f32, seed 0; JAX's rule recomputes each super-block on its
    own): the LM launcher at 2 x 4096 in a child process for 3 steps
@@ -238,7 +262,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    check as above); ``data:1,fsdp:2`` at 1 of the 48 layers as phase
    dense_train's; last, so that its failure hides no earlier phase's
    result;
-20. report -- the kernels JSON line, the card line, and the last line
+22. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -526,6 +550,18 @@ KERNEL_CASES = [
     # qwen1p5's shape
     ("qwen3_moe", 2, 32, 4096, 4096, 128, True, 0, "float32", True),
     ("qwen3_moe", 2, 32, 4096, 4096, 128, True, 0, "bfloat16", True),
+    # the cross-attention families' prefills at 2 x 4096 (phases vlm and
+    # audio): llama-3.2-vision-11b's cross blocks (32 heads over its 8 KV
+    # heads repeated, 1024 image tokens; its self-attention is qwen3_moe's
+    # shape), seamless-m4t-large-v2's decoder cross-attention over its
+    # 1024 encoder frames, its causal encoder and its decoder's
+    # self-attention
+    ("vlm_cross", 2, 32, 4096, 1024, 128, False, 0, "float32", True),
+    ("vlm_cross", 2, 32, 4096, 1024, 128, False, 0, "bfloat16", True),
+    ("audio_cross", 2, 16, 4096, 1024, 64, False, 0, "float32", True),
+    ("audio_cross", 2, 16, 4096, 1024, 64, False, 0, "bfloat16", True),
+    ("audio_enc", 2, 16, 1024, 1024, 64, True, 0, "float32", True),
+    ("audio_self", 2, 16, 4096, 4096, 64, True, 0, "float32", True),
     # qwen3-moe's contrastive training (phase moe_train): 64 x 256, and a
     # rank's 32 rows of it on data:1,fsdp:2
     ("qwen3_moe_ctr", 64, 32, 256, 256, 128, True, 0, "float32", True),
@@ -1888,18 +1924,26 @@ class _AttentionInF64:
         self.mod.chunked_attention = self.orig
 
 
-def _dense_prefill(checks, name, cfg, model, tokens, want_k3):
-    """One model's prefill through both paths: exact launches (K3 only),
+def _dense_prefill(checks, name, cfg, model, tokens, want_k3, extra=None,
+                   want_by_seq=None, warm_up=True):
+    """One model's prefill through both paths: exact launches (K3 only:
+    ``want_k3`` at S x S, or ``want_by_seq``, {"SqxSk": launches}),
     finite logits, kernel vs plain within TOL_DENSE_PREFILL, both against
     the f64-attention reference (a measurement), ms in turns (k, p, p,
-    k), peak memory.  Returns (record, the prefill steps)."""
+    k), peak memory.  ``extra``: the batch's other inputs (the vlm's
+    image embeds, the audio frames); ``warm_up=False``: no untimed
+    prefill first (the last of the four turns is then the warm kernel
+    path's).  Returns (record, the prefill steps)."""
     import torch
     from repro_torch.launch import steps
     B, S = tokens.shape
-    batch = {"tokens": tokens}
+    batch = {"tokens": tokens, **(extra or {})}
+    want_by_seq = want_by_seq or {f"{S}x{S}": want_k3}
+    want_k3 = sum(want_by_seq.values())
     prefill = {impl: steps.make_prefill_step(cfg, impl=impl)
                for impl in ("flash", "chunked")}
-    prefill["flash"](model, batch)                       # warm-up
+    if warm_up:
+        prefill["flash"](model, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_hybrid_counters()
@@ -1910,9 +1954,9 @@ def _dense_prefill(checks, name, cfg, model, tokens, want_k3):
     counts, by_seq = _hybrid_counters(), _by_seq()
     peak = torch.cuda.max_memory_allocated()
     want = {k: (want_k3 if k == "flash_attention" else 0) for k in counts}
-    checks.check(counts == want and by_seq == {f"{S}x{S}": want_k3},
+    checks.check(counts == want and by_seq == want_by_seq,
                  f"{name} prefill: launches {counts} by (Sq, Sk) {by_seq}, "
-                 f"want {want_k3} K3 at {S}x{S} and nothing else")
+                 f"want K3 {want_by_seq} and nothing else")
     checks.check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
                  and bool(torch.isfinite(logits).all()),
                  f"{name} prefill: logits {tuple(logits.shape)} not finite")
@@ -2388,6 +2432,163 @@ def phase_moe(checks):
     emit("moe", seconds=time.monotonic() - t_phase)
     checks.end_phase("moe")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases vlm and audio: the cross-attention families served
+# ---------------------------------------------------------------------------
+
+# full width and depth (f32 weights: 40.47 GB for the vlm, 5.12 GB for
+# the audio model); the parameter counts are JAX's (``param_shapes``)
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
+CROSS_PARAMS = {VLM_ARCH: 10_118_336_512, AUDIO_ARCH: 1_280_636_928}
+# prefill vs stepwise decode: the prompt's tokens on each family
+CROSS_DECODE_TOKENS = {VLM_ARCH: 64, AUDIO_ARCH: 256}
+
+
+def _cross_want_by_seq(cfg, S):
+    """K3's launches by (Sq, Sk) in one prefill at sequence ``S``: the
+    vlm's self-attentions (S, S) and cross blocks (S, n_image_tokens);
+    the audio's encoder (S_enc, S_enc), decoder self (S, S) and cross
+    (S, S_enc)."""
+    if cfg.family == "vlm":
+        return {f"{S}x{S}": cfg.n_layers,
+                f"{S}x{cfg.n_image_tokens}": (cfg.n_layers
+                                              // cfg.cross_attn_every)}
+    E = S // cfg.audio_subsample
+    return {f"{E}x{E}": cfg.enc_layers, f"{S}x{S}": cfg.n_layers,
+            f"{S}x{E}": cfg.n_layers}
+
+
+def _cross_family(checks, arch):
+    """One cross-attention family served at full width and depth: seeded
+    init on the card and JAX's parameter count; a 2 x 4096 prefill
+    through both paths (``_dense_prefill``: exact K3 launches by (Sq,
+    Sk), kernel vs plain within TOL_DENSE_PREFILL, both against the
+    f64-attention reference, ms in turns, peak memory) with the stub
+    inputs of the serving launcher; a profile by kind of kernel and the
+    idle share; prefill vs ``decode_step`` over CROSS_DECODE_TOKENS
+    tokens from ``prepare_decode_state`` (cross caches filled once),
+    neither launching K3; the decode launcher on the card.  Returns K3's
+    launches by (Sq, Sk) of one prefill."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import backbones as BB
+
+    t_phase = time.monotonic()
+    name = "vlm" if arch == VLM_ARCH else "audio"
+    cfg = get_arch(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model = BB.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    checks.check(n_params == CROSS_PARAMS[arch],
+                 f"{name}: {arch} has {n_params} parameters, want "
+                 f"{CROSS_PARAMS[arch]}")
+    emit(f"{name}_params", arch=arch, n_params=n_params,
+         n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         head_dim=cfg.resolved_head_dim, init_seconds=time.monotonic() - t0,
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()))
+    B, S = 2, 4096
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    extra = serve.stub_inputs(cfg, B, S, gen, "cuda")
+    want_by_seq = _cross_want_by_seq(cfg, S)
+    # the vlm's ~3.4 s prefill is timed cold once and warm once (turns k,
+    # p, p, k) rather than run a fifth time to warm up
+    rec, prefill = _dense_prefill(checks, name, cfg, model, tokens, 0,
+                                  extra=extra, want_by_seq=want_by_seq,
+                                  warm_up=cfg.family != "vlm")
+    out = rec["launches_by_seq"]
+    try:       # a measurement only; no check depends on it
+        prof = _profile(lambda: prefill["flash"](
+            model, {"tokens": tokens, **extra}), categories=DENSE_CATEGORIES)
+        prof["idle_share_of_unprofiled_prefill"] = max(
+            0.0, 1.0 - prof["device_busy_ms"]
+            / min(rec["ms_per_prefill_kernel_path"]))
+        emit(f"{name}_profile", **prof)
+    except Exception as e:
+        emit(f"{name}_profile", error=repr(e))
+
+    # prefill vs stepwise decode over the same prompt, the cross caches
+    # filled once from the same stub inputs (no launch in either)
+    T = CROSS_DECODE_TOKENS[arch]
+    short = {"tokens": tokens[:1, :T],
+             **serve.stub_inputs(cfg, 1, T, gen, "cuda")}
+    last = prefill["flash"](model, short)[:, 0]
+    _zero_hybrid_counters()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state = BB.prepare_decode_state(model, cfg, short, 1, T)
+    torch.cuda.synchronize()
+    prep_ms = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        for t in range(T):
+            lg, state = BB.decode_step(model, cfg, state,
+                                       short["tokens"][:, t:t + 1], t)
+    torch.cuda.synchronize()
+    dec_s = time.monotonic() - t0
+    d = (lg - last).abs().max().item()
+    dec_counts = _hybrid_counters()
+    cross_shape = list(state["cross_kv"]["k"].shape)
+    checks.check(math.isfinite(d) and d <= TOL_PREFILL_DECODE
+                 and not any(dec_counts.values()),
+                 f"{name}: prefill vs decode max abs {d}, "
+                 f"prepare_decode_state and decode launched {dec_counts}")
+    emit(f"{name}_prefill_vs_decode", tokens=T, max_abs_err=d,
+         tol=TOL_PREFILL_DECODE, decode_launches=dec_counts,
+         cross_cache_shape=cross_shape, prepare_decode_state_ms=prep_ms,
+         decode_ms_per_token_batch1=dec_s / T * 1e3)
+    del model, state, lg, last, prefill, extra
+    torch.cuda.empty_cache()
+
+    # the decode launcher on the card, full width and depth (batch 4,
+    # prompt 16, 32 new tokens; its stub inputs fill the cross caches)
+    argv = ["--arch", arch]
+    _zero_hybrid_counters()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main(argv)
+    wall = time.monotonic() - t0
+    serve_counts = _hybrid_counters()
+    lines = buf.getvalue().splitlines()
+    tps = float(lines[0].split(" at ")[1].split(" tok/s")[0])
+    checks.check(lines[0].startswith(f"arch={arch} batch=4 ")
+                 and tuple(toks.shape) == (4, 48)
+                 and toks.device.type == "cuda" and 0 <= int(toks.min())
+                 and int(toks.max()) < cfg.vocab_size
+                 and not any(serve_counts.values()),
+                 f"{name} serve: {lines[:1]} tokens {tuple(toks.shape)} on "
+                 f"{toks.device}, launches {serve_counts}")
+    emit(f"{name}_serve", argv=argv, lines=lines, launches=serve_counts,
+         decode_tokens_per_s=tps, wall_seconds=wall,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del toks
+    torch.cuda.empty_cache()
+    emit(name, seconds=time.monotonic() - t_phase)
+    checks.end_phase(name)
+    return out
+
+
+def phase_vlm(checks):
+    """``llama-3.2-vision-11b`` served at full width and all 40 layers
+    (``_cross_family``)."""
+    return _cross_family(checks, VLM_ARCH)
+
+
+def phase_audio(checks):
+    """``seamless-m4t-large-v2`` served whole (``_cross_family``)."""
+    return _cross_family(checks, AUDIO_ARCH)
 
 
 # ---------------------------------------------------------------------------
@@ -2879,22 +3080,27 @@ def _hybrid_launcher_checks(checks, name, cfg, finished, lines, inproc,
     return got
 
 
-def phase_hybrid_train(checks):
+def phase_hybrid_train(checks, child=None):
     """zamba2-1.2b at full width and ``HYBRID_TRAIN_LAYERS`` layers trained
     under the LM and the contrastive objective, f32, seed 0: each
     launcher in a child process (3 steps through the kernels), and the
-    same init and batches here (``_hybrid_objective``).  Returns the
-    kernels' launches per launcher run."""
+    same init and batches here (``_hybrid_objective``).  ``child``: a
+    held ``_LauncherProcess`` for the LM launcher.  Returns the kernels'
+    launches per launcher run."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import backbones as BB
     cfg = get_arch(HYBRID_ARCH).replace(n_layers=HYBRID_TRAIN_LAYERS)
     out = {}
+    # both launchers start now, the contrastive one held (its imports
+    # done by its turn)
+    held = {"lm": child, "contrastive": _LauncherProcess()}
     for kind, argv in (("lm", HYBRID_LM_ARGS), ("contrastive",
                                                  HYBRID_CTR_ARGS)):
         name = f"hybrid_train_{kind}"
         t0 = time.monotonic()
-        child = _LauncherProcess(argv, layers=HYBRID_TRAIN_LAYERS)
+        child = (held[kind] or _LauncherProcess()).start(
+            argv, layers=HYBRID_TRAIN_LAYERS)
         try:
             if kind == "lm":
                 # the launcher's init, drawn on the host as the launcher
@@ -3499,14 +3705,15 @@ def _dense_train_launches(dense_train, kernel):
             for run in ("lm", "contrastive", "mesh_per_rank_per_step")}
 
 
-def phase_dense_train(checks):
+def phase_dense_train(checks, child=None):
     """qwen3-1.7b at full width and ``DENSE_TRAIN_LAYERS`` layers trained
     (f32, seed 0): the LM launcher in a child process (3 steps at 2 x
     4096), the same init and batches here
     under both objectives (``_dense_lm``, ``_dense_contrastive``), and
     the contrastive objective on data:1,fsdp:2 (``_dense_mesh``), whose
     ranks start with the phase and do their host work beside the others,
-    but touch the card only once these are done.  Returns the kernels'
+    but touch the card only once these are done.  ``child``: a held
+    ``_LauncherProcess`` for the LM launcher.  Returns the kernels'
     launches per run."""
     import concurrent.futures
 
@@ -3522,7 +3729,8 @@ def phase_dense_train(checks):
     try:
         spawned = pool.submit(_spawn_mesh, "dense", [signal_path], 1200,
                               nproc=2)
-        child = _LauncherProcess(DENSE_LM_ARGS, layers=DENSE_TRAIN_LAYERS)
+        child = (child or _LauncherProcess()).start(
+            DENSE_LM_ARGS, layers=DENSE_TRAIN_LAYERS)
         try:
             # the launcher's init, drawn on the host as the launcher draws
             # it, while the child trains (nothing of this process on the
@@ -4250,27 +4458,87 @@ def _launcher_worker(argv):
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# children started ahead of their turn
+# ---------------------------------------------------------------------------
+
+# A child of this script spends seconds importing torch and the port
+# before it does anything, whether one or eight start at once, so a child
+# is started early, "held": it imports, then waits for the argv its
+# parent writes to its hold file (or "stop").  Its turn then starts with
+# the imports done.  Every hold file is released or stopped at exit.
+_HOLDS = []
+
+
+def _hold_path():
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_hold_"), "go")
+    _HOLDS.append(path)
+    return path
+
+
+def _release(path, argv):
+    """Start a held child on ``argv`` (this script's own arguments)."""
+    _signal(path, json.dumps(list(argv)))
+
+
+def _stop_held():
+    """At exit: every held child still waiting ends (a no-op for the
+    released ones)."""
+    for path in _HOLDS:
+        _signal(path, "stop")
+    time.sleep(0.5)
+    for path in _HOLDS:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
+def _hold(path):
+    """In a held child: the imports, then its argv from ``path``; exits
+    on "stop" or when its parent is gone."""
+    import torch  # noqa: F401  (the slow part of a start)
+    import repro_torch.launch.train  # noqa: F401
+    ppid = os.getppid()
+    while True:
+        if os.path.exists(path):
+            with open(path) as f:
+                word = f.read().strip()
+            if word == "stop":
+                sys.exit(0)
+            if word:
+                return json.loads(word)
+        if os.getppid() != ppid:
+            sys.exit(0)
+        time.sleep(0.1)
+
+
 class _LauncherProcess:
     """``_launcher_worker`` on ``argv`` in a child process whose output a
     thread reads as it comes: ``wait_for`` a line, then ``finish`` for
     (exit code, its report or None, {u1, u2} or None, stderr's tail).
-    ``layers``: the arch at that depth (a depth cut)."""
+    ``layers``: the arch at that depth (a depth cut).  With no ``argv``
+    the child is held (imports done, waiting) until ``start``."""
 
-    def __init__(self, argv, layers=None):
+    def __init__(self, argv=None, layers=None):
         import threading
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_lw_")
         self.out = os.path.join(self.dir, "u.npz")
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.hold = _hold_path()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "chip_smoke", "--launcher-worker",
-             self.out, *(["--layers", str(layers)] if layers else []),
-             *argv], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=self.err, text=True,
+            [sys.executable, "-m", "chip_smoke", "--hold", self.hold],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=self.err, text=True,
             env={**os.environ, "PYTHONPATH": os.pathsep.join([SRC, ROOT])})
         self.lines = []
         self.cond = threading.Condition()
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
+        if argv is not None:
+            self.start(argv, layers)
+
+    def start(self, argv, layers=None):
+        _release(self.hold, ["--launcher-worker", self.out,
+                             *(["--layers", str(layers)] if layers else []),
+                             *argv])
+        return self
 
     def _read(self):
         for ln in self.proc.stdout:
@@ -4292,6 +4560,7 @@ class _LauncherProcess:
 
     def finish(self, timeout):
         import numpy as np
+        _signal(self.hold, "stop")       # a no-op once started
         try:
             rc = self.proc.wait(timeout)
         except subprocess.TimeoutExpired:
@@ -4487,7 +4756,7 @@ def _bf16_step(checks, arch, name):
 
 
 def _train_arch(checks, arch, name, ckpt=None, keep_tree=False,
-                beside_write=None):
+                beside_write=None, child=None):
     """One CLIP setting at full width, v3, AdamW, global batch 256: 3 f32
     steps of the launcher on the kernel path, held to the plain path's
     run; step-1 gradients and two identical steps on one batch (untimed);
@@ -4495,9 +4764,10 @@ def _train_arch(checks, arch, name, ckpt=None, keep_tree=False,
     kernel path runs in a child process that sets no backend flag (the
     device policy alone decides them) and writes its step-3 checkpoint
     there; that write is host work, and only untimed work runs beside
-    it: those checks, then ``beside_write()``.  Returns the kernel run's
-    record, launches and launches by (Sq, Sk), with ``keep_tree`` its
-    final state as a flat host tree."""
+    it: those checks, then ``beside_write()``.  ``child``: a held
+    ``_LauncherProcess`` for that run (started early, its imports done).
+    Returns the kernel run's record, launches and launches by (Sq, Sk),
+    with ``keep_tree`` its final state as a flat host tree."""
     import torch
     from repro_torch.checkpoint import bridge, flatten
     from repro_torch.configs import get_arch
@@ -4521,8 +4791,8 @@ def _train_arch(checks, arch, name, ckpt=None, keep_tree=False,
         _bf16_step(checks, arch, name)
     else:
         t0 = time.monotonic()
-        child = _LauncherProcess(argv + ["--ckpt-dir", ckpt, "--ckpt-every",
-                                         "3"])
+        child = (child or _LauncherProcess()).start(
+            argv + ["--ckpt-dir", ckpt, "--ckpt-every", "3"])
         try:
             # the child's last step is logged before its checkpoint write
             # begins
@@ -4795,7 +5065,7 @@ def _mesh_vs_one(mesh, one, start, loss_one, loss_mesh, dims):
 TOL_MESH_MOMENT, TOL_MESH_UPDATE = 1e-2, (5e-2, 1e-2)
 
 
-def _rn50_mesh(checks):
+def _rn50_mesh(checks, group):
     """``clip-rn50-cc3m`` on data:1,fsdp:2, 2 steps that both move the
     params, each against one device from the same state: loss 1e-5 and
     log-u 1e-4 by max abs error; exact launches per rank.  The gradients
@@ -4812,7 +5082,7 @@ def _rn50_mesh(checks):
     from repro_torch.configs import get_arch
     cfg = get_arch(RN50)
     t0 = time.monotonic()
-    res, reps = _spawn_mesh("family", [], 600, nproc=2)
+    res, reps = group.start("family", []).result()
     wall = time.monotonic() - t0
     rcs = [r.returncode for r in res]
     for r in res:
@@ -4962,23 +5232,25 @@ def _rn50_serve_eval(checks, ckpt):
     return out
 
 
-def phase_clip_family(checks, beside=None):
+def phase_clip_family(checks, beside=None, child=None):
     """The paper's other two CLIP settings at full width and depth, seeded
     random weights, v3, AdamW, global batch 256 on the card: the ResNet-50
     (train, serve, eval; on the mesh and ``beside()``, both untimed,
-    beside its launcher's checkpoint write), ViT-B/16 (train).  Returns
-    the launch counts of their runs and K1's timings at the ResNet-50's
-    eval shape."""
+    beside its launcher's checkpoint write), ViT-B/16 (train).  ``child``:
+    a held ``_LauncherProcess`` for the ResNet-50 launcher; the mesh's
+    ranks start held with the phase.  Returns the launch counts of their
+    runs and K1's timings at the ResNet-50's eval shape."""
     import torch
+    mesh = _HeldGroup(2, 1500)
 
     def untimed():
         if beside is not None:
             beside()
-        _rn50_mesh(checks)
+        _rn50_mesh(checks, mesh)
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_rn50_")
     try:
         out = {"rn50_train": _train_arch(checks, RN50, "rn50", ckpt=ckpt,
-                                         beside_write=untimed)}
+                                         beside_write=untimed, child=child)}
         checks.end_phase("clip_family")
         out.update(_rn50_serve_eval(checks, ckpt))
     finally:
@@ -5271,28 +5543,53 @@ def _mesh_worker_step(argv):
     print(json.dumps(rep), flush=True)
 
 
+class _HeldGroup:
+    """``nproc`` ranks of this script on the card started held (a
+    thread waits for the group): ``start`` gives them a worker ``kind``
+    and its ``args``, ``result`` waits for (harness results, one report
+    dict per rank)."""
+
+    def __init__(self, nproc=4, timeout=900):
+        import threading
+        self.hold, self.res = _hold_path(), None
+        self.thread = threading.Thread(target=self._run,
+                                       args=(nproc, timeout), daemon=True)
+        self.thread.start()
+
+    def _run(self, nproc, timeout):
+        from repro_torch.launch import multiprocess as MP
+        self.res = MP.run_train_multiprocess(
+            ["--hold", self.hold], num_processes=nproc, timeout=timeout,
+            module="chip_smoke",
+            env_extra={"PYTHONPATH": os.pathsep.join([SRC, ROOT])})
+
+    def start(self, kind, args):
+        _release(self.hold, ["--mesh-worker", kind, *args])
+        return self
+
+    def result(self):
+        self.thread.join()
+        reports = []
+        for r in self.res:
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith('{"mesh_rank"')]
+            reports.append(json.loads(lines[-1]) if lines else None)
+        return self.res, reports
+
+
 def _spawn_mesh(kind, args, timeout, nproc=4):
     """``nproc`` ranks of this script's worker ``kind`` on the card;
     returns (harness results, one report dict per rank)."""
-    from repro_torch.launch import multiprocess as MP
-    res = MP.run_train_multiprocess(
-        ["--mesh-worker", kind, *args], num_processes=nproc, timeout=timeout,
-        module="chip_smoke",
-        env_extra={"PYTHONPATH": os.pathsep.join([SRC, ROOT])})
-    reports = []
-    for r in res:
-        lines = [ln for ln in r.stdout.splitlines()
-                 if ln.startswith('{"mesh_rank"')]
-        reports.append(json.loads(lines[-1]) if lines else None)
-    return res, reports
+    return _HeldGroup(nproc, timeout).start(kind, args).result()
 
 
 def phase_mesh(checks, train_rec, train_tree):
     """The (data, fsdp) mesh on the card; returns the kernels' per-rank
     launches of the data:2,fsdp:2 launcher run and the K1/K2 timings at
-    the per-rank shape.  Each launcher's steps run alone; their
-    checkpoint writes and the checks of what they wrote run beside the
-    step-level checks, which time nothing."""
+    the per-rank shape.  The 2x2 launcher's steps run alone; the 1x1
+    launcher (held to phase train's run, not timed against anything)
+    runs beside the step-level checks, which time nothing, and beside
+    the check of the 2x2 checkpoint."""
     import concurrent.futures
     import numpy as np
     import torch
@@ -5301,6 +5598,10 @@ def phase_mesh(checks, train_rec, train_tree):
     from repro_torch.configs import get_arch
 
     cfg = get_arch(ARCH)
+    # the phase's children start held: their imports run beside the K1 /
+    # K2 cases and the 2x2 launcher's own start
+    group4, child, group_step = (_HeldGroup(4, 1500), _LauncherProcess(),
+                                 _HeldGroup(4, 1500))
     # K1 / K2 at the per-rank shape, each row offset
     gen = torch.Generator(device="cuda").manual_seed(3)
     timings = {}
@@ -5314,11 +5615,11 @@ def phase_mesh(checks, train_rec, train_tree):
     try:
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        res4, reps4 = _spawn_mesh("train", MESH_ARGS + [
+        res4, reps4 = group4.start("train", MESH_ARGS + [
             "--mesh", "data:2,fsdp:2", "--eval-every", "2",
             "--eval-classes", "8", "--eval-per-class", "8",
             "--eval-batch", "64", "--ckpt-dir", d4, "--ckpt-every",
-            "100"], 900)
+            "100"]).result()
         wall4 = time.monotonic() - t0
         rcs4 = [r.returncode for r in res4]
         for r in res4:
@@ -5330,23 +5631,20 @@ def phase_mesh(checks, train_rec, train_tree):
         launches = [rp["launches"] if rp else None for rp in reps4]
 
         # data:1,fsdp:1: a one-rank group (NCCL) in a process of its own,
-        # held to phase train's run; its checkpoint write (~80 s of host
-        # compression) and the check of the 2x2 checkpoint run beside the
-        # step-level checks
+        # held to phase train's run, beside the check of the 2x2
+        # checkpoint and the step-level checks
         t1 = time.monotonic()
-        child = _LauncherProcess(MESH_ARGS + ["--mesh", "data:1,fsdp:1",
-                                              "--ckpt-dir", d1,
-                                              "--ckpt-every", "100"])
+        child.start(MESH_ARGS + ["--mesh", "data:1,fsdp:1", "--ckpt-dir",
+                                 d1, "--ckpt-every", "100"])
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             try:
-                child.wait_for(lambda ln: ln.startswith("step     2 "), 900)
                 verified = pool.submit(_mesh_ckpt_check, d4, train_tree,
                                        [(rp or {}).get("state_sha256")
                                         for rp in reps4])
                 # step-level parity, microbatch 2, the sharded eval forms
                 torch.cuda.empty_cache()
                 t0 = time.monotonic()
-                res, reps = _spawn_mesh("step", [], 900)
+                res, reps = group_step.start("step", []).result()
                 wall = time.monotonic() - t0
             finally:
                 rc1, rep1, _, err1 = child.finish(900)
@@ -5511,10 +5809,11 @@ RES_MESH_ARGS = ["--arch", ARCH, "--reduced", "--global-batch", "16",
                  "--loss-impl", "fused", "--seed", "0"]
 
 
-def _res_run(argv, on_step=None):
+def _res_run(argv, on_step=None, digests=True):
     """The launcher in this process on ``argv``, its output captured; the
     counts set to 0 just before and read just after.  ``on_step(record)``
-    runs after each step's record."""
+    runs after each step's record; ``digests``: the sha256 of every leaf
+    of the final state (~2 s at full width), for the bitwise checks."""
     import contextlib
     import io
     import torch
@@ -5539,7 +5838,8 @@ def _res_run(argv, on_step=None):
     wall = time.monotonic() - t0
     res = dict(launches=_counters(), by_seq=_by_seq(), record=list(record),
                out=out.getvalue(), wall=wall)
-    res["digests"] = _state_digests(bridge.state_to_tree(st))
+    if digests:
+        res["digests"] = _state_digests(bridge.state_to_tree(st))
     del st
     torch.cuda.empty_cache()
     return res
@@ -5575,31 +5875,29 @@ def _host_batch_seconds(loader, n):
 
 def _res_mesh(tmp):
     """The mesh cases (reduced, data:2,fsdp:2, 4 ranks on the card): a
-    clean run with checkpoints at 2 and 4 and a ``kill@3`` run at once,
-    then the kill's ``--resume`` and a ``nan_batch@2`` run at once."""
-    import threading
+    clean run with checkpoints at 2 and 4, a ``kill@3`` run and a
+    ``nan_batch@2`` run at once, then the kill's ``--resume``, whose
+    ranks start held with the others (their imports done by their
+    turn)."""
     from repro_torch import checkpoint as CK
     ref_d, kill_d = (os.path.join(tmp, n) for n in ("mesh_ref", "mesh_kill"))
-    out = {}
-
-    def wave(**jobs):
-        def one(name, args):
-            out[name] = _spawn_mesh("train", RES_MESH_ARGS + args, 600)
-        ts = [threading.Thread(target=one, args=it) for it in jobs.items()]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join()
-
     t0 = time.monotonic()
-    wave(ref=["--steps", "4", "--guard", "--ckpt-dir", ref_d,
-              "--ckpt-every", "2"],
-         kill=["--steps", "4", "--ckpt-dir", kill_d, "--ckpt-every", "2",
-               "--chaos", "kill@3"])
+    groups = {}
+    for name, args in (
+            ("ref", ["--steps", "4", "--guard", "--ckpt-dir", ref_d,
+                     "--ckpt-every", "2"]),
+            ("kill", ["--steps", "4", "--ckpt-dir", kill_d, "--ckpt-every",
+                      "2", "--chaos", "kill@3"]),
+            ("nan", ["--steps", "3", "--guard", "--chaos", "nan_batch@2"])):
+        groups[name] = _HeldGroup(4, 600).start("train", RES_MESH_ARGS + args)
+    resume = _HeldGroup(4, 900)
+    out = {"kill": groups["kill"].result()}
     out["kill_latest"] = CK.latest_step(kill_d)
-    wave(resume=["--steps", "4", "--ckpt-dir", kill_d, "--ckpt-every", "2",
-                 "--resume"],
-         nan=["--steps", "3", "--guard", "--chaos", "nan_batch@2"])
+    resume.start("train", RES_MESH_ARGS + [
+        "--steps", "4", "--ckpt-dir", kill_d, "--ckpt-every", "2",
+        "--resume"])
+    out.update(ref=groups["ref"].result(), nan=groups["nan"].result(),
+               resume=resume.result())
     out["ref_step2"] = CK.checkpoint._load_verified(ref_d, 2)[0]
     out["wall"] = time.monotonic() - t0
     return out
@@ -5612,9 +5910,9 @@ def phase_resilience(checks):
     ``savez_compressed`` writes overlap: the ``kill@3`` subprocess runs
     beside the oracle, the async + rollback run (a worker process)
     starts after the oracle's last timed step and runs beside the
-    resume, the NaN and curriculum runs and the mesh cases; the timed
-    streaming runs come last, alone.  Returns the kernels' launches per
-    full-width case."""
+    resume, the NaN and curriculum runs and the mesh cases (from the
+    oracle's step 3 too); the timed streaming runs come last, alone.  Returns the
+    kernels' launches per full-width case."""
     import concurrent.futures
     import signal
     import threading
@@ -5644,9 +5942,13 @@ def phase_resilience(checks):
              "kill@3"], os.path.join(tmp, "kill.log"), env)
         logs.append(log)
 
+        mesh = {}
+
         def start_async(item):
-            # after the oracle's last timed step: saves, rollback
+            # after the oracle's last timed step: saves, rollback; the mesh
+            # cases (reduced) run from here
             if item["step"] == 3 and "async" not in procs:
+                mt.start()
                 procs["async"], alog = _spawn_logged(
                     [sys.executable, "-m", "chip_smoke", "--res-worker",
                      *RES_ARGS, "--ckpt-async", "--ckpt-keep", "1",
@@ -5657,8 +5959,11 @@ def phase_resilience(checks):
                 logs.append(alog)
 
         # the oracle: 4 steps, synchronous saves at 2 and 4
+        mt = threading.Thread(target=lambda: mesh.update(_res_mesh(tmp)))
         o = _res_run(RES_ARGS + ["--guard", "--ckpt-dir", d0,
                                  "--ckpt-every", "2"], on_step=start_async)
+        if mt.ident is None:          # an oracle that stopped early
+            mt.start()
         oracle, rec = o["digests"], o["record"]
         launches["oracle"] = o["launches"]
         sync_gap = (rec[2]["time"] - rec[1]["time"]) * 1e3
@@ -5673,11 +5978,8 @@ def phase_resilience(checks):
              ms_step_gaps_without_save=free,
              ms_gap_with_sync_save=sync_gap, wall_seconds=o["wall"])
 
-        # the mesh cases, and the reads that verify the oracle's step 2
-        # and the killed run's newest step, beside the runs below
-        mesh = {}
-        mt = threading.Thread(target=lambda: mesh.update(_res_mesh(tmp)))
-        mt.start()
+        # the reads that verify the oracle's step 2 and the killed run's
+        # newest step, beside the runs below
         reads = concurrent.futures.ThreadPoolExecutor(2)
         want2_f = reads.submit(_ckpt_digests, d0, 2)
 
@@ -5717,9 +6019,10 @@ def phase_resilience(checks):
              wall_seconds=n["wall"])
 
         # the curricula, kernel path vs plain path
-        ck = _res_run(RES_ARGS + RES_CURRICULUM)
+        ck = _res_run(RES_ARGS + RES_CURRICULUM, digests=False)
         cp = _res_run(RES_ARGS + RES_CURRICULUM + ["--impl", "chunked",
-                                                   "--loss-impl", "dense"])
+                                                   "--loss-impl", "dense"],
+                      digests=False)
         launches["curriculum"] = ck["launches"]
         traj = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
                    for a, b in zip(ck["record"], cp["record"])
@@ -5739,6 +6042,20 @@ def phase_resilience(checks):
              losses_plain=[r["loss"] for r in cp["record"]],
              worst_rel_traj=traj, tol=TOL_TRAIN_TRAJ,
              wall_seconds=[ck["wall"], cp["wall"]])
+
+        # streaming, beside the mesh cases: shards of the same 1024
+        # samples, 4 decode workers, 4 steps bitwise against the oracle
+        shards = os.path.join(tmp, "shards")
+        ds = ContrastiveDataset(n=1024, image_size=cfg.clip.image_size,
+                                context_length=cfg.clip.context_length,
+                                vocab_size=cfg.vocab_size, n_classes=64)
+        t0 = time.monotonic()
+        write_contrastive_shards(ds, shards)
+        write_s = time.monotonic() - t0
+        stream = RES_ARGS + ["--guard", "--data", f"streaming:{shards}",
+                             "--decode-workers", "4"]
+        s = _res_run(stream)
+        launches["streaming"] = s["launches"]
 
         # the mesh cases
         mt.join()
@@ -5816,18 +6133,10 @@ def phase_resilience(checks):
              ms_gap_with_sync_save_oracle=sync_gap,
              wall_seconds=a.get("wall"))
 
-        # streaming, alone: shards of the same 1024 samples, 4 workers;
-        # 4 steps bitwise against the oracle, then 12 steps of each loader:
-        # the prefetch queue, filled during the first step, hides the host
-        # for the first few steps, so the steady state is the median of
-        # the gaps after the third
-        shards = os.path.join(tmp, "shards")
-        ds = ContrastiveDataset(n=1024, image_size=cfg.clip.image_size,
-                                context_length=cfg.clip.context_length,
-                                vocab_size=cfg.vocab_size, n_classes=64)
-        t0 = time.monotonic()
-        write_contrastive_shards(ds, shards)
-        write_s = time.monotonic() - t0
+        # streaming, timed alone: the host seconds per batch of both
+        # loaders, then 8 steps of each: the prefetch queue, filled during
+        # the first step, hides the host for the first few steps, so the
+        # steady state is the median of the gaps after the third
         sds = StreamingDataset(shards)
         host = {"in_memory": _host_batch_seconds(
                     ShardedLoader(ds, global_batch=256, seed=0), 4),
@@ -5835,18 +6144,15 @@ def phase_resilience(checks):
                     StreamingLoader(sds, global_batch=256, seed=0,
                                     workers=4, decode_ahead=4), 4)}
         sds.close()
-        stream = RES_ARGS + ["--guard", "--data", f"streaming:{shards}",
-                             "--decode-workers", "4"]
-        s = _res_run(stream)
-        launches["streaming"] = s["launches"]
-        long_mem = _res_run(RES_ARGS + ["--guard", "--steps", "12"])
-        long_str = _res_run(stream + ["--steps", "12"])
+        long_mem = _res_run(RES_ARGS + ["--guard", "--steps", "8"],
+                            digests=False)
+        long_str = _res_run(stream + ["--steps", "8"], digests=False)
         gaps = {k: _step_gaps_ms(r["record"], 0, 0) for k, r in
                 (("in_memory", long_mem), ("streaming", long_str))}
         steady = {k: sorted(g[3:])[len(g[3:]) // 2] for k, g in gaps.items()}
         checks.check(s["digests"] == oracle and s["launches"] == steps(4)
-                     and long_mem["launches"] == steps(12)
-                     and long_str["launches"] == steps(12),
+                     and long_mem["launches"] == steps(8)
+                     and long_str["launches"] == steps(8),
                      f"resilience streaming: bitwise "
                      f"{s['digests'] == oracle}, launches {s['launches']}")
         emit("resilience_streaming", bitwise_vs_oracle=s["digests"] ==
@@ -5854,14 +6160,14 @@ def phase_resilience(checks):
              host_seconds_per_batch=host,
              ms_step_gaps_4_steps_streaming=_step_gaps_ms(s["record"], 0, 0),
              ms_step_gaps_4_steps_in_memory_oracle=free,
-             ms_step_gaps_12_steps=gaps, ms_per_step_steady_median=steady,
+             ms_step_gaps_8_steps=gaps, ms_per_step_steady_median=steady,
              wall_seconds=s["wall"])
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        if mt is not None:
+        if mt is not None and mt.ident is not None:
             mt.join()           # its groups end, or the harness kills them
         if reads is not None:
             reads.shutdown()
@@ -5878,13 +6184,16 @@ def main(argv=None):
                                  "GPU (no arguments: every phase)")
     ap.add_argument("--only", default=None,
                     help="a partial run: device, build, then these phases "
-                         "(comma-separated: kernel, gcl, dense, moe, train, "
+                         "(comma-separated: kernel, gcl, dense, moe, vlm, "
+                         "audio, train, "
                          "clip_family, mesh after train, hybrid_train, "
                          "dense_train, moe_train, remat_forms, moe_depth, "
                          "resilience); no report and no last line")
     args = ap.parse_args(argv)
     checks = Checks()
     t_start = time.monotonic()
+    import atexit
+    atexit.register(_stop_held)
 
     def mark(phase):
         emit("timeline", after=phase,
@@ -5901,6 +6210,7 @@ def main(argv=None):
                     "kernel": phase_kernel, "gcl": phase_gcl,
                     "train": phase_train, "clip_family": phase_clip_family,
                     "dense": phase_dense, "moe": phase_moe,
+                    "vlm": phase_vlm, "audio": phase_audio,
                     "hybrid_train": phase_hybrid_train,
                     "dense_train": phase_dense_train,
                     "moe_train": phase_moe_train,
@@ -5927,7 +6237,13 @@ def main(argv=None):
     mark("dense")
     moe = phase_moe(checks)
     mark("moe")
+    vlm = phase_vlm(checks)
+    mark("vlm")
+    audio = phase_audio(checks)
+    mark("audio")
     import torch
+    # phase clip_family's ResNet-50 launcher, held: its imports run here
+    rn50_child = _LauncherProcess()
     train_launches, train_rec, train_tree = phase_train(checks)
     torch.cuda.empty_cache()
     mark("train")
@@ -5938,7 +6254,7 @@ def main(argv=None):
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         made = []
         family = phase_clip_family(checks, beside=lambda: made.append(
-            pool.submit(make_clip_checkpoint)))
+            pool.submit(make_clip_checkpoint)), child=rn50_child)
         ckpt, model = made[0].result()
     torch.cuda.empty_cache()
     mark("clip_family")
@@ -5955,12 +6271,17 @@ def main(argv=None):
     del train_tree
     torch.cuda.empty_cache()
     mark("mesh")
+    # phase hybrid_train's LM launcher, held: its imports run here
+    hybrid_child = _LauncherProcess()
     res_launches = phase_resilience(checks)
     mark("resilience")
-    hybrid_train = phase_hybrid_train(checks)
+    # phase dense_train's LM launcher, held: its imports run during phase
+    # hybrid_train
+    dense_child = _LauncherProcess()
+    hybrid_train = phase_hybrid_train(checks, child=hybrid_child)
     mark("hybrid_train")
     # last: a failure here cannot hide an earlier phase's result
-    dense_train = phase_dense_train(checks)
+    dense_train = phase_dense_train(checks, child=dense_child)
     mark("dense_train")
     moe_train = phase_moe_train(checks)
     mark("moe_train")
@@ -5977,6 +6298,17 @@ def main(argv=None):
         elif case == "qwen3_moe":
             # one qwen3-moe prefill at 8 layers (phase moe): every layer
             path, n_launch = "moe_prefill", moe[MOE_ARCH]["4096x4096"]
+        elif case == "vlm_cross":
+            # one llama-3.2-vision-11b prefill (phase vlm): its 8 cross
+            # blocks (its 40 self-attentions: the qwen3_moe case's shape,
+            # in vlm_prefill_launches)
+            path, n_launch = "vlm_prefill", vlm["4096x1024"]
+        elif case.startswith("audio_"):
+            # one seamless-m4t-large-v2 prefill (phase audio)
+            path = "audio_prefill"
+            n_launch = audio[{"audio_cross": "4096x1024",
+                              "audio_enc": "1024x1024",
+                              "audio_self": "4096x4096"}[case]]
         elif case == "qwen3_moe_ctr":
             # qwen3-moe's 2 contrastive steps of phase moe_train
             path = "moe_train"
@@ -6025,6 +6357,11 @@ def main(argv=None):
             # MoE LM (qwen3-moe 8 layers at 2 x 32 heads, llama4-scout 4
             # at 1 x 40: the qwen1p5 case's shape); decode launches none
             "moe_prefill_launches": moe,
+            # phases vlm and audio: K3's launches by (Sq, Sk) in one 2 x
+            # 4096 prefill of each cross-attention family; decode and
+            # prepare_decode_state launch none
+            "vlm_prefill_launches": vlm,
+            "audio_prefill_launches": audio,
             # one rank's launches in the data:2,fsdp:2 launcher run (3
             # steps at 64 rows per rank, 2 evals)
             "mesh_launches_per_rank": mesh_out["launches_per_rank"][
@@ -6158,7 +6495,13 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-worker"]:
+    args = sys.argv[1:]
+    if args[:1] == ["--hold"]:
+        # a child started ahead of its turn (by this script, never by
+        # hand): its own arguments come once it is released
+        sys.path.insert(0, SRC)
+        args = _hold(args[1]) + args[2:]
+    if args[:1] == ["--mesh-worker"]:
         # one rank of phase mesh (spawned by it, never by hand)
         sys.path.insert(0, SRC)
         {"train": _mesh_worker_train, "step": _mesh_worker_step,
@@ -6167,15 +6510,15 @@ if __name__ == "__main__":
                                                DENSE_MESH_LAYERS),
          "moe": lambda argv: _mesh_worker_lm(argv, MOE_ARCH,
                                              MOE_MESH_LAYERS)
-         }[sys.argv[2]](sys.argv[3:])
-    elif sys.argv[1:2] == ["--launcher-worker"]:
+         }[args[1]](args[2:])
+    elif args[:1] == ["--launcher-worker"]:
         # one launcher run of phase clip_family (spawned by it); it sets
         # no backend flag: the port's device policy alone decides them
         sys.path.insert(0, SRC)
-        _launcher_worker(sys.argv[2:])
-    elif sys.argv[1:2] == ["--res-worker"]:
+        _launcher_worker(args[1:])
+    elif args[:1] == ["--res-worker"]:
         # one full-width run of phase resilience (spawned by it)
         sys.path.insert(0, SRC)
-        _res_worker(sys.argv[2:])
+        _res_worker(args[1:])
     else:
         main()

@@ -6,9 +6,10 @@ package.  The paper's three CLIP settings (ResNet-50 on CC3M, ViT-B/32 on
 CC12M, ViT-B/16 on LAION), the hybrid ``zamba2-1.2b``, the dense LMs
 (``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) and the
 MoE LMs (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``) are
-registered here; ``reduced()`` gives the same small shapes as the JAX
-package's ``reduced()``, which is what lets the tests load one set of
-params into both packages.
+registered here, and so are the vlm ``llama-3.2-vision-11b`` and the
+audio encoder-decoder ``seamless-m4t-large-v2``; ``reduced()`` gives the
+same small shapes as the JAX package's ``reduced()``, which is what lets
+the tests load one set of params into both packages.
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ class CLIPConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # clip, hybrid, dense, moe are ported
+    family: str                    # clip, hybrid, dense, moe, vlm, audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -92,6 +93,15 @@ class ArchConfig:
     ssm: SSMConfig = SSMConfig()
     # hybrid: one shared attention block applied every this many layers
     hybrid_attn_every: int = 0
+    # vlm: a cross-attention block every this many layers, over the stub
+    # image embeds (B, n_image_tokens, vision_dim) projected to d_model
+    cross_attn_every: int = 0
+    n_image_tokens: int = 0
+    vision_dim: int = 0
+    # audio (encoder-decoder): encoder layers over stub frames (B,
+    # seq_len // audio_subsample, d_model)
+    enc_layers: int = 0            # > 0: an encoder-decoder model
+    audio_subsample: int = 4
     clip: Optional[CLIPConfig] = None
     # activation policy of the towers ("f32" | "bf16", models.precision)
     precision: str = "f32"
@@ -103,6 +113,10 @@ class ArchConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
     def padded_vocab(self) -> int:
         return round_up(self.vocab_size, 256)
 
@@ -111,7 +125,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: the JAX package's ``reduced()`` for the
-        fields a CLIP, hybrid, dense or MoE config has."""
+        fields a CLIP, hybrid, dense, MoE, vlm or audio config has."""
         kw = dict(
             n_layers=2,
             d_model=min(self.d_model, 256),
@@ -131,6 +145,13 @@ class ArchConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_size=min(self.ssm.state_size, 16),
                 head_dim=32, chunk=16)
+        if self.enc_layers:
+            kw["enc_layers"] = 1
+            kw["n_layers"] = 2  # 1 enc + 1 dec
+        if self.cross_attn_every:
+            kw["cross_attn_every"] = 2
+            kw["n_image_tokens"] = 16
+            kw["vision_dim"] = min(self.vision_dim, 64)
         if self.hybrid_attn_every:
             kw["hybrid_attn_every"] = 2
             kw["n_layers"] = 2
@@ -147,7 +168,8 @@ _REGISTRY: dict[str, ArchConfig] = {}
 _ARCH_MODULES = ["clip_rn50_cc3m", "clip_vitb32_cc12m", "clip_vitb16_laion",
                  "zamba2_1p2b", "qwen3_1p7b", "yi_6b", "granite_3_8b",
                  "qwen1p5_32b", "qwen3_moe_30b_a3b",
-                 "llama4_scout_17b_a16e"]
+                 "llama4_scout_17b_a16e", "llama_3_2_vision_11b",
+                 "seamless_m4t_large_v2"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -1,6 +1,6 @@
 """Decode-demo launcher (port of ``repro.launch.serve``): batched
 autoregressive generation through the KV caches and SSM states of the
-dense and the hybrid LMs.  A throughput demo of
+LM backbones.  A throughput demo of
 ``backbones.decode_step``, not an online service: it generates a fixed
 number of tokens from random prompts (seeded) with random weights
 (seeded) and exits.
@@ -13,9 +13,15 @@ As in the JAX launcher, the prompt is prefilled by scanning
 prefill through the kernels is ``launch.steps.make_prefill_step``).  It
 runs on the card unless ``--device cpu`` is given.  ``--arch`` defaults
 to ``qwen3-1.7b``, as in the JAX launcher; the ``dense`` (qwen3-1.7b,
-yi-6b, granite-3-8b, qwen1.5-32b), ``hybrid`` (zamba2-1.2b) and ``moe``
-(qwen3-moe-30b-a3b, llama4-scout-17b-a16e) families are ported, and any
-other family exits 2 (vlm, audio and ssm are ROADMAP queue P6b).
+yi-6b, granite-3-8b, qwen1.5-32b), ``hybrid`` (zamba2-1.2b), ``moe``
+(qwen3-moe-30b-a3b, llama4-scout-17b-a16e), ``vlm``
+(llama-3.2-vision-11b) and ``audio`` (seamless-m4t-large-v2) families
+are ported, and any other arch exits 2 (ssm is ROADMAP queue P6b).  As
+in the JAX launcher, the vlm's image embeds (B, n_image_tokens,
+vision_dim) and the audio's frames (B, (prompt + gen) // subsample,
+d_model) are seeded stubs (standard normal x 0.1, drawn from the
+launcher's generator) that fill the cross caches once before the
+prompt.
 
 Not to be confused with ``repro_torch.launch.serve_embed``, the online
 embedding service over the CLIP towers.
@@ -60,6 +66,21 @@ def generate(model, cfg, state, prompt, max_len, gen):
     return torch.cat(toks, dim=1), gen * B / max(dt, 1e-9)
 
 
+def stub_inputs(cfg, batch, max_len, gen, device):
+    """The modality inputs of the JAX launcher's batch, drawn from
+    ``gen``: {} but for the vlm's ``image_embeds`` and the audio's
+    ``frames``."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.n_image_tokens, cfg.vision_dim)
+        key = "image_embeds"
+    elif cfg.family == "audio":
+        shape = (batch, max_len // cfg.audio_subsample, cfg.d_model)
+        key = "frames"
+    else:
+        return {}
+    return {key: torch.randn(shape, generator=gen, device=device) * 0.1}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -78,8 +99,8 @@ def main(argv=None):
     if cfg is None or cfg.family not in BB.LM_FAMILIES:
         what = f"family {cfg.family!r}" if cfg else "its config"
         print(f"serve: {args.arch}: {what} is not ported (ported: the "
-              f"{', '.join(BB.LM_FAMILIES)} families; vlm, audio and "
-              f"ssm are ROADMAP queue P6b)", file=sys.stderr)
+              f"{', '.join(BB.LM_FAMILIES)} families; ssm is ROADMAP "
+              f"queue P6b)", file=sys.stderr)
         sys.exit(2)
     if args.reduced:
         cfg = cfg.reduced()
@@ -87,7 +108,9 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = BB.init_params(cfg, gen, device)
     max_len = args.prompt_len + args.gen
-    state = BB.prepare_decode_state(model, cfg, {}, args.batch, max_len)
+    state = BB.prepare_decode_state(
+        model, cfg, stub_inputs(cfg, args.batch, max_len, gen, device),
+        args.batch, max_len)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     toks, tps = generate(model, cfg, state, prompt, max_len, args.gen)

@@ -104,7 +104,9 @@ device.  ``--mesh`` with ``--objective lm`` on an LM backbone exits as
 the JAX launcher does; with the contrastive objective an LM backbone
 (hybrid, dense or MoE) trains on the mesh like a CLIP arch, its towers
 recomputed in the backward as on one device.  An ``--arch`` whose config
-is not ported (the vlm, audio and ssm families) exits 2.
+is not ported (the ssm family) exits 2, and so does one of the vlm or
+audio family, which serves but does not train yet (the next slice; JAX's
+launcher cannot train them either, ROADMAP F6).
 """
 from __future__ import annotations
 
@@ -293,7 +295,14 @@ def parse_args(argv=None):
     except KeyError:
         ap.error(f"--arch {args.arch}: its config is not ported to "
                  f"repro_torch (ported: the {', '.join(BB.FAMILIES)} "
-                 "families; vlm, audio and ssm are ROADMAP queue P6b)")
+                 "families; ssm is ROADMAP queue P6b)")
+    if cfg.family in BB.CROSS_FAMILIES:
+        ap.error(f"--arch {args.arch}: training the {cfg.family} family "
+                 "is not ported yet: it is the next slice (ROADMAP queue "
+                 "P6b, training of the vlm and audio families), and JAX's "
+                 "launcher cannot train it either (ROADMAP F6: its "
+                 "datasets carry no image_embeds or frames); it serves "
+                 "through repro_torch.launch.serve")
     if args.mesh and cfg.family != "clip" and args.objective == "lm":
         raise SystemExit("--mesh drives the contrastive trainer; the LM "
                          "shapes run on the production mesh via "

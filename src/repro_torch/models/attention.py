@@ -1,5 +1,5 @@
-"""Self-attention with GQA, RoPE, optional RMS qk-norm and QKV bias (port
-of ``repro.models.attention``).
+"""Self- and cross-attention with GQA, RoPE, optional RMS qk-norm and QKV
+bias (port of ``repro.models.attention``).
 
 Shapes: x (B, S, d); q (B, S, H, hd); k/v (B, S, Hkv, hd).  ``impl``
 selects the attention core: "flash", the default (the hand-written kernel
@@ -8,7 +8,14 @@ PyTorch references the tests hold it to: "chunked" (online softmax over q
 and kv blocks, the JAX package's default) and "naive" (the
 O(S^2)-memory oracle).  ``Attention.decode`` is the one-token KV-cache
 path (plain PyTorch, as in the JAX package, which runs it in jnp with no
-kernel).  Cross-attention is not ported yet.
+kernel).
+
+Cross-attention (``forward(x, kv_x=...)``) takes K/V from another
+sequence (the vlm's projected image, the audio encoder's output), with
+no RoPE on q or k and neither a causal mask nor a window, whatever the
+spec says; its K/V projections take ``kv_dim`` inputs.  Decode
+projects the cross K/V once (``init_cross_cache``) and attends over
+them unmasked (``decode_cross``).
 """
 from __future__ import annotations
 
@@ -115,16 +122,18 @@ class Attention(nn.Module):
     of (H*hd, d), in the JAX package's (in, out) layout; with
     ``qkv_bias`` the biases ``bq``/``bk``/``bv`` (zeros at init), with
     ``qk_norm`` the per-head RMSNorms ``q_norm``/``k_norm`` (scale ones
-    at init), as ``init_attention``."""
+    at init), as ``init_attention``; ``kv_dim`` (default d) is the input
+    width of ``wk``/``wv`` (cross-attention)."""
 
-    def __init__(self, spec: AttnSpec):
+    def __init__(self, spec: AttnSpec, kv_dim: Optional[int] = None):
         super().__init__()
         self.spec = spec
         H, Hk, hd, d = (spec.n_heads, spec.n_kv_heads, spec.head_dim,
                         spec.d_model)
+        kv_dim = kv_dim or d
         self.wq = L.param(d, H * hd)
-        self.wk = L.param(d, Hk * hd)
-        self.wv = L.param(d, Hk * hd)
+        self.wk = L.param(kv_dim, Hk * hd)
+        self.wv = L.param(kv_dim, Hk * hd)
         self.wo = L.param(H * hd, d)
         if spec.qkv_bias:
             self.bq = L.param(H * hd)
@@ -143,35 +152,53 @@ class Attention(nn.Module):
                 for b in (self.bq, self.bk, self.bv):
                     b.zero_()
 
+    def _q(self, x):
+        """JAX's ``_project_q``: projection, bias, per-head reshape,
+        qk-norm; (B, S, H, hd), no RoPE."""
+        spec = self.spec
+        B, S, _ = x.shape
+        q = x @ self.wq.to(x.dtype)
+        if spec.qkv_bias:
+            q = q + self.bq.to(x.dtype)
+        q = q.reshape(B, S, spec.n_heads, spec.head_dim)
+        return self.q_norm(q) if spec.qk_norm else q
+
+    def _kv(self, x):
+        """JAX's ``_project_kv``: k/v (B, S, Hkv, hd), no RoPE."""
+        spec = self.spec
+        B, S, _ = x.shape
+        dt = x.dtype
+        k, v = x @ self.wk.to(dt), x @ self.wv.to(dt)
+        if spec.qkv_bias:
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        k = k.reshape(B, S, spec.n_kv_heads, spec.head_dim)
+        v = v.reshape(B, S, spec.n_kv_heads, spec.head_dim)
+        return (self.k_norm(k) if spec.qk_norm else k), v
+
     def _qkv(self, x, positions):
         """JAX's order: projection, bias, per-head reshape, qk-norm, then
         RoPE at ``positions`` (broadcastable to (B, S)): q (B, S, H, hd),
         k/v (B, S, Hkv, hd)."""
         spec = self.spec
-        B, S, _ = x.shape
-        dt = x.dtype
-        q, k, v = (x @ self.wq.to(dt), x @ self.wk.to(dt),
-                   x @ self.wv.to(dt))
-        if spec.qkv_bias:
-            q = q + self.bq.to(dt)
-            k = k + self.bk.to(dt)
-            v = v + self.bv.to(dt)
-        q = q.reshape(B, S, spec.n_heads, spec.head_dim)
-        k = k.reshape(B, S, spec.n_kv_heads, spec.head_dim)
-        v = v.reshape(B, S, spec.n_kv_heads, spec.head_dim)
-        if spec.qk_norm:
-            q, k = self.q_norm(q), self.k_norm(k)
-        q = L.apply_rope(q, positions, spec.rope_theta)
-        k = L.apply_rope(k, positions, spec.rope_theta)
-        return q, k, v
+        q = L.apply_rope(self._q(x), positions, spec.rope_theta)
+        k, v = self._kv(x)
+        return q, L.apply_rope(k, positions, spec.rope_theta), v
 
-    def forward(self, x, *, impl="flash"):
+    def forward(self, x, *, kv_x=None, impl="flash"):
+        """Self-attention, or cross-attention over ``kv_x`` (B, Skv,
+        kv_dim): no RoPE, no causal mask, no window."""
         spec = self.spec
         B, S, _ = x.shape
-        q, k, v = self._qkv(x, torch.arange(S, device=x.device).expand(B, S))
+        if kv_x is None:
+            q, k, v = self._qkv(
+                x, torch.arange(S, device=x.device).expand(B, S))
+            causal, window = spec.causal, spec.sliding_window
+        else:
+            q, (k, v) = self._q(x), self._kv(kv_x)
+            causal, window = False, 0
         n_rep = spec.n_heads // spec.n_kv_heads
         k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-        causal, window = spec.causal, spec.sliding_window
         if impl == "chunked":
             out = chunked_attention(q, k, v, causal=causal, window=window,
                                     q_chunk=spec.q_chunk or 512,
@@ -217,6 +244,28 @@ class Attention(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype), vr)
         out = out.reshape(B, 1, spec.n_heads * spec.head_dim).to(x.dtype)
         return out @ self.wo.to(x.dtype), cache
+
+    def init_cross_cache(self, kv_x):
+        """Cross K/V projected once from ``kv_x`` (B, Skv, kv_dim): {"k",
+        "v"} of (B, Skv, Hkv, hd), before the GQA repeat."""
+        k, v = self._kv(kv_x)
+        return {"k": k, "v": v}
+
+    def decode_cross(self, cross_cache, x):
+        """One-token cross-attention over a filled cross cache (cast to
+        x's dtype), unmasked.  x: (B, 1, d) -> (B, 1, d)."""
+        spec = self.spec
+        B = x.shape[0]
+        q = self._q(x)
+        n_rep = spec.n_heads // spec.n_kv_heads
+        k = _repeat_kv(cross_cache["k"].to(x.dtype), n_rep)
+        v = _repeat_kv(cross_cache["v"].to(x.dtype), n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / \
+            math.sqrt(spec.head_dim)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+        out = out.reshape(B, 1, spec.n_heads * spec.head_dim).to(x.dtype)
+        return out @ self.wo.to(x.dtype)
 
 
 def init_kv_cache(spec: AttnSpec, batch: int, max_len: int,

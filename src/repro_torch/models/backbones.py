@@ -1,9 +1,9 @@
-"""Backbone assembly (port of the CLIP, hybrid and dense branches of
-``repro.models.backbones``).
+"""Backbone assembly (port of the CLIP, hybrid, dense, MoE, vlm and audio
+branches of ``repro.models.backbones``).
 
-The port's "params" are an ``nn.Module`` (``CLIP``, ``HybridLM`` or
-``DenseLM``); the JAX-layout tree is its checkpoint form (see
-``checkpoint.bridge``).
+The port's "params" are an ``nn.Module`` (``CLIP``, ``HybridLM``,
+``DenseLM``, ``MoELM``, ``VisionLM`` or ``AudioLM``); the JAX-layout tree
+is its checkpoint form (see ``checkpoint.bridge``).
 
     init_params(cfg, gen, device)                -> model
     param_shapes(cfg) / params_from_tree(cfg, tree, device)
@@ -11,8 +11,10 @@ The port's "params" are an ``nn.Module`` (``CLIP``, ``HybridLM`` or
     forward_hidden(model, cfg, batch)            -> ((B, S, d), aux) [LMs]
     lm_loss(model, cfg, batch)                   -> (loss, metrics)  [LMs]
     encode(model, cfg, batch)                    -> (B, E)           [LMs]
+    encode_frames(model, cfg, frames)            -> (B, S_enc, d)   [audio]
     prefill_logits(model, cfg, batch)            -> (B, 1, V)
     init_decode_state(cfg, batch, max_len)       -> decode caches (zeros)
+    prepare_decode_state(model, cfg, batch, ...) -> caches, cross filled
     decode_step(model, cfg, state, token, pos)   -> (logits (B, V), state)
 
 The hybrid depth pattern is ``[mamba x every + shared-attn(tied)] x
@@ -51,8 +53,26 @@ the super-blocks.  Decode keeps ``moe_kv`` and, with ``every == 2``,
 ``scan_layers_grouped`` does with the carry ``(h, lb, z)``
 (``layers.run_layers_grouped`` with ``layers.default_remat_group
 (n_super)``): a recompute routes as its forward did, since the forward
-is a function of its inputs bit for bit.  The vlm, audio and ssm
-families raise ``NotImplementedError`` (ROADMAP, queue P6b).
+is a function of its inputs bit for bit.
+
+The vlm depth pattern is ``[self x (every - 1) + cross] x (L // every)``:
+``supers`` is a ModuleList of super-blocks, each a ModuleList ``selfs``
+(JAX's ``supers/selfs/...``, two leading axes) and a ``cross_blk`` (a
+``transformer.Block(cross=True)``: causal self-attention, then
+cross-attention over the image, then the MLP), and ``img_proj`` projects
+the stub image embeds (B, n_image_tokens, vision_dim) to d_model.  The
+audio encoder-decoder has ``enc_blocks`` (causal, with RoPE, as JAX's
+streaming-friendly encoder) and ``enc_norm`` over the stub frames (B,
+S // audio_subsample, d_model), and ``dec_blocks`` of cross blocks over
+the encoder's output; its ``encode`` is the encoder alone.  Decode keeps
+a self cache per block and a cross cache per cross block, which
+``prepare_decode_state`` fills once (projected in f32, stored in the
+state's dtype, before the GQA repeat; no ``slot_pos``): the vlm's
+``self_kv`` (leading axes (n_super, every - 1)), ``cross_self_kv`` and
+``cross_kv`` (n_super), the audio's ``self_kv`` and ``cross_kv``
+(n_layers).  Neither family trains yet: under autograd their
+``forward_hidden`` raises ``NotImplementedError``.  The ssm family
+raises everywhere (ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
@@ -76,8 +96,9 @@ from repro_torch.models import transformer as T
 
 CONTRASTIVE_DIM = 512   # joint embedding dim for the contrastive objective
 PAIR_DIM = 512          # stub paired-modality embedding dim
-FAMILIES = ("clip", "hybrid", "dense", "moe")
-LM_FAMILIES = ("hybrid", "dense", "moe")
+FAMILIES = ("clip", "hybrid", "dense", "moe", "vlm", "audio")
+LM_FAMILIES = ("hybrid", "dense", "moe", "vlm", "audio")
+CROSS_FAMILIES = ("vlm", "audio")
 
 
 def _check_family(cfg: ArchConfig, *families) -> None:
@@ -167,8 +188,49 @@ class MoELM(_LM):
                                     for _ in range(n_super))
 
 
+class VisionSuperBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        spec = T.attn_spec(cfg)
+        self.selfs = nn.ModuleList(
+            T.Block(cfg, spec, mlp="swiglu")
+            for _ in range(cfg.cross_attn_every - 1))
+        self.cross_blk = T.Block(cfg, spec, mlp="swiglu", cross=True)
+
+
+class VisionLM(_LM):
+    """``_LM``'s parameters, then ``supers/selfs/...``,
+    ``supers/cross_blk/...`` (with ``n_cross`` and ``cross``) and
+    ``img_proj`` (vision_dim, d_model)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        self.supers = nn.ModuleList(VisionSuperBlock(cfg)
+                                    for _ in range(n_super))
+        self.img_proj = L.param(cfg.vision_dim, cfg.d_model)
+
+    def reset_parameters(self, gen):
+        super().reset_parameters(gen)
+        L.dense_init_(self.img_proj, gen)
+
+
+class AudioLM(_LM):
+    """``_LM``'s parameters, then ``enc_blocks/...`` (swiglu blocks),
+    ``enc_norm`` and ``dec_blocks/...`` (cross blocks)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        self.enc_blocks = T.make_stack(cfg, cfg.enc_layers, mlp="swiglu")
+        self.enc_norm = L.RMSNorm(cfg.d_model)
+        spec = T.attn_spec(cfg)
+        self.dec_blocks = nn.ModuleList(
+            T.Block(cfg, spec, mlp="swiglu", cross=True)
+            for _ in range(cfg.n_layers))
+
+
 _MODELS = {"clip": C.CLIP, "hybrid": HybridLM, "dense": DenseLM,
-           "moe": MoELM}
+           "moe": MoELM, "vlm": VisionLM, "audio": AudioLM}
 
 
 def _empty(cfg: ArchConfig, device) -> nn.Module:
@@ -280,11 +342,30 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     each call of the hybrid's shared block is recomputed once in the
     backward (JAX's ``remat=True`` scans), and the dense and MoE stacks
     under JAX's grouped recompute (``layers.run_layers_grouped``, the
-    MoE stack carrying its aux sums); a recompute changes no number."""
+    MoE stack carrying its aux sums); a recompute changes no number.
+    The vlm's batch carries ``image_embeds`` and the audio's ``frames``;
+    each cross block's cross-attention goes through ``impl`` as well
+    (K3 non-causal at (S, n_image_tokens) or (S, S_enc) for "flash"),
+    and neither family runs under grad yet."""
     _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
     remat = torch.is_grad_enabled()
+    if cfg.family in CROSS_FAMILIES:
+        _refuse_training(cfg)
+        if cfg.family == "vlm":
+            img = (PR.cast_compute(precision, batch["image_embeds"])
+                   @ model.img_proj.to(x.dtype))
+            for sup in model.supers:
+                for blk in sup.selfs:
+                    x = blk(x, impl=impl)
+                x = sup.cross_blk(x, kv_x=img, impl=impl)
+        else:
+            enc = encode_frames(model, cfg, batch["frames"], impl=impl,
+                                precision=precision)
+            for blk in model.dec_blocks:
+                x = blk(x, kv_x=enc, impl=impl)
+        return model.final_norm(x), {}
     if cfg.family == "moe":
         def sup_layer(sup, carry):
             h, lb, z = carry
@@ -328,6 +409,29 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     return model.final_norm(x), {}
 
 
+def _refuse_training(cfg: ArchConfig) -> None:
+    """Under autograd the vlm and audio families raise: their recompute
+    is not ported yet."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"family {cfg.family!r} serves but does not train yet: its "
+            f"recompute under autograd is the next slice (ROADMAP queue "
+            f"P6b, training of the vlm and audio families; F6)")
+
+
+def encode_frames(model, cfg: ArchConfig, frames, *, impl="flash",
+                  precision=PR.F32):
+    """The audio encoder over stub frame embeddings (B, S_enc, d_model):
+    causal self-attention blocks with RoPE (JAX's streaming-friendly
+    encoder), then ``enc_norm``."""
+    _check_family(cfg, "audio")
+    _refuse_training(cfg)
+    h = PR.cast_compute(precision, frames)
+    for blk in model.enc_blocks:
+        h = blk(h, impl=impl)
+    return model.enc_norm(h)
+
+
 def lm_loss(model, cfg: ArchConfig, batch, *, impl="flash",
             precision=PR.F32):
     """(loss, {"ce": loss, **aux}): the vocab-parallel cross entropy of
@@ -346,8 +450,13 @@ def encode(model, cfg: ArchConfig, batch, *, impl="flash",
            precision=PR.F32):
     """Backbone tower -> (B, CONTRASTIVE_DIM) unnormalised embedding: the
     final hidden states averaged over the sequence, through
-    ``ctr_proj``."""
-    x, _ = forward_hidden(model, cfg, batch, impl=impl, precision=precision)
+    ``ctr_proj``; for the audio family the encoder's output alone."""
+    if cfg.family == "audio":
+        x = encode_frames(model, cfg, batch["frames"], impl=impl,
+                          precision=precision)
+    else:
+        x, _ = forward_hidden(model, cfg, batch, impl=impl,
+                              precision=precision)
     pooled = torch.mean(x, dim=1)
     return PR.cast_output(precision, pooled @ model.ctr_proj.to(x.dtype))
 
@@ -373,10 +482,36 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
     (leading axis n_super), and ``dense_kv`` for the dense blocks when
     ``moe.every == 2``.  Hybrid: ``mambas`` (conv and SSD state with
     leading axes (n_super, every)), ``shared_kv`` (one KV cache per call
-    of the shared block, leading axis n_super) and ``tail``."""
+    of the shared block, leading axis n_super) and ``tail``.  vlm:
+    ``self_kv`` (leading axes (n_super, every - 1)), ``cross_self_kv``
+    (the cross blocks' self-attention, n_super) and ``cross_kv`` (k/v
+    of (n_super, B, n_image_tokens, Hkv, hd)).  Audio: ``self_kv``
+    (n_layers) and ``cross_kv`` (k/v of (n_layers, B, max_len //
+    audio_subsample, Hkv, hd)).  The cross caches hold no ``slot_pos``:
+    ``prepare_decode_state`` fills them."""
     _check_family(cfg, *LM_FAMILIES)
     device = D.resolve(device)
     spec = T.attn_spec(cfg, window_override=window_override)
+
+    def cross(lead, n):
+        shape = (*lead, batch_size, n, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "vlm":
+        every = cfg.cross_attn_every
+        n_super = cfg.n_layers // every
+        return {"self_kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
+                                           device, lead=(n_super, every - 1)),
+                "cross_self_kv": A.init_kv_cache(spec, batch_size, max_len,
+                                                 dtype, device,
+                                                 lead=(n_super,)),
+                "cross_kv": cross((n_super,), cfg.n_image_tokens)}
+    if cfg.family == "audio":
+        return {"self_kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
+                                           device, lead=(cfg.n_layers,)),
+                "cross_kv": cross((cfg.n_layers,),
+                                  max_len // cfg.audio_subsample)}
     if cfg.family == "dense":
         return {"kv": A.init_kv_cache(spec, batch_size, max_len, dtype,
                                       device, lead=(cfg.n_layers,))}
@@ -403,12 +538,31 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
 def prepare_decode_state(model, cfg: ArchConfig, batch,
                          batch_size, max_len, dtype=torch.float32, *,
                          window_override=None):
-    """Decode state on the model's device.  The hybrid, dense and MoE
-    families have no cross-attention caches to fill; feed the prompt through
-    ``decode_step`` to fill the self caches."""
-    return init_decode_state(cfg, batch_size, max_len, dtype,
-                             window_override=window_override,
-                             device=next(model.parameters()).device)
+    """Decode state on the model's device, with the cross-attention
+    caches filled from the batch's stub inputs, as JAX's: the vlm's from
+    ``image_embeds`` through ``img_proj`` in f32, the audio's from the
+    encoder over ``frames`` (f32, ``impl="chunked"``: no kernel runs
+    here), each cross block's K/V projected once and stored in ``dtype``.
+    The hybrid, dense and MoE families have no cross caches.  Self
+    caches start empty; feed the prompt through ``decode_step`` to fill
+    them."""
+    state = init_decode_state(cfg, batch_size, max_len, dtype,
+                              window_override=window_override,
+                              device=next(model.parameters()).device)
+    if cfg.family not in CROSS_FAMILIES:
+        return state
+    with torch.no_grad():
+        if cfg.family == "vlm":
+            kv_x = batch["image_embeds"].float() @ model.img_proj
+            blocks = [sup.cross_blk for sup in model.supers]
+        else:
+            kv_x = encode_frames(model, cfg, batch["frames"],
+                                 impl="chunked")
+            blocks = list(model.dec_blocks)
+        caches = [blk.cross.init_cross_cache(kv_x) for blk in blocks]
+    state["cross_kv"] = {k: torch.stack([c[k] for c in caches]).to(dtype)
+                         for k in ("k", "v")}
+    return state
 
 
 def decode_step(model, cfg: ArchConfig, state, token, pos: int,
@@ -425,6 +579,24 @@ def decode_step(model, cfg: ArchConfig, state, token, pos: int,
     if cfg.family == "dense":
         for i, blk in enumerate(model.blocks):
             x, _ = blk.decode(at(state["kv"], i), x, pos, window_override)
+        x = model.final_norm(x)
+        return logits_from_hidden(model, cfg, x)[:, 0], state
+
+    if cfg.family == "vlm":
+        for s, sup in enumerate(model.supers):
+            for i, blk in enumerate(sup.selfs):
+                x, _ = blk.decode(at(state["self_kv"], s, i), x, pos,
+                                  window_override)
+            x, _ = sup.cross_blk.decode(at(state["cross_self_kv"], s), x,
+                                        pos, window_override,
+                                        at(state["cross_kv"], s))
+        x = model.final_norm(x)
+        return logits_from_hidden(model, cfg, x)[:, 0], state
+
+    if cfg.family == "audio":
+        for i, blk in enumerate(model.dec_blocks):
+            x, _ = blk.decode(at(state["self_kv"], i), x, pos,
+                              window_override, at(state["cross_kv"], i))
         x = model.final_norm(x)
         return logits_from_hidden(model, cfg, x)[:, 0], state
 

@@ -64,6 +64,13 @@ def _qkv(gen, B, H, Sq, Sk, hd, dtype):
     (2, 4, 64, 300, 128, False, 0),     # Sq != Sk
     (2, 4, 200, 70, 128, True, 0),      # causal, Sq > Sk
     (3, 2, 10, 10, 128, False, 0),      # S below one tile
+    # cross-attention, non-causal at Sq != Sk: llama-3.2-vision-11b's cross
+    # blocks (32 heads over its 8 KV heads repeated, 1024 image tokens) and
+    # seamless-m4t-large-v2's decoder over its encoder (4096 // 4 frames);
+    # its causal encoder over the frames
+    (2, 32, 4096, 1024, 128, False, 0),
+    (2, 16, 4096, 1024, 64, False, 0),
+    (2, 16, 1024, 1024, 64, True, 0),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, Sq, Sk, hd, causal, window,
                                     dtype):
@@ -534,6 +541,50 @@ def test_reduced_dense_prefill_launches_and_matches_plain(cuda, arch,
     k3 = FA.flash_attention.launches
     with torch.inference_mode():
         for t in range(90):
+            lg, state = BB.decode_step(model, cfg, state, tokens[:, t:t + 1],
+                                       t)
+    assert FA.flash_attention.launches == k3
+    assert (lg - got[:, 0]).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_reduced_cross_prefill_launches_and_matches_plain(cuda, arch):
+    """A reduced vlm (4 layers, 2 super-blocks) or audio prefill: one K3
+    launch per self- and cross-attention at the shapes of the path,
+    logits within 1e-4 of the plain path and of the sequential decode
+    from ``prepare_decode_state`` within 5e-3 (neither launches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(arch).reduced()
+    if cfg.family == "vlm":
+        cfg = cfg.replace(n_layers=4)
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    S = 96
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=cuda,
+                           device="cuda")
+    batch = {"tokens": tokens, **serve.stub_inputs(cfg, 2, S, cuda, "cuda")}
+    if cfg.family == "vlm":
+        want = {(S, S): cfg.n_layers,
+                (S, cfg.n_image_tokens): cfg.n_layers // cfg.cross_attn_every}
+    else:
+        E = S // cfg.audio_subsample
+        want = {(E, E): cfg.enc_layers, (S, S): cfg.n_layers,
+                (S, E): cfg.n_layers}
+    before = dict(FA.flash_attention.launches_by_seq)
+    got = steps.make_prefill_step(cfg, impl="flash")(model, batch)
+    by_seq = {k: n - before.get(k, 0)
+              for k, n in FA.flash_attention.launches_by_seq.items()
+              if n - before.get(k, 0)}
+    assert by_seq == want
+    plain = steps.make_prefill_step(cfg, impl="chunked")(model, batch)
+    assert (got - plain).abs().max().item() <= 1e-4
+    k3 = FA.flash_attention.launches
+    state = BB.prepare_decode_state(model, cfg, batch, 2, S)
+    with torch.inference_mode():
+        for t in range(S):
             lg, state = BB.decode_step(model, cfg, state, tokens[:, t:t + 1],
                                        t)
     assert FA.flash_attention.launches == k3

@@ -168,8 +168,7 @@ def test_serve_cli_generates_on_cpu(capsys):
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
 
 
-@pytest.mark.parametrize("arch", ["clip-vitb32-cc12m",
-                                  "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["clip-vitb32-cc12m", "xlstm-125m"])
 def test_serve_cli_refuses_other_families(arch, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])

@@ -174,8 +174,9 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
 @pytest.mark.parametrize("flag", [["--arch", "llama-3.2-vision-11b",
                                    "--mesh", "data:1,fsdp:1"]])
 def test_unported_flags_are_refused(flag, capsys):
-    """An edge of the JAX launcher not ported yet: an arch of the families
-    still in ROADMAP queue P6b (vlm, audio, ssm), here on the mesh
+    """An edge of the JAX launcher not ported yet: training an arch of the
+    families still in ROADMAP queue P6b (the vlm and audio families
+    serve but do not train yet; ssm), here on the mesh
     (``--mesh`` with an LM backbone's contrastive objective and the moe
     family, the edges this case held before, are ported)."""
     with pytest.raises(SystemExit) as e:
