@@ -27,7 +27,10 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    4096 x 1024 x 64, non-causal, f32 and bf16; its causal encoder 2 x 16
    x 1024 x 1024 and decoder self-attention 2 x 16 x 4096 x 4096, f32),
    at the curricula's
-   training shapes (S = 2 and a causal S = 32, f32), at qwen3-1.7b's
+   training shapes (S = 2 and a causal S = 32, f32), at the cross
+   families' contrastive training shapes (the vlm's cross blocks 64 x 32
+   x 256 x 1024 x 128, the audio encoder 64 x 16 x 64 x 64 x 64 causal,
+   f32), at qwen3-1.7b's
    contrastive training shape (64 x 16 x 256 x 256, f32) and a rank's on
    ``data:1,fsdp:2`` (32 x 16 x 256 x 256, f32), and at edge cases
    (hd 128 too: a ragged S = 77, a window of 100, Sq != Sk), and times
@@ -36,7 +39,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    port) with CUDA events at those shapes;
 4. attn_grad -- gradients of q, k, v through the kernel's autograd
    Function against autograd of the naive attention, at the training
-   shapes of both towers;
+   shapes of both towers and at the vlm's cross shape (1 x 32 x 4096 x
+   1024 x 128, non-causal: the batch cut to 1);
 5. gcl     -- holds K1 (``gcl_pair_stats``) and K2 (``gcl_pair_grads``)
    against their plain versions at the training shape (256 x 512, f32
    and bf16), at the paper's sharded shape (256 local anchors against
@@ -109,20 +113,21 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    prefill vs ``decode_step`` over 256 tokens at capacity factor 64
    (no launch); ``serve.generate`` at batch 4 (qwen3-moe); the decode
    launcher at ``--reduced``;
-12. vlm    -- ``llama-3.2-vision-11b`` served at full width and all 40
-   layers (seeded random weights, f32; 8 super-blocks of 4 causal self
-   blocks and a cross block over the projected stub image embeds, 2 x
-   1024 x 1280 from the serving launcher's generator): JAX's parameter
-   count, 10,118,336,512; a 2 x 4096 prefill through
-   ``make_prefill_step`` on both paths: exactly 40 K3 launches at 4096 x
-   4096 and 8 at 4096 x 1024 (non-causal) and nothing else, finite
+12. vlm    -- ``llama-3.2-vision-11b`` served at full width with 10 of
+   its 40 layers (``VLM_SERVE_LAYERS``, a depth cut for the run's time;
+   seeded random weights, f32; 2 super-blocks of 4 causal self blocks
+   and a cross block over the projected stub image embeds, 2 x 1024 x
+   1280 from the serving launcher's generator): JAX's parameter count
+   at that depth, 3,323,293,696; a 2 x 4096 prefill through
+   ``make_prefill_step`` on both paths: exactly 10 K3 launches at 4096 x
+   4096 and 2 at 4096 x 1024 (non-causal) and nothing else, finite
    last-position logits within ``TOL_DENSE_PREFILL`` of ``impl=
    "chunked"``, both paths against the f64-attention reference; ms per
    prefill in turns, peak memory, a profile by kind of kernel with the
    idle share; prefill vs ``decode_step`` over 64 tokens with the cross
    caches filled by ``prepare_decode_state`` (neither launches K3),
    decode ms per token; ``repro_torch.launch.serve.main`` on the card at
-   full depth;
+   the same depth;
 13. audio  -- ``seamless-m4t-large-v2`` served whole (12 causal encoder
    blocks over the stub frames, 2 x 1024 x 1024, and 12 decoder blocks
    with cross-attention to the encoder): the same checks, with exactly
@@ -260,9 +265,35 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    backward timed at the layer shape; the contrastive objective at 64 x
    256 (2 timed steps with one K1 and one K2 call each, the gradient
    check as above); ``data:1,fsdp:2`` at 1 of the 48 layers as phase
-   dense_train's; last, so that its failure hides no earlier phase's
-   result;
-22. report -- the kernels JSON line, the card line, and the last line
+   dense_train's;
+22. vlm_train -- ``llama-3.2-vision-11b`` at full width with 5 of its 40
+   layers (``VLM_TRAIN_LAYERS``: one super-block, 4 self blocks and a
+   cross block; a step holds ~7x the f32 params) trained (f32, seed 0;
+   each block recomputed on its own, the image projected once): the
+   LM objective through ``launch.steps.make_lm_train_step`` at
+   ``CROSS_TRAIN_LM_BATCH`` x 4096 with the stub image embeds drawn as
+   the serving launcher draws them: 3 kernel-path steps (step 1 timed
+   with its peak memory, step 2 profiled by kind of kernel with the idle
+   share; K3 exactly 2 x (5 at 4096 x 4096, 1 at 4096 x 1024) per step)
+   and 3 plain-path steps (``impl="chunked"``), step 0's gradients of
+   every leaf within ``TOL_TRAIN_GRAD`` relative L2 and every step's
+   loss within ``TOL_TRAIN_TRAJ``; the contrastive objective (v3, 64 x
+   256) through ``core.train_step.make_train_step``: 2 steps of each
+   path, one K1 and one K2 call per step on the kernel path, K3 exactly,
+   the same gradient and trajectory bounds, the leaves the objective
+   does not reach (``lm_head``) zero in the gradient and moved by the
+   decoupled weight decay alone; ``_FlashMHA``'s backward timed at the
+   cross shapes; the training launcher exiting 2 for the family under
+   both objectives, naming F6 (its datasets carry no stub inputs, as
+   JAX's carry none);
+23. audio_train -- ``seamless-m4t-large-v2`` whole (12 encoder and 12
+   decoder layers, each recomputed on its own) trained the same way:
+   LM at 2 x 4096 (K3 exactly 2 x 12 at each of 1024 x 1024, 4096 x
+   4096 and 4096 x 1024 per step), the contrastive objective over the
+   encoder alone (2 x 12 K3 at 64 x 64 per step; the decoder,
+   ``embed``, ``final_norm`` and ``lm_head`` unreached); last, so that
+   its failure hides no earlier phase's result;
+24. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -275,7 +306,12 @@ under the port's one-level grouped recompute against JAX's nested form
 does not carry it), each twice, their launches exact and their states
 equal to the bit; ``moe_depth``, which tries one qwen3-moe LM step at
 4 layers and reports its peak (the measurement behind
-``MOE_TRAIN_LAYERS``).
+``MOE_TRAIN_LAYERS``); ``vlm_remat_forms``, which times the vlm's LM
+step (``VLM_TRAIN_LAYERS``) under the port's one-level recompute (each
+block on its own), a recompute per super-block, and JAX's nested form
+(a super-block's recompute around its self blocks' own), in turns, with
+each form's launches exact, its peak memory and its state equal to the
+bit: the measurement behind the port's form and ``CROSS_TRAIN_LM_BATCH``.
 """
 from __future__ import annotations
 
@@ -566,6 +602,12 @@ KERNEL_CASES = [
     # rank's 32 rows of it on data:1,fsdp:2
     ("qwen3_moe_ctr", 64, 32, 256, 256, 128, True, 0, "float32", True),
     ("qwen3_moe_mesh", 32, 32, 256, 256, 128, True, 0, "float32", True),
+    # the cross families' contrastive training at 64 x 256 (phases
+    # vlm_train and audio_train): the vlm's cross blocks over its 1024
+    # image tokens (its self-attention is qwen3_moe_ctr's shape), the
+    # audio encoder over its 64 frames (the objective's only attention)
+    ("vlm_ctr_cross", 64, 32, 256, 1024, 128, False, 0, "float32", True),
+    ("audio_ctr_enc", 64, 16, 64, 64, 64, True, 0, "float32", True),
     # edge cases at head dim 128, timed too (on no main path)
     ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "float32", True),
     ("hd128_ragged", 2, 4, 77, 77, 128, True, 0, "bfloat16", True),
@@ -1194,11 +1236,21 @@ def phase_attn_grad(checks):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.attention import naive_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for tower, B, S, H, hd, causal in (("vit", 8, 50, 12, 64, False),
-                                       ("text", 8, 77, 8, 64, True)):
-        q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda",
-                               requires_grad=True) for _ in range(3))
+    # the towers' training shapes, and the vlm's cross blocks (4096
+    # queries over 1024 image tokens, 32 heads at hd 128) with the batch
+    # cut to 1 so that the naive attention's scores fit and the case
+    # runs in well under a second
+    for tower, B, S, Sk, H, hd, causal in (
+            ("vit", 8, 50, 50, 12, 64, False),
+            ("text", 8, 77, 77, 8, 64, True),
+            ("vlm_cross", 1, 4096, 1024, 32, 128, False)):
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                        requires_grad=True)
+        k, v = (torch.randn((B, Sk, H, hd), generator=gen, device="cuda",
+                            requires_grad=True) for _ in range(2))
         ct = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
         before = FA.flash_attention.launches
         got = torch.autograd.grad(FA.flash_mha(q, k, v, causal=causal),
                                   (q, k, v), ct)
@@ -1206,15 +1258,17 @@ def phase_attn_grad(checks):
         want = torch.autograd.grad(naive_attention(q, k, v, causal=causal),
                                    (q, k, v), ct)
         torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
         errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
         ok = checks.check(
             launched == 1 and all(math.isfinite(e) and e <= TOL_ATTN_GRAD
                                   for e in errs),
             f"attn grad {tower}: max abs err dq/dk/dv {errs}, "
             f"{launched} launches")
-        emit("attn_grad", tower=tower, shape=[B, S, H, hd], causal=causal,
-             max_abs_err_dq_dk_dv=errs, tol=TOL_ATTN_GRAD,
-             forward_launches=launched, ok=ok)
+        emit("attn_grad", tower=tower, shape=[B, S, Sk, H, hd],
+             causal=causal, max_abs_err_dq_dk_dv=errs, tol=TOL_ATTN_GRAD,
+             forward_launches=launched, seconds=seconds, ok=ok)
+        del q, k, v, ct, got, want
     checks.end_phase("attn_grad")
 
 
@@ -2438,10 +2492,14 @@ def phase_moe(checks):
 # phases vlm and audio: the cross-attention families served
 # ---------------------------------------------------------------------------
 
-# full width and depth (f32 weights: 40.47 GB for the vlm, 5.12 GB for
-# the audio model); the parameter counts are JAX's (``param_shapes``)
+# full width; the audio model at full depth (f32 weights: 5.12 GB), the
+# vlm at 10 of its 40 layers, 2 of its 8 super-blocks (13.29 GB; 40.47
+# at full depth), a cut that pays for phases vlm_train and audio_train
+# in the run's time (PERF.md § 4); the parameter counts are JAX's at
+# these depths (tests/test_torch_cross_train.py)
 VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
-CROSS_PARAMS = {VLM_ARCH: 10_118_336_512, AUDIO_ARCH: 1_280_636_928}
+VLM_SERVE_LAYERS = 10
+CROSS_PARAMS = {VLM_ARCH: 3_323_293_696, AUDIO_ARCH: 1_280_636_928}
 # prefill vs stepwise decode: the prompt's tokens on each family
 CROSS_DECODE_TOKENS = {VLM_ARCH: 64, AUDIO_ARCH: 256}
 
@@ -2460,9 +2518,35 @@ def _cross_want_by_seq(cfg, S):
             f"{S}x{E}": cfg.n_layers}
 
 
-def _cross_family(checks, arch):
-    """One cross-attention family served at full width and depth: seeded
-    init on the card and JAX's parameter count; a 2 x 4096 prefill
+def _cross_config(arch, layers=None):
+    """The arch's config, at ``layers`` layers where given."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+class _AtDepth:
+    """Within the block, ``get_arch(arch)`` returns the arch at ``layers``
+    layers (the launchers' own lookup: a depth cut)."""
+
+    def __init__(self, arch, layers):
+        self.arch, self.layers = arch, layers
+
+    def __enter__(self):
+        from repro_torch.configs import base
+        self.base, self.orig = base, base.get_arch(self.arch)
+        if self.layers:
+            base._REGISTRY[self.arch] = self.orig.replace(
+                n_layers=self.layers)
+
+    def __exit__(self, *exc):
+        self.base._REGISTRY[self.arch] = self.orig
+
+
+def _cross_family(checks, arch, layers=None):
+    """One cross-attention family served at full width (at ``layers``
+    layers where given): seeded init on the card and JAX's parameter
+    count; a 2 x 4096 prefill
     through both paths (``_dense_prefill``: exact K3 launches by (Sq,
     Sk), kernel vs plain within TOL_DENSE_PREFILL, both against the
     f64-attention reference, ms in turns, peak memory) with the stub
@@ -2475,13 +2559,12 @@ def _cross_family(checks, arch):
     import io
 
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import backbones as BB
 
     t_phase = time.monotonic()
     name = "vlm" if arch == VLM_ARCH else "audio"
-    cfg = get_arch(arch)
+    cfg = _cross_config(arch, layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -2550,14 +2633,14 @@ def _cross_family(checks, arch):
     del model, state, lg, last, prefill, extra
     torch.cuda.empty_cache()
 
-    # the decode launcher on the card, full width and depth (batch 4,
+    # the decode launcher on the card at the phase's depth (batch 4,
     # prompt 16, 32 new tokens; its stub inputs fill the cross caches)
     argv = ["--arch", arch]
     _zero_hybrid_counters()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _AtDepth(arch, layers):
         toks = serve.main(argv)
     wall = time.monotonic() - t0
     serve_counts = _hybrid_counters()
@@ -2570,7 +2653,8 @@ def _cross_family(checks, arch):
                  and not any(serve_counts.values()),
                  f"{name} serve: {lines[:1]} tokens {tuple(toks.shape)} on "
                  f"{toks.device}, launches {serve_counts}")
-    emit(f"{name}_serve", argv=argv, lines=lines, launches=serve_counts,
+    emit(f"{name}_serve", argv=argv, n_layers=cfg.n_layers, lines=lines,
+         launches=serve_counts,
          decode_tokens_per_s=tps, wall_seconds=wall,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     del toks
@@ -2581,9 +2665,9 @@ def _cross_family(checks, arch):
 
 
 def phase_vlm(checks):
-    """``llama-3.2-vision-11b`` served at full width and all 40 layers
-    (``_cross_family``)."""
-    return _cross_family(checks, VLM_ARCH)
+    """``llama-3.2-vision-11b`` served at full width and
+    ``VLM_SERVE_LAYERS`` layers (``_cross_family``)."""
+    return _cross_family(checks, VLM_ARCH, VLM_SERVE_LAYERS)
 
 
 def phase_audio(checks):
@@ -2703,17 +2787,25 @@ def _fingerprints(state):
 
 
 def _fresh_state(model, host, fc_cfg=None):
-    """``model`` reset to the host copy of its init, zero AdamW moments,
-    step 0 (and, for the contrastive step, a fresh FCCO state): the
-    state ``init_train_state`` / ``init_lm_train_state`` build, without
-    drawing the 1.2 B random numbers again."""
+    """``model`` reset to the host copy of its init (``host``) or, with
+    ``host`` None, to its init drawn again on the card from seed 0 (the
+    draws of ``init_params`` with a card generator, bit for bit); zero
+    AdamW moments, step 0 (and, for the contrastive step, a fresh FCCO
+    state): the state ``init_train_state`` / ``init_lm_train_state``
+    build, without drawing the random numbers on the host again."""
     import torch
     from repro_torch.core import fastclip as FC
     from repro_torch.optim import adamw
     dev = next(model.parameters()).device
     with torch.no_grad():
-        for n, p in model.named_parameters():
-            p.copy_(host[n], non_blocking=True)
+        if host is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            for m in model.modules():
+                if hasattr(m, "reset_parameters"):
+                    m.reset_parameters(gen)
+        else:
+            for n, p in model.named_parameters():
+                p.copy_(host[n], non_blocking=True)
     state = {"params": model,
              "opt": adamw().init({k: p.detach()
                                   for k, p in model.named_parameters()}),
@@ -3002,18 +3094,20 @@ def _hybrid_ctr_config(cfg, impl, loss_impl):
                               wd=0.1, impl=impl, loss_impl=loss_impl)
 
 
-def _hybrid_batches(cfg, kind):
-    """The launcher's first 3 (idx, batch) on the card."""
+def _hybrid_batches(cfg, kind, gb=None):
+    """The launcher's first 3 (idx, batch) on the card (global batch
+    ``gb``, by default the launcher's: 2 for the LM, 64 for the
+    contrastive objective)."""
     import numpy as np
     import torch
     from repro_torch.data import (LMDataset, PairedEmbeddingDataset,
                                   ShardedLoader)
     if kind == "lm":
         ds, gb = LMDataset(n=HYBRID_N_SAMPLES, seq_len=4096,
-                           vocab_size=cfg.vocab_size), 2
+                           vocab_size=cfg.vocab_size), gb or 2
     else:
         ds, gb = PairedEmbeddingDataset(n=HYBRID_N_SAMPLES, seq_len=256,
-                                        vocab_size=cfg.vocab_size), 64
+                                        vocab_size=cfg.vocab_size), gb or 64
     return [(torch.from_numpy(np.asarray(idx)).cuda(),
              {k: torch.from_numpy(v).cuda() for k, v in b.items()})
             for _, _, idx, b in ShardedLoader(ds, global_batch=gb,
@@ -3190,6 +3284,32 @@ class _HostGrads:
         torch.cuda.synchronize()
 
 
+class _HostGradsBehind:
+    """``_HostGrads`` for ``model`` allocated on a thread (pinning ~9 GB
+    of host memory takes seconds), beside the card's work until the
+    first ``take``."""
+
+    def __init__(self, model):
+        import concurrent.futures
+        t0 = time.monotonic()
+        self.seconds = None
+
+        def alloc():
+            hg = _HostGrads(model)
+            self.seconds = time.monotonic() - t0
+            return hg
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        self.future = pool.submit(alloc)
+        pool.shutdown(wait=False)       # the thread ends with ``alloc``
+
+    @property
+    def buf(self):
+        return self.future.result().buf
+
+    def take(self, grads):
+        self.future.result().take(grads)
+
+
 def _host_rel(a, b, dev):
     """Per-leaf relative L2 of host gradients ``a`` against ``b``, on the
     card one leaf at a time (0 where both are 0)."""
@@ -3201,53 +3321,58 @@ def _host_rel(a, b, dev):
 
 
 class _CaptureGrads:
-    """Within the block, the first gradients a step computes
-    (``core.train_step.param_grads``, which the LM step calls) go to
-    ``sink`` before the optimizer runs."""
+    """Within the block, the first gradients a step computes go to
+    ``sink`` before the optimizer runs: those of
+    ``core.train_step.param_grads``, which the LM step calls, or with
+    ``contrastive`` of ``core.train_step.step_grads``, the contrastive
+    step's."""
 
-    def __init__(self, sink):
+    def __init__(self, sink, contrastive=False):
         self.sink = sink
+        self.name = "step_grads" if contrastive else "param_grads"
 
     def __enter__(self):
         from repro_torch.core import train_step as TS
-        self.ts, self.orig = TS, TS.param_grads
+        self.ts, self.orig = TS, getattr(TS, self.name)
         done = []
 
-        def capture(loss, model):
-            grads = self.orig(loss, model)
+        def capture(*a, **k):
+            out = self.orig(*a, **k)
             if not done:
                 done.append(True)
-                self.sink(grads)
-            return grads
-        TS.param_grads = capture
+                self.sink(out[2] if self.name == "step_grads" else out)
+            return out
+        setattr(TS, self.name, capture)
 
     def __exit__(self, *exc):
-        self.ts.param_grads = self.orig
+        setattr(self.ts, self.name, self.orig)
 
 
-def _attn_backward_ms(B, T, H, hd):
-    """CUDA events at a dense layer's attention shape (``B`` rows of
-    ``T`` tokens, ``H`` heads after the GQA repeat): the backward of
-    ``_FlashMHA`` (the chunked recompute) per call, as forward + backward
-    minus forward."""
+def _attn_backward_ms(B, T, H, hd, Sk=None, causal=True):
+    """CUDA events at an attention layer's shape (``B`` rows of ``T``
+    queries over ``Sk`` keys, ``T`` by default, ``H`` heads after the GQA
+    repeat): the backward of ``_FlashMHA`` (the chunked recompute) per
+    call, as forward + backward minus forward."""
     import torch
     from repro_torch.kernels import flash_attention as FA
+    Sk = Sk or T
     gen = torch.Generator(device="cuda").manual_seed(7)
-    qkv = [torch.randn((B, T, H, hd), generator=gen,
-                       device="cuda").requires_grad_(True) for _ in range(3)]
+    qkv = [torch.randn((B, S, H, hd), generator=gen,
+                       device="cuda").requires_grad_(True)
+           for S in (T, Sk, Sk)]
     go = torch.randn((B, T, H, hd), generator=gen, device="cuda")
 
     def fwd():
         with torch.no_grad():
-            FA.flash_mha(*qkv, causal=True)
+            FA.flash_mha(*qkv, causal=causal)
 
     def both():
-        torch.autograd.grad(FA.flash_mha(*qkv, causal=True), qkv, go)
+        torch.autograd.grad(FA.flash_mha(*qkv, causal=causal), qkv, go)
     f, b = device_ms(fwd, iters=5), device_ms(both, iters=5)
     del qkv, go
     torch.cuda.empty_cache()
-    return dict(shape=[B, T, H, hd], forward_ms=f, forward_backward_ms=b,
-                backward_ms=b - f)
+    return dict(shape=[B, T, Sk, H, hd], causal=causal, forward_ms=f,
+                forward_backward_ms=b, backward_ms=b - f)
 
 
 def _dense_f64_evidence(grads_fn, g_k, g_p, dev):
@@ -4311,6 +4436,462 @@ def phase_remat_forms(checks):
     del model, host
     torch.cuda.empty_cache()
     checks.end_phase("remat_forms")
+
+
+# ---------------------------------------------------------------------------
+# phases vlm_train and audio_train: the cross-attention families trained
+# ---------------------------------------------------------------------------
+
+# the vlm's training depth: 5 of its 40 layers at full width, one
+# super-block (4 self blocks and 1 cross block; 5 is the least depth with
+# a cross block): a step holds ~7x the f32 params at AdamW's update, 61
+# GB here, 283 GB at full depth; the audio model trains whole
+VLM_TRAIN_LAYERS = 5
+CROSS_TRAIN_PARAMS = {VLM_ARCH: 2_190_786_560, AUDIO_ARCH: 1_280_636_928}
+# the LM objective's global batch (x 4096 tokens): the vlm's step at 2
+# rows peaks under the card's memory (phase vlm_remat_forms measures it)
+CROSS_TRAIN_LM_BATCH = {VLM_ARCH: 2, AUDIO_ARCH: 2}
+# the leaves each objective does not reach: a zero gradient, moved by
+# the decoupled weight decay alone (as under jax.grad)
+CROSS_UNREACHED = {
+    ("lm", VLM_ARCH): ("ctr_proj", "pair_proj"),
+    ("lm", AUDIO_ARCH): ("ctr_proj", "pair_proj"),
+    ("contrastive", VLM_ARCH): ("lm_head",),
+    ("contrastive", AUDIO_ARCH): ("dec_blocks", "embed", "final_norm",
+                                  "lm_head"),
+}
+
+
+def _cross_train_config(arch):
+    return _cross_config(arch, VLM_TRAIN_LAYERS if arch == VLM_ARCH
+                         else None)
+
+
+def _cross_batches(cfg, kind, gb=None):
+    """``_hybrid_batches`` with the family's stub input in each batch,
+    drawn as the serving launcher draws it (standard normal x 0.1, from a
+    seeded generator on the card)."""
+    import torch
+    from repro_torch.launch import serve
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = []
+    for idx, b in _hybrid_batches(cfg, kind, gb):
+        B, S = b["tokens"].shape
+        out.append((idx, {**b, **serve.stub_inputs(cfg, B, S, gen,
+                                                   "cuda")}))
+    return out
+
+
+def _cross_step_want(cfg, S, contrastive):
+    """K3's launches by (Sq, Sk) in one training step at sequence ``S``:
+    each attention once forward and once in its block's recompute; the
+    audio model's contrastive tower is its encoder alone."""
+    want = _cross_want_by_seq(cfg, S)
+    if cfg.family == "audio" and contrastive:
+        E = S // cfg.audio_subsample
+        want = {f"{E}x{E}": cfg.enc_layers}
+    return {k: 2 * n for k, n in want.items()}
+
+
+def _cross_counts(k3, contrastive):
+    """One training step's launches: ``k3`` of K3, and for the
+    contrastive loss one K1 and one K2 call (2 CUDA launches each); no
+    K4."""
+    k12 = 1 if contrastive else 0
+    return dict(flash_attention=k3, gcl_pair_stats=k12, gcl_pair_grads=k12,
+                gcl_pair_stats_cuda=2 * k12, gcl_pair_grads_cuda=2 * k12,
+                ssd_chunk=0, ssd_chunk_cuda=0)
+
+
+def _unreached(model, groups):
+    return [n for n, _ in model.named_parameters()
+            if n.split(".")[0] in groups]
+
+
+def _cross_lm(checks, name, cfg, model, batches, hg):
+    """The LM objective from the seeded init: 3 kernel-path steps (step 0
+    warms up and sends its gradients to the host, step 1 timed with its
+    peak memory, step 2 profiled by kind of kernel), K3 counted exactly
+    per step and by (Sq, Sk); then 3 plain-path steps, step 0's gradients
+    of every leaf held to the kernel path's (``TOL_TRAIN_GRAD``, the
+    unreached leaves zero on both), every step's loss within
+    ``TOL_TRAIN_TRAJ``.  Returns K3's launches by (Sq, Sk) over the 3
+    kernel-path steps."""
+    import torch
+    from repro_torch.launch import steps as ST
+    make = {impl: ST.make_lm_train_step(
+        cfg, lr=HYBRID_LR, wd=0.1, total_steps=3, impl=impl,
+        device="cuda")[0] for impl in ("flash", "chunked")}
+    B, S = batches[0][1]["tokens"].shape
+    want = _cross_step_want(cfg, S, False)
+    want_n = _cross_counts(sum(want.values()), False)
+    unreached = _unreached(model, CROSS_UNREACHED["lm", cfg.name])
+    dev = next(model.parameters()).device
+    zero = {}
+
+    def take(grads):
+        zero["kernel"] = all(not grads[n].any() for n in unreached)
+        hg.take(grads)
+    seconds, t0 = {}, time.monotonic()
+    state = _fresh_state(model, None)
+    rec_k, ms_k, counts, by_seq = [], [], [], []
+    prof, peak = None, None
+    for i, (_, b) in enumerate(batches):
+        if i == 0:
+            with _CaptureGrads(take):
+                (state, m), ms, n = _timed(lambda: make["flash"](state, b))
+        elif i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), ms, n = _timed(lambda: make["flash"](state, b))
+            peak = torch.cuda.max_memory_allocated()
+        else:
+            held = {}
+            _zero_hybrid_counters()
+            prof = _profile(lambda: held.update(out=make["flash"](state, b)),
+                            categories=DENSE_TRAIN_CATEGORIES,
+                            host_ops=False)
+            # popped: the dict must not keep this path's state alive
+            (state, m), ms, n = held.pop("out"), prof["wall_ms"], (
+                _hybrid_counters())
+        counts.append(n)
+        by_seq.append(_by_seq())
+        ms_k.append(ms)
+        rec_k.append({k: float(v) for k, v in m.items()})
+    del state
+    torch.cuda.empty_cache()
+    seconds["kernel_steps"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    checks.check(counts == [want_n] * 3 and by_seq == [want] * 3,
+                 f"{name}_lm: launches per step {counts} by (Sq, Sk) "
+                 f"{by_seq}, want {want_n} {want}")
+    # the plain path; its step-0 gradients against the kernel path's
+    rel = {}
+
+    def compare(grads):
+        zero["plain"] = all(not grads[n].any() for n in unreached)
+        rel.update(_host_rel(hg.buf, grads, dev))
+    state = _fresh_state(model, None)
+    rec_p, ms_p, counts_p = [], [], []
+    for i, (_, b) in enumerate(batches):
+        with _CaptureGrads(compare if i == 0 else lambda g: None):
+            (state, m), ms, n = _timed(lambda: make["chunked"](state, b))
+        rec_p.append({k: float(v) for k, v in m.items()})
+        ms_p.append(ms)
+        counts_p.append(n["flash_attention"])
+    del state
+    torch.cuda.empty_cache()
+    seconds["plain_steps"] = time.monotonic() - t0
+    worst = max(rel, key=rel.get)
+    checks.check(all(math.isfinite(v) and v <= TOL_TRAIN_GRAD
+                     for v in rel.values()) and zero == {
+                         "kernel": True, "plain": True},
+                 f"{name}_lm: step-0 grads kernel vs plain, worst leaf "
+                 f"{worst} rel L2 {rel[worst]}, bound {TOL_TRAIN_GRAD}; "
+                 f"unreached leaves zero {zero}")
+    traj = max(abs(a[k] - p[k]) / max(abs(p[k]), 1e-30)
+               for a, p in zip(rec_k, rec_p) for k in ("loss", "ce"))
+    checks.check(math.isfinite(traj) and traj <= TOL_TRAIN_TRAJ
+                 and counts_p == [0] * 3,
+                 f"{name}_lm: losses kernel {rec_k} plain {rec_p} (rel "
+                 f"{traj}, bound {TOL_TRAIN_TRAJ}); plain-path K3 "
+                 f"launches {counts_p}")
+    prof["idle_share_of_timed_step"] = 1.0 - prof["device_busy_ms"] / ms_k[1]
+    emit(f"{name}_lm_device", arch=cfg.name, n_layers=cfg.n_layers,
+         shape=[B, S], batch_on_device=True, ms_per_step=ms_k,
+         ms_per_step_after_warmup=ms_k[1], max_memory_allocated=peak,
+         launches_per_step=counts[1], launches_by_seq_per_step=by_seq[1],
+         losses=[r["loss"] for r in rec_k],
+         losses_plain=[r["loss"] for r in rec_p], trajectory_rel=traj,
+         traj_bound=TOL_TRAIN_TRAJ, ms_per_step_plain_path=ms_p,
+         grad_leaves=len(rel), grads_kernel_vs_plain=_leaf_summary(rel),
+         grad_bound=TOL_TRAIN_GRAD, unreached=CROSS_UNREACHED["lm",
+                                                            cfg.name],
+         unreached_zero=zero, profile=prof, seconds=seconds)
+    return {k: 3 * n for k, n in want.items()}
+
+
+def _cross_contrastive(checks, name, cfg, model, batches, hg):
+    """The contrastive objective (v3, the LM launchers' 64 x 256) from
+    the seeded init: 2 kernel-path steps (timed; one K1 and one K2 call
+    and K3 exactly per step), step 0's gradients to the host, the
+    unreached leaves zero there and, after the steps, moved by the
+    decoupled weight decay alone; 2 plain-path steps, step 0's gradients
+    held to the kernel path's (``TOL_TRAIN_GRAD``) and the loss, tau,
+    loss value and u mean of both steps within ``TOL_TRAIN_TRAJ``.
+    Returns the launches of the 2 kernel-path steps."""
+    import torch
+    from repro_torch.core import train_step as TS
+    tcs = {impl: _hybrid_ctr_config(cfg, impl, loss_impl)
+           for impl, loss_impl in (("flash", "fused"), ("chunked", "dense"))}
+    fc_cfg = tcs["flash"].fc
+    step = {impl: TS.make_train_step(tc, "cuda") for impl, tc in tcs.items()}
+    B, S = batches[0][1]["tokens"].shape
+    want = _cross_step_want(cfg, S, True)
+    want_n = _cross_counts(sum(want.values()), True)
+    unreached = _unreached(model, CROSS_UNREACHED["contrastive", cfg.name])
+    dev = next(model.parameters()).device
+    zero = {}
+
+    def take(grads):
+        zero["kernel"] = all(not grads[n].any() for n in unreached)
+        hg.take(grads)
+    seconds, t0 = {}, time.monotonic()
+    state = _fresh_state(model, None, fc_cfg)
+    params = dict(model.named_parameters())
+    init = {n: params[n].detach().clone() for n in unreached}
+    torch.cuda.reset_peak_memory_stats()
+    rec_k, ms_k, counts, by_seq = [], [], [], []
+    for i, (idx, b) in enumerate(batches[:2]):
+        with _CaptureGrads(take if i == 0 else lambda g: None,
+                           contrastive=True):
+            (state, m), ms, n = _timed(lambda: step["flash"](state, b, idx))
+        counts.append(n)
+        by_seq.append(_by_seq())
+        ms_k.append(ms)
+        rec_k.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    lr1 = float(tcs["flash"].lr_fn(1))
+    decay = [n for n in unreached if not (
+        not torch.equal(params[n], init[n]) and torch.allclose(
+            params[n], init[n] * (1 - lr1 * 0.1), rtol=1e-6, atol=0))]
+    del state, init
+    torch.cuda.empty_cache()
+    seconds["kernel_steps"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    checks.check(counts == [want_n] * 2 and by_seq == [want] * 2,
+                 f"{name}_contrastive: launches per step {counts} by (Sq, "
+                 f"Sk) {by_seq}, want {want_n} {want}")
+    rel = {}
+
+    def compare(grads):
+        zero["plain"] = all(not grads[n].any() for n in unreached)
+        rel.update(_host_rel(hg.buf, grads, dev))
+    state = _fresh_state(model, None, fc_cfg)
+    rec_p = []
+    for i, (idx, b) in enumerate(batches[:2]):
+        with _CaptureGrads(compare if i == 0 else lambda g: None,
+                           contrastive=True):
+            state, m = step["chunked"](state, b, idx)
+        rec_p.append({k: float(v) for k, v in m.items()})
+    del state
+    torch.cuda.empty_cache()
+    seconds["plain_steps"] = time.monotonic() - t0
+    worst = max(rel, key=rel.get)
+    traj = _traj_rel(rec_k, rec_p)
+    checks.check(all(math.isfinite(v) and v <= TOL_TRAIN_GRAD
+                     for v in rel.values()) and zero == {
+                         "kernel": True, "plain": True} and not decay,
+                 f"{name}_contrastive: step-0 grads kernel vs plain, worst "
+                 f"leaf {worst} rel L2 {rel[worst]}, bound {TOL_TRAIN_GRAD};"
+                 f" unreached leaves zero {zero}, not moved by the decay "
+                 f"alone {decay[:4]}")
+    checks.check(math.isfinite(traj) and traj <= TOL_TRAIN_TRAJ,
+                 f"{name}_contrastive: kernel {rec_k} plain {rec_p} (rel "
+                 f"{traj}, bound {TOL_TRAIN_TRAJ})")
+    emit(f"{name}_contrastive_device", arch=cfg.name, shape=[B, S],
+         batch_on_device=True, ms_per_step=ms_k, max_memory_allocated=peak,
+         launches_per_step=counts, launches_by_seq_per_step=by_seq,
+         metrics=rec_k, metrics_plain=rec_p, trajectory_rel=traj,
+         traj_bound=TOL_TRAIN_TRAJ, grad_leaves=len(rel),
+         grads_kernel_vs_plain=_leaf_summary(rel),
+         grad_bound=TOL_TRAIN_GRAD,
+         unreached=CROSS_UNREACHED["contrastive", cfg.name],
+         unreached_leaves=len(unreached), unreached_zero=zero,
+         unreached_decay_lr=lr1, seconds=seconds)
+    return dict({k: 2 * v for k, v in want_n.items()},
+                by_seq={k: 2 * n for k, n in want.items()})
+
+
+def _launcher_refuses(checks, name, arch):
+    """``repro_torch.launch.train --arch arch`` under both objectives
+    (in this process): exit 2, naming F6."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = {}
+    for objective in ("lm", "contrastive"):
+        err = io.StringIO()
+        code = 0
+        with contextlib.redirect_stderr(err):
+            try:
+                train.main(["--arch", arch, "--objective", objective,
+                            "--steps", "1"])
+            except SystemExit as e:
+                code = e.code
+        out[objective] = dict(exit_code=code, stderr=err.getvalue()[-400:])
+        checks.check(code == 2 and "F6" in err.getvalue(),
+                     f"{name}: the launcher under {objective} exited {code}"
+                     f": {err.getvalue()[-400:]}")
+    emit(f"{name}_launcher", **out)
+
+
+def _cross_train(checks, arch):
+    """One cross-attention family trained at full width (the vlm at
+    ``VLM_TRAIN_LAYERS``): seeded init on the card and JAX's parameter
+    count, the LM objective (``_cross_lm``) and the contrastive one
+    (``_cross_contrastive``) from it, ``_FlashMHA``'s backward timed at
+    the cross shapes, the launcher's refusal.  Returns K3's, K1's and
+    K2's launches on each objective's kernel path."""
+    import torch
+    from repro_torch.models import backbones as BB
+    name = "vlm_train" if arch == VLM_ARCH else "audio_train"
+    t_phase = time.monotonic()
+    cfg = _cross_train_config(arch)
+    torch.cuda.empty_cache()
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    checks.check(n_params == CROSS_TRAIN_PARAMS[arch],
+                 f"{name}: {arch} at {cfg.n_layers} layers has {n_params} "
+                 f"parameters, want {CROSS_TRAIN_PARAMS[arch]}")
+    emit(f"{name}_params", arch=arch, n_layers=cfg.n_layers,
+         enc_layers=cfg.enc_layers, n_params=n_params,
+         param_bytes=4 * n_params)
+    hg = _HostGradsBehind(model)
+    out = {"lm": _cross_lm(checks, name, cfg, model, _cross_batches(
+        cfg, "lm", CROSS_TRAIN_LM_BATCH[arch]), hg)}
+    t_lm = time.monotonic() - t_phase
+    out["contrastive"] = _cross_contrastive(
+        checks, name, cfg, model, _cross_batches(cfg, "contrastive"), hg)
+    host_seconds = hg.seconds
+    del model, hg
+    torch.cuda.empty_cache()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    E = 4096 // cfg.audio_subsample if cfg.family == "audio" else (
+        cfg.n_image_tokens)
+    backward = {"lm_cross": _attn_backward_ms(
+        CROSS_TRAIN_LM_BATCH[arch], 4096, H, hd, Sk=E, causal=False)}
+    if cfg.family == "vlm":
+        # its self-attention's shape is qwen3-moe's (phase moe_train)
+        backward["contrastive_cross"] = _attn_backward_ms(
+            64, 256, H, hd, Sk=E, causal=False)
+    else:
+        # the decoder's and the encoder's self-attention, for the
+        # step's whole K3 backward
+        backward["lm_self"] = _attn_backward_ms(2, 4096, H, hd)
+        backward["lm_encoder"] = _attn_backward_ms(2, E, H, hd)
+    emit(f"{name}_k3_backward", **backward)
+    _launcher_refuses(checks, name, arch)
+    emit(name, seconds=time.monotonic() - t_phase, lm_seconds=t_lm,
+         host_buffer_seconds=host_seconds)
+    checks.end_phase(name)
+    return out
+
+
+def phase_vlm_train(checks):
+    """``llama-3.2-vision-11b`` trained at full width and
+    ``VLM_TRAIN_LAYERS`` layers (``_cross_train``)."""
+    return _cross_train(checks, VLM_ARCH)
+
+
+def phase_audio_train(checks):
+    """``seamless-m4t-large-v2`` trained whole (``_cross_train``)."""
+    return _cross_train(checks, AUDIO_ARCH)
+
+
+def _vlm_stack_super(model, x, img, impl, remat):
+    """The vlm's super-blocks, each recomputed as one (JAX's outer
+    level alone)."""
+    from repro_torch.models import backbones as BB
+
+    def block(sup):
+        def run(h):
+            for blk in sup.selfs:
+                h = blk(h, impl=impl)
+            return sup.cross_blk(h, kv_x=img, impl=impl)
+        return run
+    for sup in model.supers:
+        x = BB._run(remat, block(sup), (sup,), x)
+    return x
+
+
+def _vlm_stack_nested(model, x, img, impl, remat):
+    """JAX's nested form: each super-block recomputed as one and, inside
+    it, each self block recomputed on its own as well."""
+    import functools
+
+    from repro_torch.models import backbones as BB
+
+    def block(sup):
+        def run(h):
+            for blk in sup.selfs:
+                h = BB._run(remat, functools.partial(blk, impl=impl),
+                            (blk,), h)
+            return sup.cross_blk(h, kv_x=img, impl=impl)
+        return run
+    for sup in model.supers:
+        x = BB._run(remat, block(sup), (sup,), x)
+    return x
+
+
+def phase_vlm_remat_forms(checks):
+    """A diagnostic (``--only vlm_remat_forms``): the vlm's LM step at
+    ``VLM_TRAIN_LAYERS`` layers and ``CROSS_TRAIN_LM_BATCH`` x 4096 (f32,
+    seed 0) under the port's one-level recompute (each block on its
+    own), a recompute per super-block and JAX's nested form, in the
+    order one-level, super-block, nested, nested, super-block, one-level
+    after a warm-up step: ms per step, peak memory, K3's launches exact
+    (each block's attention twice; in the nested form each self block's
+    once more), every state equal to the bit.  A form that runs out of
+    memory is reported, not raised."""
+    import torch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import backbones as BB
+    cfg = _cross_train_config(VLM_ARCH)
+    torch.cuda.empty_cache()
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    batch = _cross_batches(cfg, "lm", CROSS_TRAIN_LM_BATCH[VLM_ARCH])[0][1]
+    step = ST.make_lm_train_step(cfg, lr=HYBRID_LR, wd=0.1, total_steps=3,
+                                 device="cuda")[0]
+    forms = {"one_level": BB._vlm_stack, "super_block": _vlm_stack_super,
+             "nested": _vlm_stack_nested}
+    n_self = cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    base = sum(_cross_step_want(cfg, 4096, False).values())
+    runs = {f: [] for f in forms}
+    fps = {}
+    try:
+        for form in ("warm_up", "one_level", "super_block", "nested",
+                     "nested", "super_block", "one_level"):
+            BB._vlm_stack = forms.get(form, forms["one_level"])
+            state = _fresh_state(model, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                (state, m), ms, n = _timed(lambda: step(state, batch))
+            except torch.cuda.OutOfMemoryError as e:
+                del state
+                torch.cuda.empty_cache()
+                runs.get(form, []).append(dict(out_of_memory=str(e)[:300]))
+                continue
+            peak = torch.cuda.max_memory_allocated()
+            fp = _fingerprints(state)
+            del state
+            torch.cuda.empty_cache()
+            if form == "warm_up":
+                continue
+            want = base + (n_self if form == "nested" else 0)
+            checks.check(n["flash_attention"] == want,
+                         f"vlm_remat_forms {form}: K3 launches "
+                         f"{n['flash_attention']}, want {want}")
+            fps.setdefault(form, fp)
+            runs[form].append(dict(ms_per_step=ms, loss=float(m["loss"]),
+                                   max_memory_allocated=peak))
+    finally:
+        BB._vlm_stack = forms["one_level"]
+    differ = sorted({k for f in fps for k in fps[f]
+                     if fps[f][k] != fps["one_level"][k]})
+    checks.check(len(fps) == 3 and not differ,
+                 f"vlm_remat_forms: forms run {sorted(fps)}, states differ "
+                 f"in {differ[:8]}")
+    emit("vlm_remat_forms", arch=VLM_ARCH, n_layers=cfg.n_layers,
+         shape=list(batch["tokens"].shape), runs=runs,
+         states_equal=not differ, card_total_memory=torch.cuda.
+         get_device_properties(0).total_memory)
+    del model
+    torch.cuda.empty_cache()
+    checks.end_phase("vlm_remat_forms")
 
 
 def _first_batch(cfg):
@@ -6184,10 +6765,12 @@ def main(argv=None):
                                  "GPU (no arguments: every phase)")
     ap.add_argument("--only", default=None,
                     help="a partial run: device, build, then these phases "
-                         "(comma-separated: kernel, gcl, dense, moe, vlm, "
+                         "(comma-separated: attn_grad, kernel, gcl, "
+                         "dense, moe, vlm, "
                          "audio, train, "
                          "clip_family, mesh after train, hybrid_train, "
-                         "dense_train, moe_train, remat_forms, moe_depth, "
+                         "dense_train, moe_train, vlm_train, audio_train, "
+                         "remat_forms, moe_depth, vlm_remat_forms, "
                          "resilience); no report and no last line")
     args = ap.parse_args(argv)
     checks = Checks()
@@ -6207,6 +6790,7 @@ def main(argv=None):
                 out["mesh"] = phase_mesh(checks, *out["train"][1:])
             else:
                 out[name] = {
+                    "attn_grad": phase_attn_grad,
                     "kernel": phase_kernel, "gcl": phase_gcl,
                     "train": phase_train, "clip_family": phase_clip_family,
                     "dense": phase_dense, "moe": phase_moe,
@@ -6214,8 +6798,11 @@ def main(argv=None):
                     "hybrid_train": phase_hybrid_train,
                     "dense_train": phase_dense_train,
                     "moe_train": phase_moe_train,
+                    "vlm_train": phase_vlm_train,
+                    "audio_train": phase_audio_train,
                     "remat_forms": phase_remat_forms,
                     "moe_depth": phase_moe_depth,
+                    "vlm_remat_forms": phase_vlm_remat_forms,
                     "resilience": phase_resilience}[name](checks)
             mark(name)
         print(f"chip_smoke: partial run of {args.only} passed; no report",
@@ -6280,11 +6867,16 @@ def main(argv=None):
     dense_child = _LauncherProcess()
     hybrid_train = phase_hybrid_train(checks, child=hybrid_child)
     mark("hybrid_train")
-    # last: a failure here cannot hide an earlier phase's result
     dense_train = phase_dense_train(checks, child=dense_child)
     mark("dense_train")
     moe_train = phase_moe_train(checks)
     mark("moe_train")
+    vlm_train = phase_vlm_train(checks)
+    mark("vlm_train")
+    # last: a failure here cannot hide an earlier phase's result
+    audio_train = phase_audio_train(checks)
+    mark("audio_train")
+    cross_train = {"vlm_train": vlm_train, "audio_train": audio_train}
     kernels = []
     for (case, dt_name), t in timings.items():
         # launches: the serving run of the tower, the training run (both
@@ -6299,10 +6891,20 @@ def main(argv=None):
             # one qwen3-moe prefill at 8 layers (phase moe): every layer
             path, n_launch = "moe_prefill", moe[MOE_ARCH]["4096x4096"]
         elif case == "vlm_cross":
-            # one llama-3.2-vision-11b prefill (phase vlm): its 8 cross
-            # blocks (its 40 self-attentions: the qwen3_moe case's shape,
-            # in vlm_prefill_launches)
+            # one llama-3.2-vision-11b prefill at 10 layers (phase vlm):
+            # its 2 cross blocks (its 10 self-attentions: the qwen3_moe
+            # case's shape, in vlm_prefill_launches)
             path, n_launch = "vlm_prefill", vlm["4096x1024"]
+        elif case == "vlm_ctr_cross":
+            # llama-3.2-vision-11b's 2 contrastive steps at 5 layers
+            # (phase vlm_train): its cross block, forward and recompute
+            path = "vlm_train"
+            n_launch = vlm_train["contrastive"]["by_seq"]["256x1024"]
+        elif case == "audio_ctr_enc":
+            # seamless-m4t-large-v2's 2 contrastive steps (phase
+            # audio_train): its 12 encoder layers, forward and recompute
+            path = "audio_train"
+            n_launch = audio_train["contrastive"]["by_seq"]["64x64"]
         elif case.startswith("audio_"):
             # one seamless-m4t-large-v2 prefill (phase audio)
             path = "audio_prefill"
@@ -6362,6 +6964,14 @@ def main(argv=None):
             # prepare_decode_state launch none
             "vlm_prefill_launches": vlm,
             "audio_prefill_launches": audio,
+            # phases vlm_train and audio_train: K3's launches by (Sq, Sk)
+            # in the 3 LM steps (2 x 4096) and the 2 contrastive steps (64
+            # x 256) of each family's kernel path (every attention in its
+            # forward and in its block's recompute)
+            "cross_train_launches": {
+                phase: {"lm": out["lm"],
+                        "contrastive": out["contrastive"]["by_seq"]}
+                for phase, out in cross_train.items()},
             # one rank's launches in the data:2,fsdp:2 launcher run (3
             # steps at 64 rows per rank, 2 evals)
             "mesh_launches_per_rank": mesh_out["launches_per_rank"][
@@ -6427,6 +7037,10 @@ def main(argv=None):
             "dense_train_launches": _dense_train_launches(dense_train,
                                                           name),
             "moe_train_launches": _dense_train_launches(moe_train, name),
+            # the 2 contrastive steps of phases vlm_train and audio_train
+            "cross_train_launches": {
+                phase: out["contrastive"][name]
+                for phase, out in cross_train.items()},
             "hybrid_train_cuda_launches": hybrid_train["contrastive"][
                 f"{name}_cuda"],
             "clip_family_launches": {

@@ -105,8 +105,9 @@ the JAX launcher does; with the contrastive objective an LM backbone
 (hybrid, dense or MoE) trains on the mesh like a CLIP arch, its towers
 recomputed in the backward as on one device.  An ``--arch`` whose config
 is not ported (the ssm family) exits 2, and so does one of the vlm or
-audio family, which serves but does not train yet (the next slice; JAX's
-launcher cannot train them either, ROADMAP F6).
+audio family: they train through the step functions on batches that
+carry their stub inputs, which this launcher's datasets, as JAX's
+launcher's, do not carry (ROADMAP F6).
 """
 from __future__ import annotations
 
@@ -297,12 +298,14 @@ def parse_args(argv=None):
                  f"repro_torch (ported: the {', '.join(BB.FAMILIES)} "
                  "families; ssm is ROADMAP queue P6b)")
     if cfg.family in BB.CROSS_FAMILIES:
-        ap.error(f"--arch {args.arch}: training the {cfg.family} family "
-                 "is not ported yet: it is the next slice (ROADMAP queue "
-                 "P6b, training of the vlm and audio families), and JAX's "
-                 "launcher cannot train it either (ROADMAP F6: its "
-                 "datasets carry no image_embeds or frames); it serves "
-                 "through repro_torch.launch.serve")
+        stub = "image_embeds" if cfg.family == "vlm" else "frames"
+        ap.error(f"--arch {args.arch}: the {cfg.family} family trains "
+                 "through the step functions (repro_torch.launch.steps."
+                 "make_lm_train_step, core.train_step.make_train_step) on "
+                 f"batches that carry {stub}, but this launcher cannot "
+                 f"feed it: its datasets carry no {stub}, as JAX's "
+                 "launcher's carry none (ROADMAP F6); it serves through "
+                 "repro_torch.launch.serve")
     if args.mesh and cfg.family != "clip" and args.objective == "lm":
         raise SystemExit("--mesh drives the contrastive trainer; the LM "
                          "shapes run on the production mesh via "

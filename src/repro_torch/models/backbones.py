@@ -70,9 +70,15 @@ a self cache per block and a cross cache per cross block, which
 state's dtype, before the GQA repeat; no ``slot_pos``): the vlm's
 ``self_kv`` (leading axes (n_super, every - 1)), ``cross_self_kv`` and
 ``cross_kv`` (n_super), the audio's ``self_kv`` and ``cross_kv``
-(n_layers).  Neither family trains yet: under autograd their
-``forward_hidden`` raises ``NotImplementedError``.  The ssm family
-raises everywhere (ROADMAP, queue P6b).
+(n_layers).  Under autograd both recompute at one level: the vlm's
+image projection runs once, outside any recompute (as JAX's), then each
+self block and each cross block on its own (``_vlm_stack``; JAX nests a
+super-block's remat around its self blocks' own: the same numbers); the
+audio encoder's and decoder's layers each on their own, as JAX's
+``remat=True`` scans.  The cross blocks read the image or the encoder's
+output through their closure, so its gradient, the sum over the cross
+blocks, reaches ``img_proj`` and the encoder.  The ssm family raises
+everywhere (ROADMAP, queue P6b).
 """
 from __future__ import annotations
 
@@ -342,29 +348,25 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     each call of the hybrid's shared block is recomputed once in the
     backward (JAX's ``remat=True`` scans), and the dense and MoE stacks
     under JAX's grouped recompute (``layers.run_layers_grouped``, the
-    MoE stack carrying its aux sums); a recompute changes no number.
-    The vlm's batch carries ``image_embeds`` and the audio's ``frames``;
-    each cross block's cross-attention goes through ``impl`` as well
-    (K3 non-causal at (S, n_image_tokens) or (S, S_enc) for "flash"),
-    and neither family runs under grad yet."""
+    MoE stack carrying its aux sums), and the vlm's and the audio's
+    blocks each on their own (``_vlm_stack``, ``_cross_stack``); a
+    recompute changes no number.  The vlm's batch carries
+    ``image_embeds`` and the audio's ``frames``; each cross block's
+    cross-attention goes through ``impl`` as well (K3 non-causal at (S,
+    n_image_tokens) or (S, S_enc) for "flash")."""
     _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
     remat = torch.is_grad_enabled()
     if cfg.family in CROSS_FAMILIES:
-        _refuse_training(cfg)
         if cfg.family == "vlm":
             img = (PR.cast_compute(precision, batch["image_embeds"])
                    @ model.img_proj.to(x.dtype))
-            for sup in model.supers:
-                for blk in sup.selfs:
-                    x = blk(x, impl=impl)
-                x = sup.cross_blk(x, kv_x=img, impl=impl)
+            x = _vlm_stack(model, x, img, impl, remat)
         else:
             enc = encode_frames(model, cfg, batch["frames"], impl=impl,
                                 precision=precision)
-            for blk in model.dec_blocks:
-                x = blk(x, kv_x=enc, impl=impl)
+            x = _cross_stack(model.dec_blocks, x, enc, impl, remat)
         return model.final_norm(x), {}
     if cfg.family == "moe":
         def sup_layer(sup, carry):
@@ -409,26 +411,38 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     return model.final_norm(x), {}
 
 
-def _refuse_training(cfg: ArchConfig) -> None:
-    """Under autograd the vlm and audio families raise: their recompute
-    is not ported yet."""
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"family {cfg.family!r} serves but does not train yet: its "
-            f"recompute under autograd is the next slice (ROADMAP queue "
-            f"P6b, training of the vlm and audio families; F6)")
+def _cross_stack(blocks, x, kv_x, impl, remat):
+    """Cross blocks over ``kv_x``, each recomputed on its own when
+    ``remat``; ``kv_x`` comes in through the closure, so its gradient
+    adds up over the blocks."""
+    for blk in blocks:
+        x = _run(remat, lambda h, blk=blk: blk(h, kv_x=kv_x, impl=impl),
+                 (blk,), x)
+    return x
+
+
+def _vlm_stack(model, x, img, impl, remat):
+    """The vlm's super-blocks over the projected image ``img``; when
+    ``remat``, each self block and each cross block recomputed on its
+    own."""
+    for sup in model.supers:
+        for blk in sup.selfs:
+            x = _run(remat, functools.partial(blk, impl=impl), (blk,), x)
+        x = _cross_stack((sup.cross_blk,), x, img, impl, remat)
+    return x
 
 
 def encode_frames(model, cfg: ArchConfig, frames, *, impl="flash",
                   precision=PR.F32):
     """The audio encoder over stub frame embeddings (B, S_enc, d_model):
     causal self-attention blocks with RoPE (JAX's streaming-friendly
-    encoder), then ``enc_norm``."""
+    encoder), each recomputed on its own under autograd (JAX's
+    ``remat=True`` scan), then ``enc_norm``."""
     _check_family(cfg, "audio")
-    _refuse_training(cfg)
+    remat = torch.is_grad_enabled()
     h = PR.cast_compute(precision, frames)
     for blk in model.enc_blocks:
-        h = blk(h, impl=impl)
+        h = _run(remat, functools.partial(blk, impl=impl), (blk,), h)
     return model.enc_norm(h)
 
 

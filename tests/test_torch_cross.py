@@ -468,25 +468,14 @@ def test_serve_cli_generates_on_cpu(arch, capsys):
 @pytest.mark.parametrize("objective", ["contrastive", "lm"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_launcher_refuses_the_family(arch, objective, capsys):
-    """Training the vlm and audio families is the next slice (and JAX's
-    launcher cannot train them, ROADMAP F6): exit 2, naming both."""
+    """Both families train through the step functions
+    (tests/test_torch_cross_train.py), but the launcher cannot feed them:
+    its datasets carry no stub inputs, as JAX's carry none (ROADMAP F6).
+    Exit 2, naming F6 and the step functions."""
     with pytest.raises(SystemExit) as e:
         train.main(["--arch", arch, "--reduced", "--device", "cpu",
                     "--objective", objective, "--steps", "1"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and "F6" in err and "next slice" in err
-
-
-def test_forward_hidden_under_autograd_raises(setup):
-    """Neither family trains yet: under grad their forward (and the
-    audio encoder) raise, naming the next slice."""
-    _, tcfg, _, _, model, batch, _ = setup
-    tb = _tb(batch)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TBB.forward_hidden(model, tcfg, tb)
-    with pytest.raises(NotImplementedError, match="P6b"):
-        TBB.lm_loss(model, tcfg, {**tb, "labels": tb["tokens"]})
-    if tcfg.family == "audio":
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TBB.encode_frames(model, tcfg, tb["frames"])
+    assert "F6" in err and "make_lm_train_step" in err
+    assert "not ported" not in err and "next slice" not in err

@@ -174,15 +174,17 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
 @pytest.mark.parametrize("flag", [["--arch", "llama-3.2-vision-11b",
                                    "--mesh", "data:1,fsdp:1"]])
 def test_unported_flags_are_refused(flag, capsys):
-    """An edge of the JAX launcher not ported yet: training an arch of the
-    families still in ROADMAP queue P6b (the vlm and audio families
-    serve but do not train yet; ssm), here on the mesh
-    (``--mesh`` with an LM backbone's contrastive objective and the moe
-    family, the edges this case held before, are ported)."""
+    """An edge the launcher refuses: the vlm on the mesh.  The vlm and
+    audio families train through the step functions, but no launcher
+    can feed them (ROADMAP F6: the datasets carry no stub inputs, in
+    JAX's launcher too), with ``--mesh`` as without (``--mesh`` with an
+    LM backbone's contrastive objective and the moe family, the edges
+    this case held before, are ported)."""
     with pytest.raises(SystemExit) as e:
         ttrain.main(BASE + CPU + flag)
     assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "F6" in err and "image_embeds" in err and "not ported" not in err
 
 
 @pytest.mark.parametrize("flag,why", [
