@@ -249,12 +249,13 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    memory per rank, each step against one device from the same state
    (loss 1e-5, log-u 1e-4, moments and update per group of leaves, as
    phase clip_family's mesh);
-21. moe_train -- ``qwen3-moe-30b-a3b`` at full width with 3 of its 48
-   layers (``MOE_TRAIN_LAYERS``: a step at 4 does not fit the card)
+21. moe_train -- ``qwen3-moe-30b-a3b`` at full width with 2 of its 48
+   layers (``MOE_TRAIN_LAYERS``: a step at 4 does not fit the card, and
+   3 until the xLSTM's phases needed the run's time)
    trained (f32, seed 0; JAX's rule recomputes each super-block on its
    own): the LM launcher at 2 x 4096 in a child process for 3 steps
-   (exit 0, step lines with ``moe_lb`` and ``moe_z``, launches exact: 3
-   K3 forwards and 3 in the recompute per step, ms per step, peak
+   (exit 0, step lines with ``moe_lb`` and ``moe_z``, launches exact: 2
+   K3 forwards and 2 in the recompute per step, ms per step, peak
    memory, step-0 loss equal to this process's); here, from the same
    init and batch: a profiled step by kind of kernel and the same step
    timed (launches, peak, idle share), the kernel path's step-0
@@ -291,9 +292,35 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    LM at 2 x 4096 (K3 exactly 2 x 12 at each of 1024 x 1024, 4096 x
    4096 and 4096 x 1024 per step), the contrastive objective over the
    encoder alone (2 x 12 K3 at 64 x 64 per step; the decoder,
-   ``embed``, ``final_norm`` and ``lm_head`` unreached); last, so that
-   its failure hides no earlier phase's result;
-24. report -- the kernels JSON line, the card line, and the last line
+   ``embed``, ``final_norm`` and ``lm_head`` unreached);
+24. xlstm -- ``xlstm-125m`` at full width and depth (12 blocks,
+   ``mmmsmmmsmmms``, 193,280,584 params; f32, seed 0), no kernel of the
+   port on its path: the prefill at 2 x 4096 timed with its peak memory,
+   then profiled by kind of kernel with the idle share; the decode
+   launcher at batch 4 over 64 tokens (tokens/s); first, its checks
+   that time nothing: one mLSTM block chunked against sequential at 2 x
+   4096 (max abs 2e-4, JAX's test bound) and the prefill against 256
+   decode steps (5e-3); at its end the card's memory it took all
+   returned (allocated and reserved, PyTorch's leak-check count);
+25. xlstm_train -- the same model trained: the LM step at 2 x 4096
+   through ``launch.steps.make_lm_train_step`` (step 0 profiled by kind
+   of kernel, step 1 timed with its peak memory and the idle share; the
+   loss near ln V; no kernel of the port).  Then its checks that time
+   nothing, beside its launchers: one sLSTM block's token loops at 2 x
+   512 eagerly and as CUDA graphs, equal to the bit, each profiled
+   (kernels per token); the step-0 gradients at 2 x 512
+   against the same step in f64 on the card (every leaf within 1e-3
+   relative L2, f32's own rounding on this model; the f32 gradients at
+   mLSTM chunk 32 beside them), the contrastive objective (v3, 64 x 256)
+   on the K1/K2 path and the dense loss (one K1 and one K2 call per
+   step, step-0 gradients of every leaf within ``TOL_TRAIN_GRAD``, the
+   trajectory within ``TOL_TRAIN_TRAJ``), and the training launcher in
+   a child process under each objective (3 LM steps at 2 x 512, 3
+   contrastive steps at 64 x 256, held since before phase moe_train:
+   exit 0, finite step lines, launches exact); its memory returned as
+   phase xlstm's; last, so that its failure hides no earlier phase's
+   result;
+26. report -- the kernels JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Imports nothing
@@ -1739,10 +1766,14 @@ def _device_rows(prof):
     and device, which takes seconds per 10,000 events); None where this
     torch does not expose them."""
     try:
+        import torch
+        cuda = torch._C._autograd.DeviceType.CUDA
         events = prof.profiler.kineto_results.events()
         agg = {}
         for e in events:
-            if not str(e.device_type()).endswith("CUDA"):
+            # the enum, not its name: ~2.5 us an event less, 400,000
+            # events in an xLSTM step
+            if e.device_type() != cuda:
                 continue
             t, n = agg.get(e.name(), (0.0, 0))
             agg[e.name()] = (t + e.duration_ns() / 1e6, n + 1)
@@ -3236,7 +3267,8 @@ DENSE_LM_ARGS = ["--arch", DENSE_ARCH, "--objective", "lm",
 DENSE_TRAIN_LAYERS = 10
 # qwen3-1.7b on data:1,fsdp:2 (2 gloo ranks sharing the card) at full
 # width with 4 of its 28 layers (JAX's rule recomputes each of 4 layers
-# on its own: default_remat_group(4) is 1)
+# on its own: default_remat_group(4) is 1); both ranks run one device's
+# reference steps at once (a whole state ~14 GB: two fit the card)
 DENSE_MESH_LAYERS = 4
 # step-0 gradients of the kernel path against the plain path: every leaf
 # within this relative L2, per objective (phase train's bound)
@@ -3667,12 +3699,13 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
-def _mesh_worker_lm(argv, arch, layers):
+def _mesh_worker_lm(argv, arch, layers, together=False):
     """One rank of ``arch`` at full width and ``layers`` layers (phase
     dense_train's qwen3-1.7b, phase moe_train's qwen3-moe) on
     data:1,fsdp:2 (2 ranks sharing the card; spawned by those phases,
     never by hand): the init on the host; once ``argv[0]`` says "go",
-    each rank in turn runs one device's 2 steps on the whole global
+    each rank in turn (``together``: both at once, where two whole
+    states fit the card) runs one device's 2 steps on the whole global
     batch from the init and keeps its own shards of the state after each
     on the host (the card holds one whole state at a time); then the 2
     contrastive ZeRO steps over the rank's rows, their launches and ms,
@@ -3718,8 +3751,8 @@ def _mesh_worker_lm(argv, arch, layers):
         full = _dense_mesh_batches(cfg, rank, 2, full=True)
         t0 = time.monotonic()
         ones, loss_one = [], []
-        for turn in range(mesh.world_size):
-            if turn == rank:
+        for turn in range(1 if together else mesh.world_size):
+            if together or turn == rank:
                 st = bridge.state_from_tree(
                     {**st1, "params": st1["params"].cuda()}, tree)
                 fn1 = TS.make_train_step(tc1, "cuda")
@@ -3902,13 +3935,16 @@ def phase_dense_train(checks, child=None):
 # contrastive objective on the (data, fsdp) mesh
 # ---------------------------------------------------------------------------
 
-# phase moe_train's depth: 3 of qwen3-moe-30b-a3b's 48 layers at full width
+# phase moe_train's depth: 2 of qwen3-moe-30b-a3b's 48 layers at full width
 # (JAX's rule recomputes each super-block on its own below 8).  A train
 # step holds the params, the gradients, both AdamW moments and, while
 # ``adamw().update`` returns, the new params and moments: 7 times the f32
 # params (qwen3-1.7b's full-depth step peaked at 7.0 of them), 87.2 GB at 4
-# layers and 69.8 GB at 3 (``--only moe_depth`` tries 4; PERF.md § 4)
-MOE_TRAIN_LAYERS = 3
+# layers and 69.8 GB at 3 (``--only moe_depth`` tries 4).  3 until the
+# xLSTM's phases needed the run's time: at 2 the gradient still crosses a
+# recomputed MoE layer, its K3 and its dispatch backward, into the one
+# below (PERF.md § 4)
+MOE_TRAIN_LAYERS = 2
 # data:1,fsdp:2 (2 gloo ranks sharing the card) at 1 of the 48 layers
 MOE_MESH_LAYERS = 1
 MOE_LM_ARGS = ["--arch", MOE_ARCH, "--objective", "lm", "--global-batch",
@@ -6760,6 +6796,491 @@ def phase_resilience(checks):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases xlstm and xlstm_train: the xLSTM family served and trained
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_PARAMS = 193_280_584
+# one mLSTM block, chunked vs sequential: max abs error, tests/test_xlstm.py
+TOL_MLSTM = 2e-4
+# the LM step's gradients are checked at 2 x this many tokens against the
+# same step in f64 on the card: every leaf within TOL_XLSTM_F64 relative
+# L2.  f32 rounding alone moves this model's gradients by 1e-4 to 1e-3
+# (the division by max(|n . q|, exp(-m)) amplifies it; the JAX package's
+# f32 gradients sit as far from f64 as the port's, tests/
+# test_torch_xlstm.py), so the bound is that of the CPU tests
+XLSTM_GRAD_SEQ = 512
+TOL_XLSTM_F64 = 1e-3
+XLSTM_LM_ARGS = ["--arch", XLSTM_ARCH, "--objective", "lm",
+                 "--global-batch", "2", "--seq-len", str(XLSTM_GRAD_SEQ),
+                 "--steps", "3", "--log-every", "1", "--device", "cuda",
+                 "--seed", "0", "--precision", "f32"]
+XLSTM_CTR_ARGS = ["--arch", XLSTM_ARCH, "--version", "v3",
+                  "--global-batch", "64", "--seq-len", "256", "--steps",
+                  "3", "--log-every", "1", "--device", "cuda", "--seed",
+                  "0", "--precision", "f32"]
+# an xLSTM step's kernels by what they compute (no K3 or K4 on its path)
+XLSTM_CATEGORIES = (
+    ("k1_k2_fcco", ("stats_partial", "stats_merge", "grads_weights",
+                    "grads_product")),
+    ("gemm", ("gemm", "gemv")),
+)
+# no hand-written kernel runs on the xLSTM's serving or LM path
+XLSTM_NO_KERNELS = dict(flash_attention=0, gcl_pair_stats=0,
+                        gcl_pair_grads=0, gcl_pair_stats_cuda=0,
+                        gcl_pair_grads_cuda=0, ssd_chunk=0, ssd_chunk_cuda=0)
+# what an xLSTM phase may leave of the card's memory, allocated or
+# reserved, once its work is gone (a few of the allocator's small
+# segments); a segment kept by a stray block is ~GB at these shapes
+XLSTM_MEMORY_SLACK = 64 * 2 ** 20
+
+
+def _xlstm_model(checks, name):
+    """``xlstm-125m`` at full width and depth from seed 0 on the card,
+    its parameter count JAX's."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import backbones as BB
+    cfg = get_arch(XLSTM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model = BB.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    checks.check(n_params == XLSTM_PARAMS,
+                 f"{name}: {n_params} parameters, want {XLSTM_PARAMS}")
+    emit(f"{name}_params", arch=XLSTM_ARCH, n_layers=cfg.n_layers,
+         pattern=cfg.xlstm_pattern, n_params=n_params,
+         init_seconds=time.monotonic() - t0)
+    return cfg, model
+
+
+def _card_memory():
+    """(allocated, reserved) bytes of this process's caching allocator
+    once nothing unheld is kept, counted as PyTorch's own leak check
+    counts them: garbage collected, the cuBLAS workspaces dropped, the
+    cache emptied."""
+    import gc
+
+    import torch
+    gc.collect()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _memory_returned(checks, name, before):
+    """A phase's end: every byte its model, graphs and work took is back
+    (``_card_memory`` against ``before``, its value at the phase's
+    start, within ``XLSTM_MEMORY_SLACK``), so no segment is left that a
+    later phase could not use."""
+    after = _card_memory()
+    checks.check(after[0] <= before[0] + XLSTM_MEMORY_SLACK
+                 and after[1] <= before[1] + XLSTM_MEMORY_SLACK,
+                 f"{name}: memory allocated / reserved {after} after the "
+                 f"phase, {before} before it")
+    emit(f"{name}_memory", allocated_before=before[0],
+         allocated_after=after[0], reserved_before=before[1],
+         reserved_after=after[1], slack=XLSTM_MEMORY_SLACK)
+
+
+def _slstm_paths(checks, cfg, model, T):
+    """One full-width sLSTM block at 2 x ``T``, its token loops run
+    eagerly and as replayed CUDA graphs (``models.xlstm``: windows of
+    ``WINDOW`` tokens, the block's ``window_graphs``): the output, and
+    the gradients of a forward and backward, equal to the bit; under the
+    profiler (device events only) the graphs' forward without grad and
+    forward with backward, as a step runs them: wall ms, device-busy ms,
+    kernels in all and per token; the graphs captured and replayed."""
+    import torch
+    from repro_torch.models import backbones as BB
+    from repro_torch.models import xlstm as X
+    blk = next(b for b in BB._xlstm_blocks(model)
+               if isinstance(b, X.SLSTMBlock))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, T, cfg.d_model), generator=gen, device="cuda")
+    w = torch.randn((2, T, cfg.d_model), generator=gen, device="cuda")
+
+    def fwd(graphs):
+        with torch.no_grad():
+            return X.apply_slstm_block(blk, cfg, x, graphs=graphs)
+
+    def both(graphs):
+        blk.zero_grad(set_to_none=True)
+        xx = x.clone().requires_grad_(True)
+        y = X.apply_slstm_block(blk, cfg, xx, graphs=graphs)
+        (y * w).sum().backward()
+        return [y.detach(), xx.grad] + [p.grad for p in blk.parameters()]
+    out, res = {}, {}
+    wg = blk.window_graphs
+    n0 = wg.captured, wg.replayed
+    try:
+        for graphs in (False, True):
+            res[graphs] = [fwd(graphs)] + both(graphs)   # warm-up: captures
+        for what, fn in (("forward", fwd), ("forward_backward", both)):
+            prof = _profile(lambda: fn(True), host_ops=False)
+            out[what] = dict(kernels=prof["launches"],
+                             kernels_per_token=prof["launches"] / T,
+                             wall_ms=prof["wall_ms"],
+                             device_busy_ms=prof["device_busy_ms"])
+    finally:
+        blk.zero_grad(set_to_none=True)
+    same = all(torch.equal(a, b) for a, b in zip(res[False], res[True]))
+    out.update(captured=wg.captured - n0[0], replayed=wg.replayed - n0[1])
+    checks.check(same and out["replayed"] > 0,
+                 f"xlstm_train: the sLSTM's graphs vs its eager windows at "
+                 f"2 x {T}: the same bits {same}, graphs replayed "
+                 f"{out['replayed']}")
+    out["graphs_equal_eager_bitwise"] = same
+    return out
+
+
+def _xlstm_serve_checks(checks, cfg, model):
+    """Phase xlstm's checks that time nothing: one mLSTM block chunked
+    against sequential at 2 x 4096 (``TOL_MLSTM``), and the prefill
+    against 256 decode steps at batch 2 (``TOL_PREFILL_DECODE``), no
+    kernel of the port's launched."""
+    import torch
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import backbones as BB
+    from repro_torch.models import xlstm as X
+    B, S, T = 2, 4096, 256
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    blk = next(iter(BB._xlstm_blocks(model)))
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    with torch.inference_mode():
+        y_c = X.apply_mlstm_block(blk, cfg, x, chunked=True)
+        y_s = X.apply_mlstm_block(blk, cfg, x, chunked=False)
+        d = (y_c - y_s).abs().max().item()
+    checks.check(math.isfinite(d) and d <= TOL_MLSTM,
+                 f"xlstm: mLSTM block chunked vs sequential max abs {d}")
+    emit("xlstm_mlstm_block", shape=[B, S, cfg.d_model],
+         chunk=cfg.ssm.chunk, max_abs_err=d, tol=TOL_MLSTM)
+    del x, y_c, y_s
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device="cuda")
+    last = steps.make_prefill_step(cfg)(model, {"tokens": tokens})[:, 0]
+    state = BB.prepare_decode_state(model, cfg, {}, B, T)
+    serve_step = steps.make_serve_step(cfg, INPUT_SHAPES["decode_32k"])
+    _zero_hybrid_counters()
+    for t in range(T):
+        lg, state = serve_step(model, state, tokens[:, t:t + 1], t)
+    dec_counts = _hybrid_counters()
+    d = (lg - last).abs().max().item()
+    checks.check(math.isfinite(d) and d <= TOL_PREFILL_DECODE
+                 and dec_counts == XLSTM_NO_KERNELS,
+                 f"xlstm: prefill vs decode max abs {d}, decode launches "
+                 f"{dec_counts}")
+    emit("xlstm_prefill_vs_decode", batch=B, tokens=T, max_abs_err=d,
+         tol=TOL_PREFILL_DECODE, launches=dec_counts)
+
+
+def _xlstm_train_checks(checks, cfg, model, held):
+    """Phase xlstm_train's checks that time nothing: each launcher in a
+    child process (3 LM steps at 2 x ``XLSTM_GRAD_SEQ``, 3 contrastive
+    steps at 64 x 256; ``held``: {"lm", "contrastive"}, held
+    ``_LauncherProcess``es) beside the f64 gradient check, the sLSTM's
+    eager windows against its graphs (bitwise; the kernels per token
+    exact, its times beside the rest) and the contrastive steps here.
+    Returns K1's and K2's launches."""
+    import torch
+    lm = held["lm"].start(XLSTM_LM_ARGS)
+    ctr = held["contrastive"].start(XLSTM_CTR_ARGS)
+    out = {}
+    try:
+        _xlstm_f64(checks, cfg, model, _hybrid_batches(cfg, "lm")[0][1])
+        slstm = _slstm_paths(checks, cfg, model, XLSTM_GRAD_SEQ)
+        n_s = cfg.xlstm_pattern[:cfg.n_layers].count("s")
+        # each sLSTM block of a training step runs its forward and its
+        # backward once (it is not recomputed): the forward_backward
+        # reading
+        per_tok = slstm["forward_backward"]["kernels_per_token"]
+        emit("xlstm_slstm_launches", shape=[2, XLSTM_GRAD_SEQ],
+             block=slstm, slstm_blocks=n_s, beside_the_launchers=True,
+             kernels_per_token_per_block_in_a_step=per_tok,
+             kernels_per_lm_step_at_4096=n_s * per_tok * 4096)
+        out["contrastive"] = _xlstm_contrastive(checks, cfg, model)
+        torch.cuda.empty_cache()
+    finally:
+        finished = lm.finish(900), ctr.finish(900)
+    out["lm_launcher"] = _xlstm_launcher_checks(
+        checks, "xlstm_train_lm", finished[0], lm.lines, False)
+    out["contrastive_launcher"] = _xlstm_launcher_checks(
+        checks, "xlstm_train_contrastive", finished[1], ctr.lines, True)
+    return out
+
+
+def phase_xlstm(checks):
+    """``xlstm-125m`` served at full width and depth (f32, seed 0): its
+    checks that time nothing (``_xlstm_serve_checks``), then the prefill
+    at 2 x 4096 (no kernel on its path) timed and profiled, and the
+    decode launcher at batch 4; every byte of the card's memory it took
+    returned (``_memory_returned``)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.launch import serve, steps
+    t_phase = time.monotonic()
+    before = _card_memory()
+    cfg, model = _xlstm_model(checks, "xlstm")
+    _xlstm_serve_checks(checks, cfg, model)
+    B, S = 2, 4096
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    prefill = steps.make_prefill_step(cfg)
+    prefill(model, {"tokens": tokens[:, :256]})          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    logits, ms_prefill, counts = _timed(
+        lambda: prefill(model, {"tokens": tokens}))
+    peak = torch.cuda.max_memory_allocated()
+    checks.check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+                 and bool(torch.isfinite(logits).all())
+                 and counts == XLSTM_NO_KERNELS,
+                 f"xlstm prefill: logits {tuple(logits.shape)}, launches "
+                 f"{counts}")
+    prof = _profile(lambda: prefill(model, {"tokens": tokens}),
+                    categories=XLSTM_CATEGORIES, host_ops=False)
+    prof["idle_share_of_unprofiled_prefill"] = max(
+        0.0, 1.0 - prof["device_busy_ms"] / ms_prefill)
+    emit("xlstm_prefill", batch=B, seq=S, ms_per_prefill=ms_prefill,
+         tokens_per_s=B * S / (ms_prefill / 1e3), launches=counts,
+         max_memory_allocated=peak, profile=prof)
+    del model, logits, tokens
+    # the decode launcher on the card
+    argv = ["--arch", XLSTM_ARCH, "--batch", "4", "--gen", "64"]
+    _zero_hybrid_counters()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main(argv)
+    wall = time.monotonic() - t0
+    serve_counts = _hybrid_counters()
+    lines = buf.getvalue().splitlines()
+    tps = float(lines[0].split(" at ")[1].split(" tok/s")[0])
+    checks.check(tuple(toks.shape) == (4, 80) and toks.device.type == "cuda"
+                 and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+                 and serve_counts == XLSTM_NO_KERNELS,
+                 f"xlstm serve: tokens {tuple(toks.shape)} on {toks.device}, "
+                 f"launches {serve_counts}")
+    emit("xlstm_serve", argv=argv, lines=lines, decode_tokens_per_s=tps,
+         wall_seconds=wall)
+    del toks
+    _memory_returned(checks, "xlstm", before)
+    emit("xlstm", seconds=time.monotonic() - t_phase)
+    checks.end_phase("xlstm")
+
+
+def _xlstm_lm(checks, cfg, model):
+    """The LM objective at 2 x 4096 from the seeded init: step 0 under
+    the profiler (device events only: launches, the sLSTM's among them,
+    and device ms by kind), step 1 timed alone with its peak memory; no
+    kernel of the port's launched; the loss near ln(vocab) at the random
+    init."""
+    import torch
+    from repro_torch.launch import steps as ST
+    step = ST.make_lm_train_step(cfg, lr=HYBRID_LR, wd=0.1, total_steps=3,
+                                 device="cuda")[0]
+    batches = _hybrid_batches(cfg, "lm")
+    state = _fresh_state(model, None)
+    rec, ms, counts = [], [], []
+    prof, peak = None, None
+    for i, (_, b) in enumerate(batches[:2]):
+        if i == 0:
+            held = {}
+            _zero_hybrid_counters()
+            prof = _profile(lambda: held.update(out=step(state, b)),
+                            categories=XLSTM_CATEGORIES, host_ops=False)
+            (state, m), t, n = held.pop("out"), prof["wall_ms"], (
+                _hybrid_counters())
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), t, n = _timed(lambda: step(state, b))
+            peak = torch.cuda.max_memory_allocated()
+        rec.append({k: float(v) for k, v in m.items()})
+        ms.append(t)
+        counts.append(n)
+    del state
+    torch.cuda.empty_cache()
+    ln_v = math.log(cfg.vocab_size)
+    checks.check(counts == [XLSTM_NO_KERNELS] * 2
+                 and all(math.isfinite(r["loss"])
+                         and abs(r["loss"] - ln_v) < 1.5 for r in rec),
+                 f"xlstm_train_lm: losses {rec} (ln V {ln_v}), launches "
+                 f"{counts}")
+    prof["idle_share_of_unprofiled_step"] = max(
+        0.0, 1.0 - prof["device_busy_ms"] / ms[1])
+    emit("xlstm_train_lm_device", arch=cfg.name, shape=[2, 4096],
+         batch_on_device=True, ms_per_step=ms, ms_step0_profiled=ms[0],
+         ms_step1_unprofiled=ms[1], max_memory_allocated=peak,
+         launches=counts, losses=[r["loss"] for r in rec], ln_vocab=ln_v,
+         profile=prof)
+
+
+def _xlstm_f64(checks, cfg, model, batch):
+    """The step-0 gradients at 2 x ``XLSTM_GRAD_SEQ`` against the same
+    step in f64 on the card (an f64 copy of the model under an f64
+    compute policy), every leaf within ``TOL_XLSTM_F64`` relative L2;
+    beside it the f32 gradients at mLSTM chunk 32, the same arithmetic
+    in another order: how far f32 rounding alone moves them."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.core import train_step as TS
+    from repro_torch.models import backbones as BB
+    from repro_torch.models import precision as PR
+    b = {k: v[:, :XLSTM_GRAD_SEQ] for k, v in batch.items()}
+    f64 = PR.Precision("f64", compute_dtype=torch.float64,
+                       output_dtype=torch.float64)
+    c32 = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=32))
+    _fresh_state(model, None)
+    t0 = time.monotonic()
+    grads = {}
+    for name, m, c, prec in (("f32", model, cfg, PR.F32),
+                             ("f32_chunk32", model, c32, PR.F32),
+                             ("f64", copy.deepcopy(model).double(), cfg,
+                              f64)):
+        with torch.enable_grad():
+            loss, _ = BB.lm_loss(m, c, b, precision=prec)
+            grads[name] = {k: g.double() for k, g in
+                           TS.param_grads(loss, m).items()}
+        del m
+    rel = _grads_rel(grads["f32"], grads["f64"])
+    rounding = _grads_rel(grads["f32"], grads["f32_chunk32"])
+    rel32 = _grads_rel(grads["f32_chunk32"], grads["f64"])
+    unreached = [k for k in rel if k.split(".")[0] in ("ctr_proj",
+                                                       "pair_proj")]
+    zero = all(not grads["f32"][k].any() for k in unreached)
+    del grads
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    checks.check(all(math.isfinite(v) and v <= TOL_XLSTM_F64
+                     for v in rel.values()) and zero,
+                 f"xlstm_train_lm: step-0 grads f32 vs f64, worst leaf "
+                 f"{worst} rel L2 {rel[worst]}, bound {TOL_XLSTM_F64}; "
+                 f"unreached zero {zero}")
+    emit("xlstm_train_lm_f64", shape=[2, XLSTM_GRAD_SEQ],
+         grad_leaves=len(rel), grads_f32_vs_f64=_leaf_summary(rel),
+         grads_f32_chunk32_vs_f64=_leaf_summary(rel32),
+         grads_f32_vs_f32_chunk32=_leaf_summary(rounding),
+         bound=TOL_XLSTM_F64, unreached_zero=zero,
+         seconds=time.monotonic() - t0)
+
+
+def _xlstm_contrastive(checks, cfg, model):
+    """The contrastive objective (v3, 64 x 256) from the seeded init: 2
+    steps on the K1/K2 path (one call of each per step, timed) and 2 on
+    the dense loss, step 0's gradients of every leaf within
+    ``TOL_TRAIN_GRAD`` relative L2 of each other, the loss, tau, loss
+    value and u mean within ``TOL_TRAIN_TRAJ``.  Returns K1's and K2's
+    launches on the kernel path."""
+    import torch
+    from repro_torch.core import train_step as TS
+    tcs = {loss_impl: _hybrid_ctr_config(cfg, "flash", loss_impl)
+           for loss_impl in ("fused", "dense")}
+    fc_cfg = tcs["fused"].fc
+    batches = _hybrid_batches(cfg, "contrastive")[:2]
+    want = dict(XLSTM_NO_KERNELS, gcl_pair_stats=1, gcl_pair_grads=1,
+                gcl_pair_stats_cuda=2, gcl_pair_grads_cuda=2)
+    rec, ms, counts, grads0 = {}, {}, {}, {}
+    for loss_impl, tc in tcs.items():
+        step = TS.make_train_step(tc, "cuda")
+        state = _fresh_state(model, None, fc_cfg)
+        rec[loss_impl], ms[loss_impl], counts[loss_impl] = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i, (idx, b) in enumerate(batches):
+            with _CaptureGrads(
+                    (lambda g, li=loss_impl: grads0.update(
+                        {li: {k: v.detach().clone() for k, v in g.items()}}))
+                    if i == 0 else (lambda g: None), contrastive=True):
+                (state, m), t, n = _timed(lambda: step(state, b, idx))
+            rec[loss_impl].append({k: float(v) for k, v in m.items()})
+            ms[loss_impl].append(t)
+            counts[loss_impl].append(n)
+        peak = torch.cuda.max_memory_allocated()
+        del state
+    torch.cuda.empty_cache()
+    rel = _grads_rel(grads0["fused"], grads0["dense"])
+    del grads0
+    worst = max(rel, key=rel.get)
+    traj = _traj_rel(rec["fused"], rec["dense"])
+    checks.check(counts["fused"] == [want] * 2
+                 and counts["dense"] == [XLSTM_NO_KERNELS] * 2,
+                 f"xlstm_train_contrastive: launches {counts}, want {want}")
+    checks.check(all(math.isfinite(v) and v <= TOL_TRAIN_GRAD
+                     for v in rel.values())
+                 and math.isfinite(traj) and traj <= TOL_TRAIN_TRAJ,
+                 f"xlstm_train_contrastive: step-0 grads K1/K2 vs dense, "
+                 f"worst leaf {worst} rel L2 {rel[worst]}, bound "
+                 f"{TOL_TRAIN_GRAD}; trajectory rel {traj}")
+    emit("xlstm_train_contrastive_device", arch=cfg.name, shape=[64, 256],
+         batch_on_device=True, beside_the_launcher_child=True, ms_per_step=ms, max_memory_allocated=peak,
+         launches_per_step=counts, metrics=rec, trajectory_rel=traj,
+         traj_bound=TOL_TRAIN_TRAJ, grad_leaves=len(rel),
+         grads_fused_vs_dense=_leaf_summary(rel), grad_bound=TOL_TRAIN_GRAD)
+    return {k: 2 * v for k, v in want.items()}
+
+
+def _xlstm_launcher_checks(checks, name, finished, lines, contrastive):
+    """A launcher child's 3 steps: exit 0, finite step lines, launches
+    (one K1 and one K2 call a step for the contrastive loss, nothing
+    else), f32 masters."""
+    rc, rep, _, err = finished
+    lines = [ln for ln in lines if ln]
+    if rc or rep is None:
+        print(err, file=sys.stderr, flush=True)
+    if not checks.check(rc == 0 and rep is not None,
+                        f"{name}: launcher process exit code {rc}"):
+        checks.end_phase("xlstm_train")
+    k12 = 3 if contrastive else 0
+    want = dict(XLSTM_NO_KERNELS, gcl_pair_stats=k12, gcl_pair_grads=k12,
+                gcl_pair_stats_cuda=2 * k12, gcl_pair_grads_cuda=2 * k12)
+    got = dict(rep["launches"], **rep["k4"])
+    rec = rep["record"]
+    step_lines = [ln for ln in lines if ln.startswith("step ")]
+    acc = [ln for ln in lines if ln.startswith("retrieval accuracy: ")]
+    checks.check(got == want and len(rec) == 3 and len(step_lines) == 3
+                 and all(math.isfinite(r["loss"]) for r in rec)
+                 and rep["dtype_error"] is None
+                 and bool(acc) == contrastive,
+                 f"{name}: launches {got} (want {want}), lines "
+                 f"{step_lines + acc}, dtypes {rep['dtype_error']}")
+    emit(f"{name}_launcher", steps=3, lines=step_lines + acc,
+         launches=got, losses=[r["loss"] for r in rec],
+         ms_per_step_after_warmup=(rec[-1]["time"] - rec[0]["time"]) / 2
+         * 1e3, max_memory_allocated=rep["max_memory_allocated"],
+         wall_seconds=rep["wall_seconds"])
+    return got
+
+
+def phase_xlstm_train(checks, held=None):
+    """``xlstm-125m`` trained at full width and depth (f32, seed 0): the LM
+    step timed here (``_xlstm_lm``), then its checks that time nothing
+    (``_xlstm_train_checks``: both launchers, the f64 gradients, the
+    sLSTM's two paths, the contrastive steps); every byte of the card's
+    memory it took returned (``_memory_returned``).  ``held``: the
+    launchers' held ``_LauncherProcess``es ({"lm", "contrastive"}),
+    started ahead of the phase; else they start here, held while the LM
+    step is timed.  Returns K1's and K2's launches."""
+    t_phase = time.monotonic()
+    held = held or {"lm": _LauncherProcess(),
+                    "contrastive": _LauncherProcess()}
+    before = _card_memory()
+    cfg, model = _xlstm_model(checks, "xlstm_train")
+    _xlstm_lm(checks, cfg, model)
+    out = _xlstm_train_checks(checks, cfg, model, held)
+    del model
+    _memory_returned(checks, "xlstm_train", before)
+    emit("xlstm_train", seconds=time.monotonic() - t_phase)
+    checks.end_phase("xlstm_train")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                  "GPU (no arguments: every phase)")
@@ -6770,6 +7291,7 @@ def main(argv=None):
                          "audio, train, "
                          "clip_family, mesh after train, hybrid_train, "
                          "dense_train, moe_train, vlm_train, audio_train, "
+                         "xlstm, xlstm_train, "
                          "remat_forms, moe_depth, vlm_remat_forms, "
                          "resilience); no report and no last line")
     args = ap.parse_args(argv)
@@ -6800,6 +7322,8 @@ def main(argv=None):
                     "moe_train": phase_moe_train,
                     "vlm_train": phase_vlm_train,
                     "audio_train": phase_audio_train,
+                    "xlstm": phase_xlstm,
+                    "xlstm_train": phase_xlstm_train,
                     "remat_forms": phase_remat_forms,
                     "moe_depth": phase_moe_depth,
                     "vlm_remat_forms": phase_vlm_remat_forms,
@@ -6869,13 +7393,19 @@ def main(argv=None):
     mark("hybrid_train")
     dense_train = phase_dense_train(checks, child=dense_child)
     mark("dense_train")
+    # phase xlstm_train's launchers, held: their imports run here
+    xlstm_held = {"lm": _LauncherProcess(), "contrastive": _LauncherProcess()}
     moe_train = phase_moe_train(checks)
     mark("moe_train")
     vlm_train = phase_vlm_train(checks)
     mark("vlm_train")
-    # last: a failure here cannot hide an earlier phase's result
     audio_train = phase_audio_train(checks)
     mark("audio_train")
+    phase_xlstm(checks)
+    mark("xlstm")
+    # last: a failure here cannot hide an earlier phase's result
+    xlstm_train = phase_xlstm_train(checks, held=xlstm_held)
+    mark("xlstm_train")
     cross_train = {"vlm_train": vlm_train, "audio_train": audio_train}
     kernels = []
     for (case, dt_name), t in timings.items():
@@ -7041,6 +7571,13 @@ def main(argv=None):
             "cross_train_launches": {
                 phase: out["contrastive"][name]
                 for phase, out in cross_train.items()},
+            # phase xlstm_train: xlstm-125m's 2 contrastive steps here and
+            # its contrastive launcher's 3 (64 x 64 x 512, the hybrid_ctr
+            # case's shape); its LM steps launch none
+            "xlstm_train_launches": {
+                kind: xlstm_train[kind][name]
+                for kind in ("contrastive", "contrastive_launcher",
+                             "lm_launcher")},
             "hybrid_train_cuda_launches": hybrid_train["contrastive"][
                 f"{name}_cuda"],
             "clip_family_launches": {
@@ -7121,7 +7658,8 @@ if __name__ == "__main__":
         {"train": _mesh_worker_train, "step": _mesh_worker_step,
          "family": _mesh_worker_family,
          "dense": lambda argv: _mesh_worker_lm(argv, DENSE_ARCH,
-                                               DENSE_MESH_LAYERS),
+                                               DENSE_MESH_LAYERS,
+                                               together=True),
          "moe": lambda argv: _mesh_worker_lm(argv, MOE_ARCH,
                                              MOE_MESH_LAYERS)
          }[args[1]](args[2:])

@@ -6,8 +6,9 @@ package.  The paper's three CLIP settings (ResNet-50 on CC3M, ViT-B/32 on
 CC12M, ViT-B/16 on LAION), the hybrid ``zamba2-1.2b``, the dense LMs
 (``qwen3-1.7b``, ``yi-6b``, ``granite-3-8b``, ``qwen1.5-32b``) and the
 MoE LMs (``qwen3-moe-30b-a3b``, ``llama4-scout-17b-a16e``) are
-registered here, and so are the vlm ``llama-3.2-vision-11b`` and the
-audio encoder-decoder ``seamless-m4t-large-v2``; ``reduced()`` gives the
+registered here, and so are the vlm ``llama-3.2-vision-11b``, the
+audio encoder-decoder ``seamless-m4t-large-v2`` and the xLSTM
+``xlstm-125m`` (family ``ssm``); ``reduced()`` gives the
 same small shapes as the JAX package's ``reduced()``, which is what lets
 the tests load one set of params into both packages.
 """
@@ -75,7 +76,7 @@ class CLIPConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # clip, hybrid, dense, moe, vlm, audio
+    family: str                    # clip, hybrid, dense, moe, vlm, audio, ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -91,6 +92,8 @@ class ArchConfig:
     sliding_window: int = 0        # 0 = full attention
     moe: MoEConfig = MoEConfig()
     ssm: SSMConfig = SSMConfig()
+    # ssm (xLSTM): block kinds cycled over the layers ("m" mLSTM, "s" sLSTM)
+    xlstm_pattern: str = ""
     # hybrid: one shared attention block applied every this many layers
     hybrid_attn_every: int = 0
     # vlm: a cross-attention block every this many layers, over the stub
@@ -124,8 +127,7 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: the JAX package's ``reduced()`` for the
-        fields a CLIP, hybrid, dense, MoE, vlm or audio config has."""
+        """Smoke-test variant: the JAX package's ``reduced()``."""
         kw = dict(
             n_layers=2,
             d_model=min(self.d_model, 256),
@@ -155,6 +157,8 @@ class ArchConfig:
         if self.hybrid_attn_every:
             kw["hybrid_attn_every"] = 2
             kw["n_layers"] = 2
+        if self.xlstm_pattern:
+            kw["n_layers"] = 2
         if self.clip is not None:
             kw["clip"] = dataclasses.replace(
                 self.clip, image_size=32, patch_size=8, vision_layers=2,
@@ -169,7 +173,7 @@ _ARCH_MODULES = ["clip_rn50_cc3m", "clip_vitb32_cc12m", "clip_vitb16_laion",
                  "zamba2_1p2b", "qwen3_1p7b", "yi_6b", "granite_3_8b",
                  "qwen1p5_32b", "qwen3_moe_30b_a3b",
                  "llama4_scout_17b_a16e", "llama_3_2_vision_11b",
-                 "seamless_m4t_large_v2"]
+                 "seamless_m4t_large_v2", "xlstm_125m"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -15,8 +15,9 @@ runs on the card unless ``--device cpu`` is given.  ``--arch`` defaults
 to ``qwen3-1.7b``, as in the JAX launcher; the ``dense`` (qwen3-1.7b,
 yi-6b, granite-3-8b, qwen1.5-32b), ``hybrid`` (zamba2-1.2b), ``moe``
 (qwen3-moe-30b-a3b, llama4-scout-17b-a16e), ``vlm``
-(llama-3.2-vision-11b) and ``audio`` (seamless-m4t-large-v2) families
-are ported, and any other arch exits 2 (ssm is ROADMAP queue P6b).  As
+(llama-3.2-vision-11b), ``audio`` (seamless-m4t-large-v2) and ``ssm``
+(xlstm-125m) families decode here, and any other arch (a CLIP setting)
+exits 2.  As
 in the JAX launcher, the vlm's image embeds (B, n_image_tokens,
 vision_dim) and the audio's frames (B, (prompt + gen) // subsample,
 d_model) are seeded stubs (standard normal x 0.1, drawn from the
@@ -97,10 +98,11 @@ def main(argv=None):
     except KeyError:
         cfg = None
     if cfg is None or cfg.family not in BB.LM_FAMILIES:
-        what = f"family {cfg.family!r}" if cfg else "its config"
-        print(f"serve: {args.arch}: {what} is not ported (ported: the "
-              f"{', '.join(BB.LM_FAMILIES)} families; ssm is ROADMAP "
-              f"queue P6b)", file=sys.stderr)
+        what = f"family {cfg.family!r}" if cfg else "an unknown config"
+        print(f"serve: {args.arch}: {what} has no decode path (the "
+              f"{', '.join(BB.LM_FAMILIES)} families decode here; the CLIP "
+              f"towers serve through repro_torch.launch.serve_embed)",
+              file=sys.stderr)
         sys.exit(2)
     if args.reduced:
         cfg = cfg.reduced()

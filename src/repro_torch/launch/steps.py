@@ -12,15 +12,16 @@
 
 Prefill and decode run under ``torch.inference_mode``; the LM train step
 under autograd, where ``forward_hidden`` recomputes in the backward (the
-hybrid's, the vlm's and the audio model's layers one by one, the dense
-and MoE stacks in JAX's groups); its metrics are ``lm_loss``'s: ``ce``
-and, for the MoE LMs, ``moe_lb`` and ``moe_z``.  The vlm's batch
+hybrid's, the vlm's and the audio model's layers and the xLSTM's mLSTM
+blocks one by one, the dense and MoE stacks in JAX's groups); its
+metrics are ``lm_loss``'s: ``ce`` and, for the MoE LMs, ``moe_lb`` and
+``moe_z``.  The vlm's batch
 carries ``image_embeds`` and the audio's ``frames`` (the JAX tests'
 stub inputs) beside ``tokens`` and ``labels``.  ``impl="flash"``, the
 default, is the path through the hand-written kernels (K3 in every
 dense layer, in the hybrid's shared attention block, in every attention
 block of the MoE LMs and in every self- and cross-attention of the vlm
-and the audio model, K4 in every Mamba2 layer);
+and the audio model, K4 in every Mamba2 layer; the xLSTM runs none);
 ``"chunked"``/``"naive"`` are the plain PyTorch
 paths (the JAX package's default is ``"chunked"``).  ``donated_jit`` has
 no counterpart (PyTorch runs eagerly; the LM step updates the model's

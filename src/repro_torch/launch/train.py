@@ -102,12 +102,11 @@ state.  ``--local-devices`` is refused with exit code 2: it forces CPU
 devices per process in JAX, and a rank here is one process with one
 device.  ``--mesh`` with ``--objective lm`` on an LM backbone exits as
 the JAX launcher does; with the contrastive objective an LM backbone
-(hybrid, dense or MoE) trains on the mesh like a CLIP arch, its towers
-recomputed in the backward as on one device.  An ``--arch`` whose config
-is not ported (the ssm family) exits 2, and so does one of the vlm or
-audio family: they train through the step functions on batches that
-carry their stub inputs, which this launcher's datasets, as JAX's
-launcher's, do not carry (ROADMAP F6).
+(hybrid, dense, MoE or ssm) trains on the mesh like a CLIP arch, its
+towers recomputed in the backward as on one device.  An ``--arch`` of
+the vlm or audio family exits 2: they train through the step functions
+on batches that carry their stub inputs, which this launcher's
+datasets, as JAX's launcher's, do not carry (ROADMAP F6).
 """
 from __future__ import annotations
 
@@ -294,9 +293,8 @@ def parse_args(argv=None):
     try:
         cfg = get_arch(args.arch)
     except KeyError:
-        ap.error(f"--arch {args.arch}: its config is not ported to "
-                 f"repro_torch (ported: the {', '.join(BB.FAMILIES)} "
-                 "families; ssm is ROADMAP queue P6b)")
+        ap.error(f"--arch {args.arch}: no such config (the "
+                 f"{', '.join(BB.FAMILIES)} families are registered)")
     if cfg.family in BB.CROSS_FAMILIES:
         stub = "image_embeds" if cfg.family == "vlm" else "frames"
         ap.error(f"--arch {args.arch}: the {cfg.family} family trains "

@@ -1,8 +1,9 @@
-"""Backbone assembly (port of the CLIP, hybrid, dense, MoE, vlm and audio
-branches of ``repro.models.backbones``).
+"""Backbone assembly (port of ``repro.models.backbones``: the CLIP,
+hybrid, dense, MoE, vlm, audio and ssm branches).
 
 The port's "params" are an ``nn.Module`` (``CLIP``, ``HybridLM``,
-``DenseLM``, ``MoELM``, ``VisionLM`` or ``AudioLM``); the JAX-layout tree
+``DenseLM``, ``MoELM``, ``VisionLM``, ``AudioLM`` or ``XLSTMLM``); the
+JAX-layout tree
 is its checkpoint form (see ``checkpoint.bridge``).
 
     init_params(cfg, gen, device)                -> model
@@ -77,8 +78,20 @@ super-block's remat around its self blocks' own: the same numbers); the
 audio encoder's and decoder's layers each on their own, as JAX's
 ``remat=True`` scans.  The cross blocks read the image or the encoder's
 output through their closure, so its gradient, the sum over the cross
-blocks, reaches ``img_proj`` and the encoder.  The ssm family raises
-everywhere (ROADMAP, queue P6b).
+blocks, reaches ``img_proj`` and the encoder.
+
+The ssm (xLSTM) depth pattern is ``cfg.xlstm_pattern[:n_layers]``, split
+as JAX's ``_xlstm_groups`` does into its shortest repeating unit and that
+unit into contiguous runs of one block kind: ``units`` is a ModuleList
+of units, each holding ``g0``, ``g1``, ... (ModuleLists of
+``xlstm.MLSTMBlock`` or ``xlstm.SLSTMBlock``), so the JAX paths are
+``units/g0/w_up`` with two leading axes (n_units, count).  Under
+autograd each mLSTM block is recomputed on its own (JAX nests a unit's
+remat around its blocks' own and checkpoints each mLSTM chunk: the same
+numbers); an sLSTM block is not, its scan keeping the states its
+hand-written backward reads (a recompute would run the token loop a
+second time).  Decode keeps ``g0``, ``g1``, ... with the same leading axes:
+the mLSTM's (C, n, m) and the sLSTM's (h, c, n, m), all f32.
 """
 from __future__ import annotations
 
@@ -99,20 +112,36 @@ from repro_torch.models import moe as M
 from repro_torch.models import precision as PR
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 
 CONTRASTIVE_DIM = 512   # joint embedding dim for the contrastive objective
 PAIR_DIM = 512          # stub paired-modality embedding dim
-FAMILIES = ("clip", "hybrid", "dense", "moe", "vlm", "audio")
-LM_FAMILIES = ("hybrid", "dense", "moe", "vlm", "audio")
+FAMILIES = ("clip", "hybrid", "dense", "moe", "vlm", "audio", "ssm")
+LM_FAMILIES = ("hybrid", "dense", "moe", "vlm", "audio", "ssm")
 CROSS_FAMILIES = ("vlm", "audio")
 
 
 def _check_family(cfg: ArchConfig, *families) -> None:
     if cfg.family not in (families or FAMILIES):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported here (ported: "
-            f"{', '.join(families or FAMILIES)}; the other LM families are "
-            f"ROADMAP queue P6b)")
+            f"family {cfg.family!r} has no such path (it is for the "
+            f"{', '.join(families or FAMILIES)} families)")
+
+
+def xlstm_groups(cfg: ArchConfig):
+    """JAX's ``_xlstm_groups``: (the unit's contiguous runs [(kind,
+    count), ...], n_units), the unit being the shortest repeating unit
+    of ``xlstm_pattern[:n_layers]``."""
+    pat = cfg.xlstm_pattern[:cfg.n_layers]
+    unit = next(pat[:u] for u in range(1, len(pat) + 1)
+                if len(pat) % u == 0 and pat[:u] * (len(pat) // u) == pat)
+    groups = []
+    for ch in unit:
+        if groups and groups[-1][0] == ch:
+            groups[-1] = (ch, groups[-1][1] + 1)
+        else:
+            groups.append((ch, 1))
+    return groups, len(pat) // len(unit)
 
 
 class SuperBlock(nn.Module):
@@ -235,8 +264,31 @@ class AudioLM(_LM):
             for _ in range(cfg.n_layers))
 
 
+class XLSTMUnit(nn.Module):
+    """One repeating unit: ``g0``, ``g1``, ... in order, each a
+    ModuleList of ``count`` blocks of one kind."""
+
+    def __init__(self, cfg: ArchConfig, groups):
+        super().__init__()
+        for gi, (kind, cnt) in enumerate(groups):
+            blk = X.MLSTMBlock if kind == "m" else X.SLSTMBlock
+            self.add_module(f"g{gi}", nn.ModuleList(blk(cfg)
+                                                    for _ in range(cnt)))
+
+
+class XLSTMLM(_LM):
+    """``_LM``'s parameters, then ``units/g{i}/...`` (two leading axes:
+    n_units, the run's count)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        groups, n_units = xlstm_groups(cfg)
+        self.units = nn.ModuleList(XLSTMUnit(cfg, groups)
+                                   for _ in range(n_units))
+
+
 _MODELS = {"clip": C.CLIP, "hybrid": HybridLM, "dense": DenseLM,
-           "moe": MoELM, "vlm": VisionLM, "audio": AudioLM}
+           "moe": MoELM, "vlm": VisionLM, "audio": AudioLM, "ssm": XLSTMLM}
 
 
 def _empty(cfg: ArchConfig, device) -> nn.Module:
@@ -301,7 +353,7 @@ def encode_pair(model, cfg: ArchConfig, batch, *, impl="flash",
 
 
 # ===========================================================================
-# The LMs (hybrid, dense, MoE): forward, LM loss, contrastive tower, prefill and
+# The LMs: forward, LM loss, contrastive tower, prefill and
 # decode
 # ===========================================================================
 
@@ -343,8 +395,10 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     averaged over its super-blocks).  ``impl`` reaches every attention
     layer (K3 for "flash": each dense layer, the hybrid's shared block,
     each attention block of the MoE LMs) and every Mamba2 layer (K4 for
-    "flash"; see ``models.ssm``); ``chunked=False`` runs the sequential
-    SSD.  With grad enabled, each Mamba2 layer and
+    "flash"; see ``models.ssm``); the xLSTM has neither and runs no
+    kernel.  ``chunked=False`` runs the sequential SSD, and the
+    sequential mLSTM.  With grad enabled, each Mamba2 layer, each mLSTM
+    block and
     each call of the hybrid's shared block is recomputed once in the
     backward (JAX's ``remat=True`` scans), and the dense and MoE stacks
     under JAX's grouped recompute (``layers.run_layers_grouped``, the
@@ -358,6 +412,12 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     x = L.embed_tokens(model.embed, batch["tokens"],
                        dtype=precision.compute_dtype)
     remat = torch.is_grad_enabled()
+    if cfg.family == "ssm":
+        for blk in _xlstm_blocks(model):
+            x = _run(remat and isinstance(blk, X.MLSTMBlock),
+                     functools.partial(_xlstm_block, blk, cfg,
+                                       chunked=chunked), (blk,), x)
+        return model.final_norm(x), {}
     if cfg.family in CROSS_FAMILIES:
         if cfg.family == "vlm":
             img = (PR.cast_compute(precision, batch["image_embeds"])
@@ -409,6 +469,19 @@ def forward_hidden(model, cfg: ArchConfig, batch, *,
     for m in getattr(model, "tail", ()):
         x = _run(remat, _mamba(m, cfg, impl, chunked), (m,), x)
     return model.final_norm(x), {}
+
+
+def _xlstm_blocks(model):
+    """The xLSTM's blocks in layer order."""
+    for unit in model.units:
+        for group in unit.children():
+            yield from group
+
+
+def _xlstm_block(blk, cfg, x, chunked=True):
+    if isinstance(blk, X.MLSTMBlock):
+        return X.apply_mlstm_block(blk, cfg, x, chunked=chunked)
+    return X.apply_slstm_block(blk, cfg, x)
 
 
 def _cross_stack(blocks, x, kv_x, impl, remat):
@@ -502,9 +575,18 @@ def init_decode_state(cfg: ArchConfig, batch_size, max_len,
     of (n_super, B, n_image_tokens, Hkv, hd)).  Audio: ``self_kv``
     (n_layers) and ``cross_kv`` (k/v of (n_layers, B, max_len //
     audio_subsample, Hkv, hd)).  The cross caches hold no ``slot_pos``:
-    ``prepare_decode_state`` fills them."""
+    ``prepare_decode_state`` fills them.  ssm: ``g0``, ``g1``, ... with
+    leading axes (n_units, count), the mLSTM's ``C``/``n``/``m`` and the
+    sLSTM's ``h``/``c``/``n``/``m``, f32 whatever ``dtype`` and
+    ``max_len``."""
     _check_family(cfg, *LM_FAMILIES)
     device = D.resolve(device)
+    if cfg.family == "ssm":
+        groups, n_units = xlstm_groups(cfg)
+        init = {"m": X.init_mlstm_cache, "s": X.init_slstm_cache}
+        return {f"g{gi}": init[kind](cfg, batch_size, (n_units, cnt),
+                                     device)
+                for gi, (kind, cnt) in enumerate(groups)}
     spec = T.attn_spec(cfg, window_override=window_override)
 
     def cross(lead, n):
@@ -557,7 +639,7 @@ def prepare_decode_state(model, cfg: ArchConfig, batch,
     ``image_embeds`` through ``img_proj`` in f32, the audio's from the
     encoder over ``frames`` (f32, ``impl="chunked"``: no kernel runs
     here), each cross block's K/V projected once and stored in ``dtype``.
-    The hybrid, dense and MoE families have no cross caches.  Self
+    The hybrid, dense, MoE and ssm families have no cross caches.  Self
     caches start empty; feed the prompt through ``decode_step`` to fill
     them."""
     state = init_decode_state(cfg, batch_size, max_len, dtype,
@@ -582,13 +664,25 @@ def prepare_decode_state(model, cfg: ArchConfig, batch,
 def decode_step(model, cfg: ArchConfig, state, token, pos: int,
                 *, window_override=None):
     """One-token decode.  token: (B, 1) int; ``pos`` the absolute
-    position.  Updates ``state`` in place (JAX returns a new state) and
-    returns ``(logits (B, padded_vocab), state)``."""
+    position (the ssm family ignores it, as JAX's does).  Updates
+    ``state`` in place (JAX returns a new state) and returns ``(logits
+    (B, padded_vocab), state)``."""
     _check_family(cfg, *LM_FAMILIES)
     x = L.embed_tokens(model.embed, token)
     pos = int(pos)
     def at(caches, *idx):            # one layer's cache: views, in place
         return {k: v[idx] for k, v in caches.items()}
+
+    if cfg.family == "ssm":
+        for u, unit in enumerate(model.units):
+            for gi, group in enumerate(unit.children()):
+                for i, blk in enumerate(group):
+                    dec = (X.decode_mlstm_block
+                           if isinstance(blk, X.MLSTMBlock)
+                           else X.decode_slstm_block)
+                    x, _ = dec(blk, cfg, at(state[f"g{gi}"], u, i), x)
+        x = model.final_norm(x)
+        return logits_from_hidden(model, cfg, x)[:, 0], state
 
     if cfg.family == "dense":
         for i, blk in enumerate(model.blocks):

@@ -23,9 +23,17 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator, scale=None):
 
 
 def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float):
+    """N(0, std) from ``gen``'s draws, made on its device: into ``w``
+    itself where it lies there in the default dtype (no buffer of its
+    size, which a host init of a few billion params pays for in seconds),
+    else into one buffer copied over.  The same draws, the same bits."""
     with torch.no_grad():
-        w.copy_(torch.randn(w.shape, generator=gen, device=gen.device)
-                * std)
+        if (w.device == gen.device and w.dtype == torch.get_default_dtype()
+                and w.is_contiguous()):
+            w.normal_(generator=gen).mul_(std)
+        else:
+            w.copy_(torch.randn(w.shape, generator=gen,
+                                device=gen.device).mul_(std))
 
 
 def param(*shape) -> nn.Parameter:

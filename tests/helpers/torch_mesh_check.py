@@ -29,6 +29,8 @@ Batteries:
          single-device steps, the gathers' backward counted, then the
          sharded checkpoint of the result in OUT/lm_ckpt_<arch>
   moe    the ``lm`` battery for the MoE LMs of ``MOE_ARCHS``
+  xlstm  (2 ranks, data:1,fsdp:2) the ``lm`` battery for the xLSTM of
+         ``XLSTM_ARCHS``
 
     PYTHONPATH=src:tests/helpers python -m torch_mesh_check <battery> \\
         OUT [IN] \\
@@ -328,13 +330,15 @@ LM_ARCHS = {"qwen3-1.7b": 12, "zamba2-1.2b": 3}
 # the MoE LMs: qwen3-moe at 12 super-blocks (2 groups of 6), llama4-scout
 # at 2 (a dense block and an MoE block each, recomputed one by one)
 MOE_ARCHS = {"qwen3-moe-30b-a3b": 12, "llama4-scout-17b-a16e": 4}
+# the xLSTM at 8 layers: two units of mmms, both block kinds
+XLSTM_ARCHS = {"xlstm-125m": 8}
 LM_SEQ, LM_BATCH, LM_SAMPLES = 16, 8, 16
 
 
 def lm_cfg(get_arch, arch):
     """A reduced LM backbone of ``LM_ARCHS`` or ``MOE_ARCHS`` from either
     package's ``get_arch``."""
-    depth = {**LM_ARCHS, **MOE_ARCHS}[arch]
+    depth = {**LM_ARCHS, **MOE_ARCHS, **XLSTM_ARCHS}[arch]
     return get_arch(arch).reduced().replace(n_layers=depth)
 
 
@@ -434,6 +438,10 @@ def battery_lm(mesh, out, inp, archs=LM_ARCHS):
 
 def battery_moe(mesh, out, inp):
     return battery_lm(mesh, out, inp, MOE_ARCHS)
+
+
+def battery_xlstm(mesh, out, inp):
+    return battery_lm(mesh, out, inp, XLSTM_ARCHS)
 
 
 def _props(mesh):
@@ -603,7 +611,8 @@ def battery_cuda(mesh, out, inp):
 BATTERIES = {"loss": battery_loss, "step": battery_step,
              "ckpt": battery_ckpt, "eval": battery_eval,
              "cuda": battery_cuda, "rn50": battery_rn50,
-             "lm": battery_lm, "moe": battery_moe}
+             "lm": battery_lm, "moe": battery_moe,
+             "xlstm": battery_xlstm}
 
 
 def main():
@@ -622,7 +631,7 @@ def main():
     try:
         shape = {"ckpt": (1, 4), "cuda": (1, args.num_processes),
                  "rn50": (1, 2), "lm": (1, 2),
-                 "moe": (1, 2)}.get(args.battery, (2, 2))
+                 "moe": (1, 2), "xlstm": (1, 2)}.get(args.battery, (2, 2))
         mesh = MS.make_train_mesh(*shape, device=dev)
         res, checks = BATTERIES[args.battery](mesh, args.out, args.inp)
         if mesh.rank == 0:

@@ -111,11 +111,12 @@ def setup(request):
     return jcfg, tcfg, jparams, flat, model, batch, want
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["xlstm-125m"])
 def test_configs_equal_jax_field_by_field(arch):
     """Every field of the port's config (full and reduced) equals the JAX
-    config's field of that name, ``is_encdec`` too; the JAX field the
-    port lacks is the ssm family's (at its default here)."""
+    config's field of that name, ``is_encdec`` too; the port lacks no
+    JAX field (the ssm family's ``xlstm_pattern`` came with the
+    xLSTM)."""
     j, t = j_get_arch(arch), t_get_arch(arch)
     for jc, tc in ((j, t), (j.reduced(), t.reduced())):
         for f in dataclasses.fields(tc):
@@ -125,15 +126,17 @@ def test_configs_equal_jax_field_by_field(arch):
             assert a == b, (arch, f.name, a, b)
         missing = {f.name for f in dataclasses.fields(jc)} - {
             f.name for f in dataclasses.fields(tc)}
-        assert missing == {"xlstm_pattern"} and not jc.xlstm_pattern
+        assert missing == set()
         assert tc.is_encdec == jc.is_encdec == (arch == AUDIO)
         assert tc.padded_vocab == jc.padded_vocab
     r = t.reduced()
     if arch == VLM:
         assert (r.cross_attn_every, r.n_image_tokens, r.vision_dim) == (
             2, 16, 64)
-    else:
+    elif arch == AUDIO:
         assert (r.enc_layers, r.n_layers) == (1, 2)
+    else:
+        assert (r.n_layers, r.xlstm_pattern) == (2, "mmmsmmmsmmms")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
